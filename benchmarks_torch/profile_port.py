@@ -1,0 +1,83 @@
+"""Where the port's time goes on the card: a short torch.profiler window
+over each smoke workload, reporting wall time, the summed device time of
+the CUDA kernels, the device's busy share (kernel time over wall time) and
+the kernels that take the most device time.
+
+Workloads (the ones ``chip_smoke.py`` drives):
+  sweep   n=16, r=4 (RA r=16), scenario 1, CS/SS/RA/LB/PC/PCMM, all-k,
+          10 chunks of 20 000 trials;
+  dgd     RegressionConfig() (N=900, d=400, n=15, r=3, k=15), 20 iterations
+          of each of CS/SS/RA/PC/PCMM.
+
+Run on a machine with a card, from the repository root:
+
+    python3 benchmarks_torch/profile_port.py
+
+Prints one JSON object per workload.  Where the profiler records no device
+time, the device numbers read null (not measured).
+"""
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+
+from repro_torch import dgd  # noqa: E402
+from repro_torch.configs import RegressionConfig  # noqa: E402
+from repro_torch.core import (cyclic_to_matrix, lb_spec, pc_spec,  # noqa: E402
+                              pcmm_spec, random_assignment_to_matrix,
+                              scenario1, staircase_to_matrix, sweep, to_spec)
+
+
+def _device_us(evt) -> float:
+    return float(getattr(evt, "device_time_total",
+                         getattr(evt, "cuda_time_total", 0.0)))
+
+
+def window(name, fn, card):
+    fn()                                   # warm: kernel build, allocator
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(_device_us(e) for e in kernels)
+    top = sorted(kernels, key=_device_us, reverse=True)[:8]
+    print(json.dumps({
+        "workload": name, "card": card, "wall_s": wall,
+        "device_kernel_s": dev_us / 1e6 if dev_us else None,
+        "busy_share": dev_us / 1e6 / wall if dev_us else None,
+        "kernel_launches": int(sum(e.count for e in kernels)) or None,
+        "top_kernels": [{"name": e.key[:80], "count": e.count,
+                         "device_ms": _device_us(e) / 1e3} for e in top]}))
+
+
+def main():
+    if not torch.cuda.is_available():
+        sys.exit("profile_port: no CUDA device available")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    n, r = 16, 4
+    specs = [to_spec("cs", cyclic_to_matrix(n, r)),
+             to_spec("ss", staircase_to_matrix(n, r)),
+             to_spec("ra", random_assignment_to_matrix(n)),
+             lb_spec(r), pc_spec(r), pcmm_spec(r)]
+    window("sweep", lambda: sweep(specs, scenario1(), n, trials=200_000,
+                                  chunk=20_000, devices="cuda"), card)
+    window("dgd", lambda: dgd.run_paper(RegressionConfig(), 20,
+                                        device="cuda"), card)
+
+
+if __name__ == "__main__":
+    main()
