@@ -6,8 +6,12 @@ the kernels that take the most device time.
 Workloads (the ones ``chip_smoke.py`` drives):
   sweep   n=16, r=4 (RA r=16), scenario 1, CS/SS/RA/LB/PC/PCMM, all-k,
           10 chunks of 20 000 trials;
+  rounds  one Fig. 8 cell (persistence 0.98, spread 3: N=12, R=3, K=9,
+          24 rounds, CS/SS/adapt/LB), 8 000 trials in 2 000-trial chunks,
+          with launches per chunk-round;
   dgd     RegressionConfig() (N=900, d=400, n=15, r=3, k=15), 20 iterations
-          of each of CS/SS/RA/PC/PCMM.
+          of each of CS/SS/RA/ADAPT/PC/PCMM on the iid cluster;
+  dgd-markov  the same on the Markov cluster.
 
 Run on a machine with a card, from the repository root:
 
@@ -29,6 +33,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch import dgd  # noqa: E402
 from repro_torch.configs import RegressionConfig  # noqa: E402
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+import fig8_convergence as fig8  # noqa: E402
+from repro_torch.core import sweep_rounds  # noqa: E402
 from repro_torch.core import (cyclic_to_matrix, lb_spec, pc_spec,  # noqa: E402
                               pcmm_spec, random_assignment_to_matrix,
                               scenario1, staircase_to_matrix, sweep, to_spec)
@@ -39,7 +46,7 @@ def _device_us(evt) -> float:
                          getattr(evt, "cuda_time_total", 0.0)))
 
 
-def window(name, fn, card):
+def window(name, fn, card, units=None):
     fn()                                   # warm: kernel build, allocator
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -57,6 +64,9 @@ def window(name, fn, card):
         "device_kernel_s": dev_us / 1e6 if dev_us else None,
         "busy_share": dev_us / 1e6 / wall if dev_us else None,
         "kernel_launches": int(sum(e.count for e in kernels)) or None,
+        "launches_per_unit": (int(sum(e.count for e in kernels)) / units[1]
+                              if units else None),
+        "unit": units[0] if units else None,
         "top_kernels": [{"name": e.key[:80], "count": e.count,
                          "device_ms": _device_us(e) / 1e3} for e in top]}))
 
@@ -75,8 +85,15 @@ def main():
              lb_spec(r), pc_spec(r), pcmm_spec(r)]
     window("sweep", lambda: sweep(specs, scenario1(), n, trials=200_000,
                                   chunk=20_000, devices="cuda"), card)
+    proc = fig8.cell_process(0.98, 3.0)
+    window("rounds", lambda: sweep_rounds(
+        fig8.specs(), proc, fig8.N, rounds=fig8.ROUNDS, k=fig8.K,
+        trials=8000, chunk=fig8.CHUNK, devices="cuda"), card,
+        units=("chunk-round", 4 * fig8.ROUNDS))
     window("dgd", lambda: dgd.run_paper(RegressionConfig(), 20,
                                         device="cuda"), card)
+    window("dgd-markov", lambda: dgd.run_paper(
+        RegressionConfig(), 20, device="cuda", cluster="markov"), card)
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """Carry the JAX side's state into the port.
 
-This system has no model weights: its state is delay-model parameters, TO
-matrices, round configurations, the regression data and parameters, and
-delay tables.  The JAX package hands them over as numpy arrays and plain
+This system has no model weights: its state is delay-model and process
+parameters, TO matrices, round configurations, the regression data and
+parameters, delay tables and traces, and an adaptive scheduler's feedback
+estimates.  The JAX package hands them over as numpy arrays and plain
 dicts (``dataclasses.asdict`` of its frozen specs, ``RoundConfig.to_dict``,
 ``np.asarray`` of its arrays); these functions turn them into the port's
 objects, so both packages can compute on the same inputs.
@@ -14,12 +15,14 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .core import delays, scheduling
+from .core import cluster, delays, scheduling
 from .core.spec import RoundConfig
+from .core.trace import DelayTrace
 from .device import resolve_device
 
-__all__ = ["delay_model", "to_matrix", "round_config", "regression_state",
-           "delay_tables"]
+__all__ = ["delay_model", "delay_process", "to_matrix", "round_config",
+           "regression_state", "delay_tables", "delay_trace",
+           "adaptive_scheduler"]
 
 _MODELS = {cls.__name__: cls for cls in (
     delays.TruncatedGaussianDelays, delays.ShiftedExponentialDelays,
@@ -47,6 +50,30 @@ def delay_model(kind: str, fields: dict) -> delays.DelayModel:
     if cls is delays.BimodalStragglerDelays and isinstance(kw.get("base"),
                                                            dict):
         kw["base"] = delay_model("TruncatedGaussianDelays", kw["base"])
+    return cls(**kw)
+
+
+_PROCESSES = {cls.__name__: cls for cls in (
+    cluster.MarkovRegimeProcess, cluster.AR1Process)}
+
+
+def delay_process(kind: str, fields: dict, *,
+                  base_kind: str = "TruncatedGaussianDelays"
+                  ) -> cluster.DelayProcess:
+    """The port's ``MarkovRegimeProcess`` or ``AR1Process`` (class name
+    ``kind``) from the JAX process's fields (``dataclasses.asdict``, which
+    flattens the nested base model to a dict: ``base_kind`` names its
+    class)."""
+    try:
+        cls = _PROCESSES[kind]
+    except KeyError:
+        raise ValueError(f"unknown delay process {kind!r}; have "
+                         f"{sorted(_PROCESSES)}") from None
+    kw = {k: _frozen(v) for k, v in fields.items() if k != "base"}
+    if "base" in fields:
+        base = fields["base"]
+        kw["base"] = (base if isinstance(base, delays.DelayModel)
+                      else delay_model(base_kind, base))
     return cls(**kw)
 
 
@@ -84,3 +111,34 @@ def delay_tables(T1, T2, *, device=None
         raise ValueError(f"T1/T2 must share a (..., n, r) shape; got "
                          f"{tuple(T1.shape)} and {tuple(T2.shape)}")
     return T1, T2
+
+
+def delay_trace(T1, T2, meta=None) -> DelayTrace:
+    """A recorded trace (the JAX ``DelayTrace``'s ``T1``, ``T2`` and
+    ``meta``) as the port's ``DelayTrace``; the content digest is the
+    same."""
+    return DelayTrace(np.asarray(T1), np.asarray(T2), meta=meta)
+
+
+def adaptive_scheduler(C, est=None, silent=None, *, device=None,
+                       **kwargs) -> scheduling.AdaptiveScheduler:
+    """The port's ``AdaptiveScheduler`` over base matrix ``C`` carrying a
+    JAX scheduler's feedback state: its ``est`` (float64 per-worker
+    estimates, +inf = never observed; None before any feedback) and
+    ``silent`` counters.  ``kwargs`` are the scheduler's options (beta,
+    gamma, dead_after, target_k)."""
+    sch = scheduling.AdaptiveScheduler(np.asarray(C), device=device,
+                                       **kwargs)
+    n = sch.C.shape[0]
+    if est is not None:
+        est = np.array(est, np.float64)
+        if est.shape != (n,):
+            raise ValueError(f"est must have shape ({n},), got {est.shape}")
+        sch.est = est
+    if silent is not None:
+        silent = np.array(silent, np.int64)
+        if silent.shape != (n,):
+            raise ValueError(f"silent must have shape ({n},), got "
+                             f"{silent.shape}")
+        sch.silent = silent
+    return sch

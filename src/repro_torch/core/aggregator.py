@@ -1,5 +1,5 @@
-"""First-k-distinct gradient aggregation (paper eq. 61), static path;
-counterpart of ``repro.core.aggregator.StragglerAggregator``.
+"""First-k-distinct gradient aggregation (paper eq. 61); counterpart of
+``repro.core.aggregator.StragglerAggregator``.
 
 One SGD iteration = one *round*: worker ``i`` evaluates tasks ``C[i, 0..]``
 in order, the round's delays come from a ``DelayProcess`` whose state
@@ -7,10 +7,16 @@ persists across ``round_mask`` calls, and the earliest copies of the k
 earliest distinct tasks are combined with the unbiased scaling of eq. (61).
 Task arrivals go through the engine's static gather plan.
 
-The port's aggregator takes a ``RoundConfig``.  Adaptive row assignment,
-load re-balancing and deadlines (``adaptive``, ``rebalance``, ``deadline``)
-and ``expected_completion`` (which needs the rounds engine) arrive with the
-port's ``greedy_assign`` slice; until then they raise
+The port's aggregator takes a ``RoundConfig``.  With ``adaptive=True`` it
+re-permutes the base matrix's rows every round from observed per-worker
+delay feedback (``scheduling.AdaptiveScheduler``, whose greedy assignment
+is the ``greedy_assign`` kernel on the card): fetch the coming round's
+schedule with ``current_matrix()`` before ``round_mask``.
+``censored_feedback`` restricts the feedback to messages that reached the
+master by the round's close, and ``dead_after`` presumes long-silent
+workers dead.  ``expected_completion`` runs on the rounds engine
+(``montecarlo.sweep_rounds``).  Load re-balancing (``rebalance``) and round
+deadlines wait for a later slice of the port and raise
 ``NotImplementedError``.
 """
 from __future__ import annotations
@@ -20,17 +26,18 @@ from typing import Any, Tuple
 import torch
 
 from ..device import resolve_device
-from . import montecarlo
-from .cluster import as_process
+from . import montecarlo, scheduling
+from .cluster import IIDProcess, as_process
 from .completion import (apply_row_layout, message_arrival_times,
                          message_slot_layout, row_layout_is_identity,
                          winner_mask_gather)
 from .spec import RoundConfig
+from .trace import TraceProcess
 
 __all__ = ["StragglerAggregator"]
 
-_LATER = ("arrives with the port's greedy_assign slice (rounds axis and "
-          "adaptive scheduling)")
+_LATER = ("arrives with the port's fault-tolerance slice (re-balancing, "
+          "deadlines, faults, trace recording)")
 
 
 def _tree_map(fn, tree):
@@ -52,9 +59,9 @@ class StragglerAggregator:
             weights, t_done = agg.round_mask(seed)   # (n, r) weights, scalar
             grad = agg.combine(slot_grads, weights)
 
-    ``seed`` selects the round's random stream (trial id 0 of the process);
-    ``slot_grads`` is a tensor or a dict/list of tensors with leading dims
-    (n, r).
+    ``seed`` selects the round's random stream (trial id 0 of the process;
+    ``rng.round_seed`` gives a run's per-round seeds); ``slot_grads`` is a
+    tensor or a dict/list of tensors with leading dims (n, r).
     """
 
     def __init__(self, config: RoundConfig, delay, *, init_seed=None,
@@ -62,8 +69,8 @@ class StragglerAggregator:
         if not isinstance(config, RoundConfig):
             raise TypeError(f"StragglerAggregator takes a RoundConfig, got "
                             f"{type(config).__name__}")
-        if config.adaptive or config.rebalance:
-            raise NotImplementedError(f"adaptive/rebalance rounds {_LATER}")
+        if config.rebalance:
+            raise NotImplementedError(f"adaptive load re-balancing {_LATER}")
         if config.deadline is not None:
             raise NotImplementedError(f"round deadlines {_LATER}")
         self.config = config
@@ -74,6 +81,14 @@ class StragglerAggregator:
         self._plan = torch.as_tensor(
             montecarlo.task_gather_plan(self.base_C, n), dtype=torch.int64,
             device=self.device)
+        self.scheduler = None
+        if config.adaptive:
+            kw = dict(beta=config.feedback_beta, gamma=config.coverage_gamma,
+                      device=self.device)
+            if config.dead_after is not None:
+                kw.update(dead_after=config.dead_after, target_k=config.k)
+            self.scheduler = scheduling.AdaptiveScheduler(self.base_C, **kw)
+        self.censored = config.censored_feedback
         layout = message_slot_layout(config.load_vector, r,
                                      config.n_messages, config.comm_eps)
         self._row_layout = None if row_layout_is_identity(layout) else layout
@@ -84,29 +99,50 @@ class StragglerAggregator:
         self.realized_k_history: list[float] = []
 
     def current_matrix(self):
-        """The TO matrix for the coming round (static: the base matrix)."""
-        return self.base_C
+        """The TO matrix for the coming round (row ``w`` = the tasks worker
+        ``w`` executes): the base matrix, or the adaptive re-assignment."""
+        if self.scheduler is None:
+            return self.base_C
+        return self.scheduler.matrix()
 
     def current_loads(self):
         """Per-worker loads for the coming round."""
-        return self.config.load_vector
+        if self.scheduler is None:
+            return self.config.load_vector
+        return self.scheduler.loads()
 
     def round_mask(self, seed: int) -> Tuple[torch.Tensor, torch.Tensor]:
         """Advance the cluster one round, returning (weights (n, r),
         completion time scalar).  ``weights`` sums to the realized
         distinct-result count (k almost surely) in ``current_matrix()``'s
-        layout."""
+        layout; an adaptive aggregator then feeds the round's delays to its
+        scheduler."""
         cfg = self.config
         n, r = cfg.n, cfg.width
         self.process.check_rounds(self._rounds_done + 1)
         self._state, T1, T2 = self.process.step(self._state, seed, self._tid,
                                                 n, r)
         s = message_arrival_times(T1, T2, r)[0]          # eq. (1)
+        row_of_worker = None
+        if self.scheduler is not None:
+            # permute to base-row space; the message layout follows the row
+            row_of_worker = torch.as_tensor(self.scheduler.row_of_worker(),
+                                            device=self.device)
+            s = s[torch.argsort(row_of_worker)]
         if self._row_layout is not None:
             s = apply_row_layout(s, self._row_layout)
         weights, t_done = winner_mask_gather(self.base_C, self._plan, s, n,
                                              cfg.k)
         self._rounds_done += 1
+        if row_of_worker is not None:
+            weights = weights[row_of_worker]             # worker-major
+            t1 = T1[0].cpu().numpy()
+            if self.censored:
+                self.scheduler.observe(
+                    t1, arrivals=s[row_of_worker].cpu().numpy(),
+                    t_done=float(t_done))
+            else:
+                self.scheduler.observe(t1)
         self.realized_k_history.append(float(weights.sum()))
         return weights, t_done
 
@@ -122,6 +158,31 @@ class StragglerAggregator:
             return (g * w).sum(dim=(0, 1)) / den
         return _tree_map(_one, slot_grads)
 
-    def expected_completion(self, *args, **kwargs) -> float:
-        raise NotImplementedError(f"expected_completion needs the rounds "
-                                  f"engine, which {_LATER}")
+    def expected_completion(self, seed: int = 0, trials: int = 4096,
+                            rounds: int | None = None) -> float:
+        """Monte-Carlo estimate of the mean per-round completion time
+        (eq. 5) on the rounds engine, for the policy this aggregator runs.
+        Stateful processes average ``rounds`` consecutive rounds (default
+        8, at most what remains of a replayed trace), the i.i.d. process
+        one."""
+        cfg = self.config
+        if rounds is None:
+            rounds = 1 if isinstance(self.process, IIDProcess) else 8
+            if isinstance(self.process, TraceProcess):
+                rounds = min(rounds, self.process.trace.rounds
+                             - int(self.process.start_round))
+        kw = {}
+        if self.scheduler is not None:
+            spec = montecarlo.adaptive_spec("s", self.base_C,
+                                            messages=cfg.messages)
+            kw = dict(feedback_beta=self.scheduler.beta,
+                      coverage_gamma=self.scheduler.gamma,
+                      censored_feedback=self.censored)
+        else:
+            spec = montecarlo.to_spec("s", self.base_C,
+                                      messages=cfg.messages,
+                                      comm_eps=cfg.comm_eps)
+        res = montecarlo.sweep_rounds(
+            [spec], self.process, cfg.n, rounds=rounds, k=cfg.k,
+            trials=trials, seed=seed, devices=self.device, **kw)
+        return res.mean_round("s")

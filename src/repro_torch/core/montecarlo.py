@@ -1,5 +1,6 @@
-"""Single-round Monte-Carlo sweep engine — the port's hot path; counterpart
-of the single-round half of ``repro.core.montecarlo``.
+"""Monte-Carlo sweep engines — the port's hot path; counterpart of
+``repro.core.montecarlo``: the single-round ``sweep`` and the rounds axis
+(``sweep_rounds`` / ``trajectory_samples``).
 
 Every paper figure (Figs. 4-7) is an average-completion-time sweep over a
 (scheme, r, k, scenario) grid.  ``sweep`` evaluates every scheme against ONE
@@ -29,8 +30,22 @@ Scheme kinds: ``"to"`` (a TO matrix, eqs. 1-2, 6), ``"tau"`` (raw task
 arrivals), ``"lb"`` (the oracle lower bound, eq. 46), ``"pc"`` (eqs. 51-52)
 and ``"pcmm"`` (eqs. 56-57), each with the intra-round message budget
 (``messages``, paper Sec. V-C), ragged per-worker ``loads`` and the
-per-message overhead ``comm_eps``.  The rounds axis, the adaptive kinds,
-resumable sweeps and multi-device sharding wait for later slices.
+per-message overhead ``comm_eps``.
+
+The rounds axis (``sweep_rounds``, ``trajectory_samples``) scores every
+scheme over consecutive rounds of one ``DelayProcess`` realization per
+trial: the process state (straggler persistence) and the adaptive schemes'
+per-trial delay estimates carry from round to round in a Python loop
+inside each chunk.  ``adaptive_spec`` schemes re-assign their base
+matrix's rows every round from that feedback through
+``scheduling.greedy_row_assignment_batch`` (the ``greedy_assign`` kernel
+on the card), with idealized or censored feedback.  Round ``t`` draws
+under ``rng.round_seed(seed, t + 1)`` and the process starts under
+``rng.round_seed(seed, 0)``, keyed by the global trial id, so trajectories
+are chunk-invariant.  Per-round partials are float32 per chunk, combined in
+float64 on the host in global chunk order.  Deadlines, load re-balancing,
+trace recording, resumable sweeps and multi-device sharding wait for later
+slices.
 """
 from __future__ import annotations
 
@@ -42,15 +57,19 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from . import scheduling
+from . import rng, scheduling
 
 __all__ = [
     "SchemeSpec", "SweepResult", "to_spec", "lb_spec", "pc_spec",
     "pcmm_spec", "tau_spec", "task_gather_plan",
     "task_arrival_times_gather", "message_boundaries", "message_slot_map",
     "message_group_sizes", "slot_arrival_times", "sweep",
-    "completion_samples", "task_arrival_samples",
+    "completion_samples", "task_arrival_samples", "adaptive_spec",
+    "RoundsResult", "sweep_rounds", "trajectory_samples",
 ]
+
+_LATER = ("arrives with the port's fault-tolerance slice (re-balancing, "
+          "deadlines, faults, trace recording)")
 
 INF = math.inf
 
@@ -61,8 +80,8 @@ INF = math.inf
 class SchemeSpec:
     """One scheme to evaluate in a sweep (C stored as nested tuples)."""
     name: str
-    kind: str                 # "to" | "lb" | "pc" | "pcmm" | "tau"
-    C: Optional[tuple] = None       # TO matrix for "to"/"tau"
+    kind: str                 # "to" | "lb" | "pc" | "pcmm" | "tau" | "adaptive"
+    C: Optional[tuple] = None       # TO matrix for "to"/"tau"/"adaptive"
     r: Optional[int] = None         # computation load for "lb"/"pc"/"pcmm"
     messages: Optional[int] = None  # per-round messages per worker
                                     # (None = the kind's default semantics)
@@ -74,7 +93,7 @@ class SchemeSpec:
     @property
     def load(self) -> int:
         """Width of this scheme's slot grid (the maximum per-worker load)."""
-        if self.kind in ("to", "tau"):
+        if self.kind in ("to", "tau", "adaptive"):
             return len(self.C[0])
         return int(self.r)
 
@@ -136,6 +155,20 @@ def tau_spec(name: str, C, messages: Optional[int] = None, *,
     Cf, lt = _freeze_ragged(C, loads)
     return SchemeSpec(name=name, kind="tau", C=Cf, messages=messages,
                       loads=lt, comm_eps=float(comm_eps))
+
+
+def adaptive_spec(name: str, C, messages: Optional[int] = None, *,
+                  loads=None, rebalance: bool = False) -> SchemeSpec:
+    """An adaptive scheme: base TO matrix ``C`` whose rows are re-assigned
+    to workers each round from observed per-worker delay feedback (only
+    valid in ``sweep_rounds``).  ``loads`` makes the base ragged (rows
+    carry their loads through the re-permutation).  ``rebalance`` waits for
+    a later slice of the port."""
+    if rebalance:
+        raise NotImplementedError(f"adaptive load re-balancing {_LATER}")
+    Cf, lt = _freeze_ragged(C, loads)
+    return SchemeSpec(name=name, kind="adaptive", C=Cf, messages=messages,
+                      loads=lt)
 
 
 def lb_spec(r: Optional[int] = None, name: str = "lb",
@@ -331,17 +364,24 @@ def _plan_offsets_of(spec: SchemeSpec, plan: np.ndarray, n: int,
     return off_flat[plan]
 
 
+def _left_fold(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Running sum along ``dim`` as an explicit left fold (same bits on
+    every device; ``torch.cumsum`` may associate differently)."""
+    x = x.movedim(dim, 0)
+    acc = x[0]
+    cols = [acc]
+    for j in range(1, x.shape[0]):
+        acc = acc + x[j]
+        cols.append(acc)
+    return torch.stack(cols).movedim(0, dim)
+
+
 def slot_arrival_times(T1: torch.Tensor, T2: torch.Tensor) -> torch.Tensor:
     """eq. (1): s[..., i, j] = sum_{m<=j} T1[..., i, m] + T2[..., i, j],
     as an explicit left-to-right running sum over the slots.  (A library
     cumsum may associate differently on the CPU; the fold keeps the result
     equal, bit for bit, to the JAX package's sequential cumsum.)"""
-    acc = T1[..., 0]
-    cols = [acc]
-    for j in range(1, T1.shape[-1]):
-        acc = acc + T1[..., j]
-        cols.append(acc)
-    return torch.stack(cols, dim=-1) + T2
+    return _left_fold(T1, -1) + T2
 
 
 # --------------------- shape-bucketed runtime evaluator ----------------------
@@ -544,11 +584,11 @@ def _check_specs(specs: Sequence[SchemeSpec], n: int) -> Tuple[SchemeSpec, ...]:
     if len(set(names)) != len(names):
         raise ValueError(f"duplicate scheme names: {names}")
     for sp in specs:
-        if sp.kind not in _GROUPS:
-            raise ValueError(f"{sp.name}: unknown or unported scheme kind "
-                             f"{sp.kind!r}; the port's single-round engine "
-                             f"takes {_GROUPS}")
-        if sp.kind in ("to", "tau") and len(sp.C) != n:
+        if sp.kind not in _GROUPS + ("adaptive",):
+            raise ValueError(f"{sp.name}: unknown scheme kind {sp.kind!r}; "
+                             f"the port's engines take "
+                             f"{_GROUPS + ('adaptive',)}")
+        if sp.kind in ("to", "tau", "adaptive") and len(sp.C) != n:
             raise ValueError(f"{sp.name}: TO matrix has {len(sp.C)} rows, "
                              f"expected n={n}")
         if sp.kind in ("lb", "pc", "pcmm") and not 1 <= sp.load:
@@ -580,11 +620,21 @@ def _check_specs(specs: Sequence[SchemeSpec], n: int) -> Tuple[SchemeSpec, ...]:
                 raise ValueError(
                     f"{sp.name}: loads must be ({n},) with 1 <= load <= "
                     f"{sp.load}, got {sp.loads}")
-        if sp.kind in ("to", "tau"):
+        if sp.kind in ("to", "tau", "adaptive"):
             C = sp.matrix()
             if sp.loads is not None or (C < 0).any():
                 scheduling.validate_to_matrix(C, n, loads=sp.loads)
+        if sp.comm_eps and sp.kind == "adaptive":
+            raise ValueError(f"{sp.name}: comm_eps is not supported for "
+                             f"adaptive specs yet")
     return specs
+
+
+def _covered_tasks(sp: SchemeSpec) -> int:
+    """Number of distinct tasks a (possibly ragged) TO spec can deliver
+    (row re-permutation keeps the union of active slots)."""
+    C = sp.matrix()
+    return len(np.unique(C[C >= 0]))
 
 
 def _validate_single_round(specs: Sequence[SchemeSpec], n: int,
@@ -593,13 +643,16 @@ def _validate_single_round(specs: Sequence[SchemeSpec], n: int,
     schedule that cannot deliver ``k`` distinct tasks has an infinite
     completion time)."""
     specs = _check_specs(specs, n)
+    for sp in specs:
+        if sp.kind == "adaptive":
+            raise ValueError(f"{sp.name}: adaptive schemes need a rounds "
+                             f"axis — use sweep_rounds")
     if ks is not None and not 1 <= ks <= n:
         raise ValueError(f"need 1 <= k <= n={n}, got k={ks}")
     for sp in specs:
         if sp.kind != "to":
             continue                   # tau: raw arrivals, +inf meaningful
-        C = sp.matrix()
-        covered = len(np.unique(C[C >= 0]))
+        covered = _covered_tasks(sp)
         if ks is not None and covered < ks:
             raise ValueError(
                 f"{sp.name}: ragged schedule covers only {covered} "
@@ -745,3 +798,277 @@ def task_arrival_samples(C, model, *, trials: int = 10000, seed: int = 0,
                     comm_eps=comm_eps)
     return _run([spec], model, n, trials=trials, seed=seed, chunk=chunk,
                 ks=None, want_samples=True, devices=devices)[spec.name]
+
+
+# ----------------------------- rounds axis -----------------------------------
+
+def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
+                     r_max: int, ks: int, rounds: int, beta: float,
+                     gamma: float, censored: bool,
+                     greedy_impl: Optional[str], device: torch.device):
+    """Multi-round evaluator for one chunk: ``(seed, tids)`` -> {name:
+    (rounds, chunk)} per-round completion times (the JAX package's
+    ``_build_rounds_fn`` without deadlines and re-balancing).
+
+    A Python loop over rounds carries (a) the delay process's state and (b)
+    the adaptive schemes' per-trial delay estimates.  Every scheme scores
+    the same delay realization each round (common random numbers).  Static
+    schemes go through the bucketed single-round evaluator at ``ks``;
+    adaptive ones re-assign their base rows from the estimates of earlier
+    rounds, permute the worker axis and take the k-th task arrival.
+
+    Feedback: uncensored, one estimate shared by the adaptive schemes, set
+    to the round's mean compute delay per worker in round 0 and an EMA
+    with weight ``beta`` on history after (+inf observations keep the old
+    estimate); censored, one estimate per scheme, updated by
+    ``scheduling.censored_feedback_update`` from the messages that beat
+    that scheme's own round close.  Slot sums are explicit left folds."""
+    static_specs = tuple(sp for sp in specs if sp.kind != "adaptive")
+    ad_specs = tuple(sp for sp in specs if sp.kind == "adaptive")
+    eval_fn = None
+    if static_specs:
+        sig, params, slots = _eval_layout(static_specs, n, r_max, ks)
+        eval_fn = _build_bucket_eval(sig)
+        pt = params_on(params, device)
+    ad_mats = tuple(sp.matrix() for sp in ad_specs)
+    ad_plans = tuple(_index_on(_plan_of(sp, n, r_max), device)
+                     for sp in ad_specs)
+    ad_mmaps = tuple(_slot_map_of(sp) for sp in ad_specs)
+    ad_mmaps_t = tuple(None if m is None else _index_on(m, device)
+                       for m in ad_mmaps)
+    ad_lrow = tuple(None if sp.loads is None
+                    else _index_on(np.asarray(sp.loads, np.int64), device)
+                    for sp in ad_specs)
+
+    def _worker_arrivals(i, w_of_row, s):
+        """Worker-major per-message arrivals feeding the censored feedback:
+        worker w's own slots, grouped by the message layout of the row it
+        executes, +inf beyond that row's load."""
+        r_sp = ad_mats[i].shape[1]
+        s_w = s[..., :, :r_sp]
+        mmap, mm_t = ad_mmaps[i], ad_mmaps_t[i]
+        row_of_worker = None
+        if mmap is None:
+            arr_w = s_w
+        elif mmap.ndim == 1:                       # row-invariant map
+            arr_w = s_w[..., mm_t]
+        else:
+            row_of_worker = torch.argsort(w_of_row, dim=-1)
+            arr_w = torch.take_along_dim(s_w, mm_t[row_of_worker], dim=-1)
+        if ad_lrow[i] is not None:                 # static ragged rows
+            if row_of_worker is None:
+                row_of_worker = torch.argsort(w_of_row, dim=-1)
+            l_of_w = ad_lrow[i][row_of_worker]
+            act = (torch.arange(r_sp, device=s.device)[None, None, :]
+                   < l_of_w[..., None])
+            arr_w = torch.where(act, arr_w, INF)
+        return arr_w
+
+    def rounds_fn(seed: int, tids: torch.Tensor) -> Dict[str, torch.Tensor]:
+        chunk = tids.shape[0]
+        pstate = process.init_trials(rng.round_seed(seed, 0), tids, n)
+        if censored:
+            ests = [torch.full((chunk, n), INF, device=device)
+                    for _ in ad_specs]
+        else:
+            est = torch.ones((chunk, n), device=device)
+        times: Dict[str, list] = {sp.name: [] for sp in specs}
+        for t in range(rounds):
+            pstate, T1, T2 = process.step(pstate, rng.round_seed(seed, t + 1),
+                                          tids, n, r_max)
+            s = slot_arrival_times(T1, T2)                  # eq. (1)
+            if eval_fn is not None:
+                out = eval_fn(s, pt)
+                for name, (g, i) in slots.items():
+                    times[name].append(out[g][:, i, 0])
+            new_ests = []
+            for i, sp in enumerate(ad_specs):
+                e = ests[i] if censored else est
+                w_of_row = scheduling.greedy_row_assignment_batch(
+                    ad_mats[i], e, gamma=gamma,
+                    impl=greedy_impl).to(torch.int64)
+                # row p's slots are executed by worker w_of_row[p]
+                s2 = torch.take_along_dim(s, w_of_row[..., None], dim=1)
+                tau = task_arrival_times_gather(ad_plans[i], s2)
+                v = _smallest(tau, ks)[..., -1]
+                times[sp.name].append(v)
+                if censored:
+                    r_sp = ad_mats[i].shape[1]
+                    new_ests.append(scheduling.censored_feedback_update(
+                        e, T1[..., :r_sp], _worker_arrivals(i, w_of_row, s),
+                        v, beta=beta))
+            if censored:
+                ests = new_ests
+            elif ad_specs:
+                # per-worker mean compute delay (a left-fold sum times the
+                # float32 reciprocal of r, as XLA evaluates the reference's
+                # mean); a +inf observation keeps the previous estimate
+                obs = scheduling._left_fold_sum(T1) * (1.0 / T1.shape[-1])
+                upd = obs if t == 0 else beta * est + (1.0 - beta) * obs
+                est = torch.where(torch.isfinite(obs), upd, est)
+        return {name: torch.stack(v) for name, v in times.items()}
+
+    return rounds_fn
+
+
+def _check_rounds_args(specs, n, ks, rounds):
+    specs = _check_specs(specs, n)
+    for sp in specs:
+        if sp.kind == "tau":
+            raise ValueError(f"{sp.name}: tau specs are single-round only")
+    if not 1 <= ks <= n:
+        raise ValueError(f"need 1 <= k <= n={n}, got k={ks}")
+    for sp in specs:
+        if sp.kind in ("to", "adaptive") and _covered_tasks(sp) < ks:
+            raise ValueError(
+                f"{sp.name}: ragged schedule covers only "
+                f"{_covered_tasks(sp)} distinct tasks < k={ks}; the "
+                f"completion time would be infinite")
+    if rounds < 1:
+        raise ValueError(f"need rounds >= 1, got {rounds}")
+    return specs
+
+
+def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
+                seed: int, chunk: Optional[int], beta: float, gamma: float,
+                censored: bool, want_samples: bool, record: bool = False,
+                deadline: Optional[float] = None,
+                deadline_policy: str = "wait", devices=None,
+                greedy_impl: Optional[str] = None):
+    from .cluster import as_process
+    from .spec import validate_deadline
+    if validate_deadline(deadline, deadline_policy) is not None:
+        raise NotImplementedError(f"round deadlines {_LATER}")
+    if record:
+        raise NotImplementedError(f"trace recording (record_trace) {_LATER}")
+    dev = _single_device(devices)
+    process = as_process(process)
+    process.check_rounds(rounds)
+    specs = _check_rounds_args(specs, n, k, rounds)
+    scheduling._resolve_greedy_impl(greedy_impl)
+    rng.round_seed(seed, rounds)                 # validate the seed range
+    r_max = max(sp.load for sp in specs)
+    chunk = _normalize_chunk(trials, chunk)
+    rounds_fn = _build_rounds_fn(specs, process, n, r_max, k, rounds, beta,
+                                 gamma, censored, greedy_impl, dev)
+    offs = torch.arange(chunk, dtype=torch.int64, device=dev)
+    samples: Dict[str, list] = {}
+    parts: Dict[str, list] = {}
+    for start in range(0, trials, chunk):
+        tids_raw = start + offs
+        # a partial last chunk repeats the last real trial in masked lanes
+        ys = rounds_fn(seed, tids_raw.clamp(max=trials - 1))
+        if want_samples:
+            for nm, v in ys.items():
+                samples.setdefault(nm, []).append(v)
+            continue
+        ok = (tids_raw < trials)[None, :]
+        for nm, v in ys.items():
+            cum = _left_fold(v, 0)
+            parts.setdefault(nm, []).append(torch.stack([
+                _tree_sum(torch.where(ok, x, 0.0).T)
+                for x in (v, v * v, cum, cum * cum)]))
+
+    if want_samples:
+        return {nm: torch.cat(v, dim=1)[:, :trials].T
+                for nm, v in samples.items()}
+
+    def moments(p0, p1):
+        mu = p0.sum(axis=0) / trials
+        var = np.maximum(p1.sum(axis=0) / trials - mu * mu, 0.0)
+        return mu, np.sqrt(var / trials)
+
+    per_round, stderr, wallclock, wc_stderr = {}, {}, {}, {}
+    for nm, v in parts.items():
+        # per-chunk float32 partials -> float64 in global chunk order
+        p = torch.stack(v).cpu().numpy().astype(np.float64)  # (nc, 4, R)
+        per_round[nm], stderr[nm] = moments(p[:, 0], p[:, 1])
+        wallclock[nm], wc_stderr[nm] = moments(p[:, 2], p[:, 3])
+    return per_round, stderr, wallclock, wc_stderr
+
+
+@dataclasses.dataclass(frozen=True)
+class RoundsResult:
+    """Wall-clock trajectories from a multi-round sweep.
+
+    ``per_round[name]``  (rounds,) mean completion time of each round;
+    ``wallclock[name]``  (rounds,) mean cumulative wall-clock after each
+                         round; ``stderr`` / ``wallclock_stderr`` the
+                         matching Monte-Carlo standard errors."""
+    per_round: Dict[str, np.ndarray]
+    stderr: Dict[str, np.ndarray]
+    wallclock: Dict[str, np.ndarray]
+    wallclock_stderr: Dict[str, np.ndarray]
+    trials: int
+    rounds: int
+    n: int
+    k: int
+
+    def _get(self, d: Dict[str, np.ndarray], name: str) -> np.ndarray:
+        if name not in d:
+            raise ValueError(f"unknown scheme {name!r}; have {sorted(d)}")
+        return d[name]
+
+    def mean_round(self, name: str) -> float:
+        """Mean completion time per round, averaged over the run."""
+        return float(self._get(self.per_round, name).mean())
+
+    def total(self, name: str) -> float:
+        """Mean wall-clock of the whole run."""
+        return float(self._get(self.wallclock, name)[-1])
+
+
+def sweep_rounds(specs: Sequence[SchemeSpec], process, n: int, *,
+                 rounds: int, k: int, trials: int = 20000, seed: int = 0,
+                 chunk: Optional[int] = None, feedback_beta: float = 0.7,
+                 coverage_gamma: float = 0.5,
+                 censored_feedback: bool = False,
+                 record_trace: bool = False,
+                 deadline: Optional[float] = None,
+                 deadline_policy: str = "wait", devices=None,
+                 greedy_impl: Optional[str] = None) -> RoundsResult:
+    """Evaluate every scheme over ``rounds`` consecutive rounds of ONE
+    shared ``DelayProcess`` realization per trial (a stateless
+    ``DelayModel`` is coerced to ``IIDProcess``, a ``DelayTrace`` to a
+    ``TraceProcess``).  ``adaptive_spec`` entries re-assign their base
+    matrix's rows each round from delay feedback (EMA weight
+    ``feedback_beta``, coverage discount ``coverage_gamma``;
+    ``censored_feedback`` restricts it to messages that beat the scheme's
+    own round close).  ``k`` is the single computation target; ``seed``
+    (below 2**32), ``trials`` and ``chunk`` as in ``sweep``; ``devices``
+    the one device (``None`` = the CUDA card).  ``greedy_impl``: ``None``/
+    ``"auto"``/``"kernel"`` (the ``greedy_assign`` kernel on the card, its
+    plain version on the CPU) or ``"scan"`` (the plain version anywhere).
+    ``deadline``/``deadline_policy`` and ``record_trace`` wait for a later
+    slice of the port."""
+    per_round, stderr, wallclock, wc_stderr = _run_rounds(
+        specs, process, n, rounds=rounds, k=k, trials=trials, seed=seed,
+        chunk=chunk, beta=feedback_beta, gamma=coverage_gamma,
+        censored=censored_feedback, want_samples=False,
+        record=record_trace, deadline=deadline,
+        deadline_policy=deadline_policy, devices=devices,
+        greedy_impl=greedy_impl)
+    return RoundsResult(per_round=per_round, stderr=stderr,
+                        wallclock=wallclock, wallclock_stderr=wc_stderr,
+                        trials=trials, rounds=rounds, n=n, k=k)
+
+
+def trajectory_samples(spec: SchemeSpec, process, n: int, *, rounds: int,
+                       k: int, trials: int = 10000, seed: int = 0,
+                       chunk: Optional[int] = None,
+                       feedback_beta: float = 0.7,
+                       coverage_gamma: float = 0.5,
+                       censored_feedback: bool = False,
+                       record_trace: bool = False,
+                       deadline: Optional[float] = None,
+                       deadline_policy: str = "wait", devices=None,
+                       greedy_impl: Optional[str] = None) -> torch.Tensor:
+    """Per-trial completion-time trajectories for one scheme, shape
+    ``(trials, rounds)`` (arguments as in ``sweep_rounds``)."""
+    return _run_rounds([spec], process, n, rounds=rounds, k=k,
+                       trials=trials, seed=seed, chunk=chunk,
+                       beta=feedback_beta, gamma=coverage_gamma,
+                       censored=censored_feedback, want_samples=True,
+                       record=record_trace, deadline=deadline,
+                       deadline_policy=deadline_policy, devices=devices,
+                       greedy_impl=greedy_impl)[spec.name]

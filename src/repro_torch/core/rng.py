@@ -13,7 +13,15 @@ unsigned 32-bit values.  Torch has no unsigned 64-bit multiply on CUDA and a
 operand into 16-bit halves (partial products below 2**48).
 
 Streams separate independent draws of one trial (a model's T1 and T2, a
-worker effect, a straggler mask); the delay models document theirs.
+worker effect, a straggler mask); the delay models and processes document
+theirs.
+
+Rounds: a run over consecutive rounds keys each round by its own seed,
+``round_seed(seed, i)``, with ``i = 0`` for the process's initial state and
+``i = t + 1`` for round ``t`` (the counterpart of the JAX engine splitting
+each trial's key into ``rounds + 1`` subkeys: subkey 0 initializes the
+process, subkey ``t + 1`` drives round ``t``).  The trial id stays the
+global one, so multi-round draws are chunk-invariant as well.
 """
 from __future__ import annotations
 
@@ -21,7 +29,7 @@ import math
 
 import torch
 
-__all__ = ["philox4x32", "random_bits", "uniform"]
+__all__ = ["philox4x32", "random_bits", "uniform", "normal", "round_seed"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Philox-4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key increments
@@ -78,3 +86,29 @@ def uniform(seed: int, tids: torch.Tensor, stream: int,
     bits = random_bits(seed, tids, stream, math.prod(shape))
     u = (bits >> 8).to(torch.float32) * (2.0 ** -24)
     return u.reshape((bits.shape[0],) + shape)
+
+
+def normal(seed: int, tids: torch.Tensor, stream: int,
+           shape) -> torch.Tensor:
+    """Per-trial float32 standard normals, shape ``(len(tids), *shape)``:
+    ``sqrt(2) * erfinv(2u - 1)`` with ``u`` the top 23 bits of each word
+    placed at the centres of their bins, ``(b + 0.5) * 2**-23``, so ``u``
+    lies in the open interval (0, 1) and ``2u - 1`` is exact."""
+    shape = tuple(int(s) for s in shape)
+    bits = random_bits(seed, tids, stream, math.prod(shape))
+    v = ((bits >> 9) * 2 + 1).to(torch.float32) * (2.0 ** -23) - 1.0
+    z = math.sqrt(2.0) * torch.erfinv(v)
+    return z.reshape((bits.shape[0],) + shape)
+
+
+def round_seed(seed: int, index: int) -> int:
+    """The seed of round stream ``index`` of a run seeded ``seed``:
+    ``seed << 32 | index``.  Index 0 is the process's initial state, index
+    ``t + 1`` round ``t``.  Both must lie in ``[0, 2**32)``."""
+    seed, index = int(seed), int(index)
+    if not 0 <= seed < 2 ** 32:
+        raise ValueError(f"a multi-round seed must be in [0, 2**32), got "
+                         f"{seed}")
+    if not 0 <= index < 2 ** 32:
+        raise ValueError(f"round index must be in [0, 2**32), got {index}")
+    return (seed << 32) | index

@@ -14,14 +14,26 @@ Implemented schedules:
     permutation of [n] (requires r == n)
   * round-robin block / custom matrices via validation helpers.
 
-The greedy and adaptive row assignment waits for the port's adaptive slice.
+Adaptive row assignment: ``greedy_row_assignment`` re-permutes the rows of
+a base TO matrix from per-worker delay feedback (fastest workers pick
+first, each taking the row that covers the least-covered tasks);
+``greedy_row_assignment_batch`` is its batched torch form, whose pick loop
+is the ``greedy_assign`` kernel on the card and its plain version on the
+CPU; ``censored_feedback_update`` is the censored feedback rule shared by
+``AdaptiveScheduler`` and the rounds engine.  Load re-balancing
+(``greedy_load_rebalance``, ``AdaptiveScheduler(rebalance=True)``) waits
+for a later slice of the port.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
+import torch
+
+from ..device import resolve_device
 
 __all__ = [
     "MASKED",
@@ -35,7 +47,16 @@ __all__ = [
     "to_matrix",
     "SCHEDULES",
     "Schedule",
+    "GREEDY_IMPLS",
+    "greedy_row_assignment",
+    "greedy_row_assignment_batch",
+    "censored_feedback_update",
+    "AdaptiveScheduler",
 ]
+
+_LATER = ("load re-balancing (greedy_load_rebalance) arrives with the "
+          "port's fault-tolerance slice (re-balancing, deadlines, faults, "
+          "trace recording)")
 
 MASKED = -1      # sentinel task index for the inactive trailing slots of a
                  # ragged row (worker load < grid width)
@@ -244,3 +265,311 @@ def to_matrix(name: str, n: int, r: int | None = None, **kw) -> np.ndarray:
     except KeyError:
         raise ValueError(f"unknown schedule {name!r}; have {sorted(SCHEDULES)}")
     return sched(n, r, **kw)
+
+
+# --------------------- adaptive row assignment -------------------------------
+
+def greedy_row_assignment(C: np.ndarray, speed_est=None, *,
+                          gamma: float = 0.5, need=None,
+                          device=None) -> np.ndarray:
+    """Assign workers to the rows of base TO matrix ``C`` from estimated
+    per-worker delays: fastest workers pick first, each taking the row whose
+    leading slots cover the least-covered tasks (slot j of a chosen row adds
+    ``gamma**j / speed_est[w]`` coverage to its task).  ``speed_est`` None
+    means no feedback yet (uniform speeds).  ``need`` (length-n bool over
+    tasks) puts rows holding a needed task first (reissue).
+
+    Returns ``worker_of_row`` (int64): worker ``worker_of_row[p]`` executes
+    row ``p``.  Runs ``greedy_row_assignment_batch`` on ``device`` (the
+    card by default, where the pick loop is the ``greedy_assign``
+    kernel)."""
+    C = np.asarray(C)
+    n, r = C.shape
+    est = (np.ones(n, np.float32) if speed_est is None
+           else np.asarray(speed_est, np.float32))
+    if est.shape != (n,):
+        raise ValueError(f"speed_est must have shape ({n},), got {est.shape}")
+    dev = resolve_device(device)
+    nd = None
+    if need is not None:
+        nd = np.asarray(need)
+        if nd.shape != (n,):
+            raise ValueError(f"need must have shape ({n},), got {nd.shape}")
+        nd = torch.as_tensor(nd.astype(np.float32), device=dev)[None]
+    out = greedy_row_assignment_batch(
+        C, torch.as_tensor(est, device=dev)[None], gamma=gamma, need=nd)
+    return out[0].cpu().numpy().astype(np.int64)
+
+
+GREEDY_IMPLS = ("auto", "scan", "kernel")
+
+
+def _resolve_greedy_impl(impl: str | None) -> str:
+    """``None``/``"auto"``/``"kernel"`` -> the kernel's wrapper, which runs
+    the CUDA kernel for tensors on the card and the plain version for CPU
+    tensors; ``"scan"`` -> the plain version on any device (tests)."""
+    if impl in (None, "auto"):
+        return "kernel"
+    if impl not in ("scan", "kernel"):
+        raise ValueError(f"unknown greedy impl {impl!r}; choose from "
+                         f"{GREEDY_IMPLS}")
+    return impl
+
+
+@functools.lru_cache(maxsize=None)
+def _greedy_matrices(C_tup: tuple, gamma: float):
+    """Static pick-loop matrices of a TO matrix: the coverage weights
+    ``W[p, t] = sum_j gamma**j * [C[p, j] == t]`` (active slots only) and
+    the 0/1 row-covers-task incidence ``A[p, t]``, float32 numpy, exactly
+    the JAX package's."""
+    C = np.asarray(C_tup)
+    n, r = C.shape
+    active = C != MASKED
+    disc = gamma ** np.arange(r)
+    W = np.zeros((n, n), np.float32)
+    A = np.zeros((n, n), np.float32)
+    for p in range(n):
+        for j in range(r):
+            if active[p, j]:
+                W[p, C[p, j]] += np.float32(disc[j])
+                A[p, C[p, j]] = 1.0
+    return W, A
+
+
+@functools.lru_cache(maxsize=64)
+def _greedy_tensors(C_tup: tuple, gamma: float, device: torch.device):
+    W, A = _greedy_matrices(C_tup, gamma)
+    return (torch.as_tensor(W, device=device),
+            torch.as_tensor(A > 0, device=device))
+
+
+def greedy_row_assignment_batch(C: np.ndarray, est: torch.Tensor, *,
+                                gamma: float = 0.5,
+                                need: torch.Tensor | None = None,
+                                impl: str | None = None) -> torch.Tensor:
+    """Batched twin of ``greedy_row_assignment`` on ``est``'s device:
+    ``est`` (..., n) -> ``worker_of_row`` (..., n) int32.  ``C`` may be
+    ragged (``MASKED`` slots add no coverage).  ``need`` ((..., n) or (n,)
+    over tasks, nonzero = needed) is the reissue priority.
+
+    As in the JAX package: the pickers are a *stable* argsort of ``est``
+    (ties in ``est`` are the rule: all-ones before feedback, +inf for
+    never-observed workers), ``epick = max(est, 1e-30)`` in float32, and
+    the reissue row priority is the count ``(need > 0) @ A.T``, computed
+    here as an exact integer sum.  ``impl`` picks the pick loop (see
+    ``_resolve_greedy_impl``)."""
+    from ..kernels import ops as kernel_ops
+    from ..kernels.ref import greedy_assign_ref
+    C = np.asarray(C)
+    n = C.shape[0]
+    C_tup = tuple(tuple(int(v) for v in row) for row in C)
+    W, A = _greedy_tensors(C_tup, float(gamma), est.device)
+    batch = est.shape[:-1]
+    flat = est.reshape(-1, n).to(torch.float32)
+    order = torch.argsort(flat, dim=-1, stable=True)
+    epick = torch.clamp(torch.take_along_dim(flat, order, dim=-1), min=1e-30)
+    need_row = None
+    if need is not None:
+        nd = torch.broadcast_to(need.to(est.device), est.shape)
+        nd = (nd.reshape(-1, n) > 0)
+        need_row = (nd[:, None, :] & A[None]).sum(-1).to(torch.float32)
+    if _resolve_greedy_impl(impl) == "kernel":
+        out = kernel_ops.greedy_assign(W, order, epick, need_row)
+    else:
+        out = greedy_assign_ref(W, order, epick, need_row)
+    return out.reshape(batch + (n,))
+
+
+def _left_fold_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as an explicit left fold (the same bits on
+    every device and for any thread count)."""
+    acc = x[..., 0]
+    for j in range(1, x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def censored_feedback_update(est: torch.Tensor, t1: torch.Tensor,
+                             arrivals: torch.Tensor, t_done, *,
+                             beta: float = 0.7) -> torch.Tensor:
+    """One censored-feedback step, shared by ``AdaptiveScheduler.observe``
+    and the rounds engine (``sweep_rounds(..., censored_feedback=True)``).
+
+    ``est`` (..., n) holds per-worker delay estimates (+inf = never yet
+    observed); ``t1``/``arrivals`` (..., n, r) the round's per-slot compute
+    delays and per-message arrival times, worker-major; ``t_done`` (scalar
+    or (...,)) the round's completion.  Only slots whose message arrived by
+    ``t_done`` (and finitely) are observed: an observed worker gets its
+    masked-mean compute delay (replacing +inf on first observation, an EMA
+    with weight ``beta`` on history after), a silent worker keeps its
+    estimate.  The masked sum is a left fold over the slots (the JAX
+    package's ``sum`` is XLA's); float32 throughout."""
+    dev = est.device
+    t1 = torch.as_tensor(t1, dtype=torch.float32, device=dev)
+    arr = torch.as_tensor(arrivals, dtype=torch.float32, device=dev)
+    td = torch.as_tensor(t_done, dtype=torch.float32, device=dev)
+    td = td[..., None, None]
+    mobs = (arr <= td) & torch.isfinite(arr)
+    cnt = mobs.sum(dim=-1)
+    total = _left_fold_sum(torch.where(mobs, t1, 0.0))
+    obs = torch.where(cnt > 0,
+                      total / torch.clamp(cnt, min=1).to(torch.float32), 0.0)
+    seen = torch.isfinite(est)
+    upd = torch.where(seen, beta * est + (1.0 - beta) * obs, obs)
+    return torch.where(cnt > 0, upd, est)
+
+
+class AdaptiveScheduler:
+    """Stateful round-to-round re-permutation of a base TO matrix (host
+    numpy state, as in the JAX package).
+
+    Call ``matrix()`` before each round for the effective schedule and
+    ``observe(t1)`` after it with the round's per-worker compute delays
+    ((n,) means or the raw (n, r) slot delays).  Feedback is an EMA with
+    weight ``beta`` on history.  ``observe(t1, arrivals=, t_done=)``
+    censors it to the slots whose message reached the master by the round's
+    close; a worker never yet observed sits at +inf (ranked slowest).
+
+    ``dead_after``: a worker silent for that many consecutive observed
+    rounds is presumed dead (estimate forced to +inf); with ``target_k``,
+    ``matrix()`` raises when the surviving assignment covers fewer than
+    ``target_k`` distinct tasks.  ``set_need`` marks tasks to re-gather
+    first next round.  The greedy assignment runs on ``device`` (the card
+    by default: the ``greedy_assign`` kernel).  ``rebalance`` waits for a
+    later slice of the port."""
+
+    def __init__(self, C: np.ndarray, *, beta: float = 0.7,
+                 gamma: float = 0.5, loads=None, rebalance: bool = False,
+                 min_load: int = 1, dead_after: int | None = None,
+                 target_k: int | None = None, device=None):
+        if rebalance:
+            raise NotImplementedError(_LATER)
+        self.C = np.asarray(C)
+        self.rebalance = False
+        validate_to_matrix(self.C, loads=loads)
+        self.base_loads = loads_of_matrix(self.C)
+        self.min_load = int(min_load)
+        self.beta = float(beta)
+        self.gamma = float(gamma)
+        if dead_after is not None and dead_after < 1:
+            raise ValueError(f"dead_after must be >= 1, got {dead_after}")
+        if target_k is not None and not 1 <= target_k <= self.C.shape[0]:
+            raise ValueError(f"target_k must be in [1, {self.C.shape[0]}], "
+                             f"got {target_k}")
+        self.dead_after = dead_after
+        self.target_k = target_k
+        self.device = resolve_device(device)
+        self.est: np.ndarray | None = None
+        self.silent = np.zeros(self.C.shape[0], np.int64)
+        self._need: np.ndarray | None = None
+        self._assignment: np.ndarray | None = None   # valid until observe()
+
+    def dead_workers(self) -> np.ndarray:
+        """Bool (n,): workers presumed dead (all False without
+        ``dead_after``)."""
+        if self.dead_after is None:
+            return np.zeros(self.C.shape[0], bool)
+        return self.silent >= self.dead_after
+
+    def _effective_est(self) -> np.ndarray | None:
+        """Feedback estimates with presumed-dead workers at +inf."""
+        dead = self.dead_workers()
+        if not dead.any():
+            return self.est
+        base = (np.ones(self.C.shape[0], np.float64) if self.est is None
+                else self.est)
+        return np.where(dead, np.inf, base)
+
+    def set_need(self, need) -> None:
+        """Mark tasks to re-gather first next round: a length-n bool over
+        tasks (or None to clear)."""
+        nd = None if need is None else np.asarray(need, bool)
+        if nd is not None and nd.shape != (self.C.shape[0],):
+            raise ValueError(f"need must have shape ({self.C.shape[0]},), "
+                             f"got {nd.shape}")
+        self._need = nd if nd is not None and nd.any() else None
+        self._assignment = None
+
+    def worker_of_row(self) -> np.ndarray:
+        if self._assignment is None:
+            self._assignment = greedy_row_assignment(
+                self.C, self._effective_est(), gamma=self.gamma,
+                need=self._need, device=self.device)
+        return self._assignment
+
+    def row_of_worker(self) -> np.ndarray:
+        w_of_row = self.worker_of_row()
+        inv = np.empty_like(w_of_row)
+        inv[w_of_row] = np.arange(len(w_of_row))
+        return inv
+
+    def loads(self) -> np.ndarray:
+        """Per-worker loads for the coming round: the assigned rows' own
+        loads."""
+        return self.base_loads[self.row_of_worker()]
+
+    def matrix(self) -> np.ndarray:
+        """The effective TO matrix for the coming round (row ``w`` is what
+        worker ``w`` executes).  With ``dead_after`` + ``target_k``, raises
+        when the rows held by surviving workers cover fewer than
+        ``target_k`` distinct tasks."""
+        M = self.C[self.row_of_worker()]
+        dead = self.dead_workers()
+        if self.target_k is not None and dead.any():
+            alive_rows = M[~dead]
+            act = alive_rows[alive_rows != MASKED]
+            covered = int(np.unique(act).size)
+            if covered < self.target_k:
+                raise ValueError(
+                    f"graceful degradation impossible: {int(dead.sum())} of "
+                    f"{self.C.shape[0]} workers presumed dead (no delivery "
+                    f"for {self.dead_after} consecutive rounds) and the "
+                    f"surviving assignment covers only {covered} distinct "
+                    f"tasks < k={self.target_k}; lower k, raise the "
+                    f"per-worker load, or raise dead_after")
+        return M
+
+    def observe(self, t1, *, arrivals=None, t_done=None) -> None:
+        n = self.C.shape[0]
+        obs = np.asarray(t1, np.float64)
+        if (arrivals is None) != (t_done is None):
+            raise ValueError("censored feedback needs BOTH arrivals and "
+                             "t_done (or neither)")
+        if arrivals is not None:
+            arr = np.asarray(arrivals, np.float64)
+            if obs.ndim != 2 or obs.shape[0] != n or arr.shape != obs.shape:
+                raise ValueError(
+                    f"censored feedback needs per-slot (n={n}, r) compute "
+                    f"delays and matching arrivals; got {obs.shape} and "
+                    f"{arr.shape}")
+            est = (np.full(n, np.inf) if self.est is None else self.est)
+            new = censored_feedback_update(
+                torch.as_tensor(est, dtype=torch.float32), obs, arr,
+                float(t_done), beta=self.beta)
+            self.est = new.numpy().astype(np.float64)
+            delivered = (np.isfinite(arr) & (arr <= float(t_done))).any(-1)
+            self.silent = np.where(delivered, 0, self.silent + 1)
+            self._assignment = None
+            return
+        if obs.ndim == 2:
+            # +inf slot delays must not drag the row mean to inf: average
+            # the finite slots only
+            fin = np.isfinite(obs)
+            cnt = fin.sum(-1)
+            obs = np.where(cnt > 0,
+                           np.where(fin, obs, 0.0).sum(-1)
+                           / np.maximum(cnt, 1), np.inf)
+        if obs.shape != (n,):
+            raise ValueError(f"feedback must be (n,) or (n, r) for "
+                             f"n={n}; got {obs.shape}")
+        delivered = np.isfinite(obs)
+        if self.est is None:
+            self.est = np.where(delivered, obs, np.inf)
+        else:
+            seen = np.isfinite(self.est)
+            upd = np.where(seen,
+                           self.beta * self.est + (1.0 - self.beta) * obs,
+                           obs)
+            self.est = np.where(delivered, upd, self.est)
+        self.silent = np.where(delivered, 0, self.silent + 1)
+        self._assignment = None

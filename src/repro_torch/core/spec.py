@@ -68,7 +68,8 @@ class RoundConfig:
     what a real master observes, ``rebalance`` re-allocates whole slots
     between workers, ``dead_after`` marks silent workers dead after that
     many rounds, ``feedback_beta`` / ``coverage_gamma`` tune the scheduler.
-    The port validates these fields; its aggregator does not run them yet.
+    The port's aggregator and engine run ``adaptive``, ``censored_feedback``
+    and ``dead_after``; ``rebalance`` and deadlines wait for a later slice.
 
     ``seed`` seeds RA-matrix construction.
     """
@@ -206,15 +207,40 @@ class RoundConfig:
         return scheduling.to_matrix(self.kind, self.n, self.width, **kw)
 
     def to_scheme_spec(self, name: Optional[str] = None):
-        """The engine's ``SchemeSpec`` for this (static) round."""
+        """The engine's ``SchemeSpec`` for this round: ``adaptive_spec``
+        (base matrix + feedback re-planning) for adaptive configs,
+        ``to_spec`` for static ones."""
         from . import montecarlo
+        nm = self.kind if name is None else name
         if self.adaptive:
-            raise NotImplementedError(
-                "adaptive schemes arrive with the port's greedy_assign "
-                "slice (rounds axis and adaptive scheduling)")
+            return montecarlo.adaptive_spec(
+                nm, self.base_matrix(), messages=self.messages,
+                loads=self.loads, rebalance=self.rebalance)
         return montecarlo.to_spec(
-            self.kind if name is None else name, self.base_matrix(),
-            messages=self.messages, loads=self.loads, comm_eps=self.comm_eps)
+            nm, self.base_matrix(), messages=self.messages, loads=self.loads,
+            comm_eps=self.comm_eps)
+
+    def sweep_rounds_kwargs(self) -> dict:
+        """Keyword arguments for ``montecarlo.sweep_rounds`` /
+        ``trajectory_samples`` matching this config's round semantics."""
+        kw = dict(k=self.k, feedback_beta=self.feedback_beta,
+                  coverage_gamma=self.coverage_gamma,
+                  censored_feedback=self.censored_feedback)
+        if self.deadline is not None:
+            kw.update(deadline=self.deadline,
+                      deadline_policy=self.deadline_policy)
+        return kw
+
+    def aggregator_kwargs(self) -> dict:
+        """This config's adaptivity as keyword arguments, the JAX
+        package's ``StragglerAggregator`` form (the port's aggregator reads
+        them from the ``RoundConfig`` itself)."""
+        return dict(adaptive=self.adaptive,
+                    feedback_beta=self.feedback_beta,
+                    coverage_gamma=self.coverage_gamma,
+                    censored_feedback=self.censored_feedback,
+                    rebalance=self.rebalance,
+                    dead_after=self.dead_after)
 
     # ------------------------------ JSON form --------------------------------
 

@@ -1,15 +1,20 @@
 """The paper's Section VI scenario end to end: distributed linear regression
 with DGD under straggler scheduling; counterpart of
-``examples/linear_regression_dgd.py`` (iid cluster) and of the Table I check
-in ``benchmarks/table1_e2e.py``.
+``examples/linear_regression_dgd.py`` and of the Table I check in
+``benchmarks/table1_e2e.py``.
 
 Every scheme really computes h(X_i) = X_i X_i^T theta — the uncoded
 schemes through ``batched_gram_matvec`` (the ``gram_matvec`` CUDA kernel on
 the card, one launch per iteration for all n tasks), the coded schemes on
 their encoded data — the master applies eq. (61) (uncoded, through the
-static ``StragglerAggregator``) or decodes (PC/PCMM), and a virtual clock
-advances by each round's completion time.  The adaptive schedule and the
-Markov cluster wait for the port's adaptive slice.
+``StragglerAggregator``) or decodes (PC/PCMM), and a virtual clock
+advances by each round's completion time.  The cluster is the EC2-like iid
+one or, with ``cluster="markov"``, a heterogeneous persistent-straggler
+``ec2_cluster``; the ADAPT row re-assigns the CS matrix's rows every
+iteration from delay feedback (one ``greedy_assign`` kernel launch per
+iteration on the card).  A run seeded ``seed`` starts its process under
+``rng.round_seed(seed, 0)`` and draws iteration ``it`` under
+``rng.round_seed(seed, it + 1)``.
 """
 from __future__ import annotations
 
@@ -20,8 +25,9 @@ import numpy as np
 import torch
 
 from .configs import RegressionConfig
-from .core import (IIDProcess, RoundConfig, StragglerAggregator, ec2_like,
-                   pc_decode, pc_encode, pc_threshold, pc_worker_compute,
+from .core import rng
+from .core import (IIDProcess, RoundConfig, StragglerAggregator, ec2_cluster,
+                   ec2_like, pc_decode, pc_encode, pc_threshold, pc_worker_compute,
                    pcmm_decode, pcmm_encode, pcmm_threshold,
                    pcmm_worker_compute, slot_arrival_times)
 from .data import regression_dataset, regression_tasks
@@ -29,8 +35,8 @@ from .device import resolve_device
 from .kernels.ops import batched_gram_matvec
 
 __all__ = ["RegressionProblem", "DGDRun", "regression_problem", "loss_of",
-           "run_uncoded", "run_pc", "run_pcmm", "paper_problem", "run_paper",
-           "table1_check"]
+           "run_uncoded", "run_pc", "run_pcmm", "paper_problem",
+           "paper_cluster", "run_paper", "table1_check"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,27 +85,24 @@ def loss_of(theta: torch.Tensor, X: torch.Tensor, y: torch.Tensor) -> float:
     return float(res @ res) / X.shape[0]
 
 
-def _round_seed(seed: int, it: int) -> int:
-    """The random stream of iteration ``it`` of a run seeded ``seed``."""
-    return (int(seed) << 32) | int(it)
-
-
 def run_uncoded(config: RoundConfig, process, prob: RegressionProblem,
                 iters: int, lr: float, *, seed: int = 0,
                 curve_every: int = 10, label: str = "?") -> DGDRun:
     """The paper's uncoded DGD loop (Table I rows) through the round API:
-    per iteration the aggregator draws the round, every worker computes h
-    for its tasks (one batched kernel launch for all n tasks), and the
-    master applies eq. (61) over the k winning distinct tasks."""
+    per iteration the aggregator schedules and draws the round (an adaptive
+    ``config`` re-assigns the rows from delay feedback first), every worker
+    computes h for its tasks (one batched kernel launch for all n tasks),
+    and the master applies eq. (61) over the k winning distinct tasks."""
     dev = prob.X.device
     n, k, N = config.n, config.k, prob.N
     theta = torch.zeros(prob.Xs_cols.shape[1], dtype=torch.float32,
                         device=dev)
-    agg = StragglerAggregator(config, process, device=dev)
-    C = torch.as_tensor(agg.current_matrix(), device=dev)
+    agg = StragglerAggregator(config, process,
+                              init_seed=rng.round_seed(seed, 0), device=dev)
     clock, curve, used = 0.0, [], []
     for it in range(iters):
-        w, t_done = agg.round_mask(_round_seed(seed, it))
+        C = torch.as_tensor(agg.current_matrix(), device=dev)
+        w, t_done = agg.round_mask(rng.round_seed(seed, it + 1))
         clock += float(t_done)
         hs = batched_gram_matvec(prob.Xs_cols, theta)     # workers: h(X_i)
         sel = torch.unique(C[w > 0])                      # sorted task ids
@@ -125,10 +128,11 @@ def run_pc(process, prob: RegressionProblem, r: int, iters: int, lr: float,
     Xt, alphas, _ = pc_encode(prob.Xs_cols, r)
     kth = pc_threshold(n, r)
     tid = torch.zeros(1, dtype=torch.int64, device=dev)
-    state = process.init_trials(10 * seed, tid, n)
+    state = process.init_trials(rng.round_seed(seed, 0), tid, n)
     clock, curve, used = 0.0, [], []
     for it in range(iters):
-        state, T1, T2 = process.step(state, _round_seed(seed, it), tid, n, r)
+        state, T1, T2 = process.step(state, rng.round_seed(seed, it + 1),
+                                     tid, n, r)
         t_w = (T1.sum(dim=-1) + T2[..., -1])[0]           # per-worker times
         srt, order = torch.sort(t_w, stable=True)
         order = order[:kth]
@@ -155,10 +159,11 @@ def run_pcmm(process, prob: RegressionProblem, r: int, iters: int,
     betas = betas.reshape(-1)
     need = pcmm_threshold(n)
     tid = torch.zeros(1, dtype=torch.int64, device=dev)
-    state = process.init_trials(10 * seed, tid, n)
+    state = process.init_trials(rng.round_seed(seed, 0), tid, n)
     clock, curve, used = 0.0, [], []
     for it in range(iters):
-        state, T1, T2 = process.step(state, _round_seed(seed, it), tid, n, r)
+        state, T1, T2 = process.step(state, rng.round_seed(seed, it + 1),
+                                     tid, n, r)
         s = slot_arrival_times(T1, T2)[0].reshape(-1)
         srt, order = torch.sort(s, stable=True)
         order = order[:need]
@@ -182,16 +187,37 @@ def paper_problem(cfg: RegressionConfig, *, seed: int = 0,
     return regression_problem(X.to(dev), y.to(dev), cfg.n)
 
 
+def paper_cluster(n: int, cluster: str = "iid", *,
+                  persistence: float = 0.95, spread: float = 3.0):
+    """The example's cluster: ``"iid"`` is the EC2-like iid cluster
+    (``ec2_like(n, seed=1)``), ``"markov"`` the heterogeneous
+    persistent-straggler ``ec2_cluster`` on the same base, as the JAX
+    example builds them."""
+    if cluster == "iid":
+        return IIDProcess(ec2_like(n, seed=1))
+    if cluster == "markov":
+        return ec2_cluster(n, spread=spread, p_slow=0.25,
+                           persistence=persistence, slow=8.0,
+                           base=ec2_like(n, seed=1), seed=1)
+    raise ValueError(f"unknown cluster {cluster!r}; choose iid or markov")
+
+
 def run_paper(cfg: RegressionConfig = RegressionConfig(), iters: int = 100,
-              *, device=None, curve_every: int = 10) -> Dict[str, DGDRun]:
-    """Run CS / SS / RA / PC / PCMM on the paper's EC2-like iid cluster
-    (``ec2_like(n, seed=1)``), as the JAX example's iid leg does."""
+              *, device=None, curve_every: int = 10, cluster: str = "iid",
+              persistence: float = 0.95,
+              spread: float = 3.0) -> Dict[str, DGDRun]:
+    """Run CS / SS / RA / ADAPT / PC / PCMM on ``paper_cluster(cfg.n,
+    cluster)``, as the JAX example does; the coded rows advance their own
+    realization of the same process type."""
     prob = paper_problem(cfg, device=device)
-    process = IIDProcess(ec2_like(cfg.n, seed=1))
+    process = paper_cluster(cfg.n, cluster, persistence=persistence,
+                            spread=spread)
     runs = {}
-    for name, kind in (("CS", "cs"), ("SS", "ss"), ("RA", "ra")):
+    for name, kind, adaptive in (("CS", "cs", False), ("SS", "ss", False),
+                                 ("RA", "ra", False), ("ADAPT", "cs", True)):
         rc = RoundConfig(n=cfg.n, k=cfg.k, kind=kind,
-                         r=cfg.n if kind == "ra" else cfg.r)
+                         r=cfg.n if kind == "ra" else cfg.r,
+                         adaptive=adaptive)
         runs[name] = run_uncoded(rc, process, prob, iters, cfg.lr,
                                  curve_every=curve_every, label=name)
     runs["PC"] = run_pc(process, prob, cfg.r, iters, cfg.lr,

@@ -29,6 +29,11 @@ SOURCES = {
                                + [ctypes.c_void_p], ctypes.c_int),
         "gram_matvec_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
+    "greedy_assign": ("greedy_assign.cu", {
+        "greedy_assign_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                                 + [ctypes.c_void_p], ctypes.c_int),
+        "greedy_assign_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    }),
 }
 
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -13,11 +13,14 @@ import torch
 
 from . import build, ref
 
-__all__ = ["gram_matvec", "batched_gram_matvec", "LAUNCHES",
-           "reset_launch_counts"]
+__all__ = ["gram_matvec", "batched_gram_matvec", "greedy_assign",
+           "GREEDY_MAX_N", "LAUNCHES", "reset_launch_counts"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``
-LAUNCHES = {"gram_matvec": 0}
+LAUNCHES = {"gram_matvec": 0, "greedy_assign": 0}
+
+#: the largest n the greedy_assign kernel takes (kMaxN in its source)
+GREEDY_MAX_N = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -71,3 +74,56 @@ def batched_gram_matvec(Xs: torch.Tensor,
                            f"({msg})")
     LAUNCHES["gram_matvec"] += 1
     return y
+
+
+def greedy_assign(W: torch.Tensor, order: torch.Tensor, epick: torch.Tensor,
+                  need_row: torch.Tensor | None = None) -> torch.Tensor:
+    """Batched greedy row assignment (see ``ref.greedy_assign_ref``):
+    ``W`` (n, n) coverage weights, ``order``/``epick``/``need_row`` (B, n)
+    per-trial pick data -> ``worker_of_row`` (B, n) int32.  On the card
+    this is the ``greedy_assign`` CUDA kernel (``csrc/greedy_assign.cu``,
+    n <= ``GREEDY_MAX_N``); CPU tensors take the plain version.  Inputs are
+    cast to the kernel's types (float32 weights, int32 pickers) as the JAX
+    wrapper casts them."""
+    tensors = [W, order, epick] + ([] if need_row is None else [need_row])
+    if all(t.device.type == "cpu" for t in tensors):
+        return ref.greedy_assign_ref(W, order, epick, need_row)
+    dev = order.device
+    if dev.type != "cuda" or any(t.device != dev for t in tensors):
+        raise ValueError(f"greedy_assign needs every input on one CUDA "
+                         f"device (or all on the CPU); got "
+                         f"{[str(t.device) for t in tensors]}")
+    if order.dim() != 2:
+        raise ValueError(f"order must be (B, n), got {tuple(order.shape)}")
+    B, n = order.shape
+    if (W.shape != (n, n) or epick.shape != (B, n)
+            or (need_row is not None and need_row.shape != (B, n))):
+        raise ValueError(
+            f"greedy_assign needs W ({n}, {n}) and epick/need_row ({B}, "
+            f"{n}); got W {tuple(W.shape)}, epick {tuple(epick.shape)}"
+            + ("" if need_row is None
+               else f", need_row {tuple(need_row.shape)}"))
+    if B < 1 or not 1 <= n <= GREEDY_MAX_N:
+        raise ValueError(f"greedy_assign takes B >= 1 and 1 <= n <= "
+                         f"{GREEDY_MAX_N}; got B={B}, n={n}")
+    if B * n >= 2 ** 31:
+        raise ValueError(f"greedy_assign batch too large: B*n = {B * n}")
+    W = W.to(torch.float32).contiguous()
+    order = order.to(torch.int32).contiguous()
+    epick = epick.to(torch.float32).contiguous()
+    if need_row is not None:
+        need_row = need_row.to(torch.float32).contiguous()
+    out = torch.empty((B, n), dtype=torch.int32, device=dev)
+    lib = build.library("greedy_assign")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.greedy_assign_launch(
+            W.data_ptr(), order.data_ptr(), epick.data_ptr(),
+            None if need_row is None else need_row.data_ptr(),
+            out.data_ptr(), B, n, stream)
+    if err:
+        msg = lib.greedy_assign_error_string(err).decode()
+        raise RuntimeError(f"greedy_assign launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES["greedy_assign"] += 1
+    return out

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["gram_matvec_ref", "batched_gram_matvec_ref"]
+__all__ = ["gram_matvec_ref", "batched_gram_matvec_ref", "greedy_assign_ref"]
 
 
 def gram_matvec_ref(X: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -20,3 +20,57 @@ def batched_gram_matvec_ref(Xs: torch.Tensor,
     """``gram_matvec_ref`` over a leading task axis: Xs (n, d, b) -> (n, d)."""
     u = torch.einsum("ndb,d->nb", Xs.float(), theta.float())
     return torch.einsum("ndb,nb->nd", Xs.float(), u).to(Xs.dtype)
+
+
+def greedy_assign_ref(W: torch.Tensor, order: torch.Tensor,
+                      epick: torch.Tensor,
+                      need_row: torch.Tensor | None = None) -> torch.Tensor:
+    """The greedy row-assignment pick loop (plain version of the
+    ``greedy_assign`` kernel; the JAX package's ``greedy_assign_ref``).
+
+    ``W`` (n, n) float32 coverage weights of a TO matrix (``W[p, t]`` =
+    discounted weight of task t in row p), ``order`` (B, n) each trial's
+    pickers fastest-first, ``epick`` (B, n) their delay estimates in that
+    order (clamped away from zero), ``need_row`` (B, n) optional reissue
+    priorities (> 0: the row holds a needed task).  For pick t = 0..n-1:
+    ``scores[p] = sum_j cov[j] * W[p, j]`` with taken rows at FLT_MAX; while
+    an untaken needed row is left, the argmin runs over those rows only;
+    ties (and NaNs, as ``argmin`` treats them) go to the lowest row; then
+    ``worker_of_row[p] = order[t]`` and ``cov += W[p] / epick[t]``.
+    Returns ``worker_of_row`` (B, n) int32.
+
+    The arithmetic order is fixed so the CUDA kernel can match it bit for
+    bit: each score is a left fold over j ascending of separately rounded
+    products and sums (no fused multiply-add), starting from 0, and the
+    update is a true division.  The JAX reference leaves the association
+    of ``cov @ W.T`` to XLA, so the two agree bit for bit wherever every
+    score is exact in float32 (and otherwise differ only at picks that are
+    exact ties in real arithmetic)."""
+    B, n = order.shape
+    dev = order.device
+    W = W.to(torch.float32)
+    order = order.to(torch.int32)
+    epick = epick.to(torch.float32)
+    big = torch.finfo(torch.float32).max
+    lanes = torch.arange(n, device=dev)
+    cov = torch.zeros((B, n), dtype=torch.float32, device=dev)
+    taken = torch.zeros((B, n), dtype=torch.bool, device=dev)
+    wout = torch.zeros((B, n), dtype=torch.int32, device=dev)
+    needed = None if need_row is None else need_row.to(torch.float32) > 0
+    for t in range(n):
+        scores = torch.zeros((B, n), dtype=torch.float32, device=dev)
+        for j in range(n):
+            scores = scores + cov[:, j:j + 1] * W[:, j]
+        scores = torch.where(taken, big, scores)
+        if needed is None:
+            sel = scores
+        else:
+            pref = torch.where(needed & ~taken, scores, big)
+            has = pref.amin(dim=-1, keepdim=True) < big
+            sel = torch.where(has, pref, scores)
+        p = torch.argmin(sel, dim=-1)
+        hit = lanes == p[:, None]
+        wout = torch.where(hit, order[:, t:t + 1], wout)
+        taken = taken | hit
+        cov = cov + W[p] / epick[:, t:t + 1]
+    return wout

@@ -1,6 +1,9 @@
-"""The static aggregator and the DGD regression loop: the port against the
-JAX package on shared delay tables (a table-replaying process on each side)
-and shared regression data (the JAX package's dataset, converted)."""
+"""The aggregator (static and adaptive) and the DGD regression loop: the
+port against the JAX package on shared delay tables (a table-replaying
+process on each side) and shared regression data (the JAX package's
+dataset, converted).  Adaptive rounds use the tie-exact family of tables
+(tests/torch_parity.py), on which the greedy picks cannot depend on the
+summation order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,12 +17,16 @@ from repro.core import spec as jspec
 from repro.data import regression_dataset, regression_tasks
 from repro_torch import convert, dgd
 from repro_torch.configs import RegressionConfig
+from repro.core import cluster as jcl
+from repro.core import delays as jd
 from repro_torch.core import StragglerAggregator, scenario1
+from repro_torch.core import cluster as tcl
+from repro_torch.core import montecarlo as tmc
 from repro_torch.core import spec as tspec
 
 from torch_parity import (JaxTableProcess, TorchTableProcess,
                           assert_bit_equal, delay_tables, load_example,
-                          rel_err)
+                          rel_err, tie_exact_tables)
 
 CONFIGS = [dict(n=6, k=4, kind="cs", r=2),
            dict(n=6, k=6, kind="ss", r=3, messages=2),
@@ -58,22 +65,79 @@ def test_round_masks_bit_exact(kw):
     assert t.realized_k_history == j.realized_k_history
 
 
+ADAPTIVE = [dict(n=6, k=4, kind="cs", r=2, adaptive=True),
+            dict(n=6, k=4, kind="cs", r=3, adaptive=True,
+                 censored_feedback=True, feedback_beta=0.5),
+            dict(n=6, k=5, kind="ss", r=3, messages=2, adaptive=True,
+                 censored_feedback=True),
+            dict(n=6, k=4, kind="ss", r=3, loads=(3, 1, 2, 3, 2, 1),
+                 adaptive=True, coverage_gamma=0.5),
+            dict(n=6, k=3, kind="cs", r=3, adaptive=True, dead_after=2),
+            dict(n=6, k=4, kind="ra", adaptive=True, censored_feedback=True,
+                 dead_after=1)]
+
+
+@pytest.mark.parametrize("kw", ADAPTIVE)
+def test_adaptive_round_masks_bit_exact(kw):
+    """The adaptive aggregator over tie-exact tables (worker 2 silent, +inf,
+    from round 2 on): the same schedule, weights, completion times, loads
+    and realized counts every round as JAX's
+    ``StragglerAggregator(adaptive=True)``."""
+    cfg = tspec.RoundConfig(**kw)
+    T1, T2 = tie_exact_tables(4, ROUNDS, cfg.n, cfg.width)
+    T1 = T1.copy()
+    T1[2:, 2] = np.inf
+    jc = jspec.RoundConfig(**kw)
+    j = jagg.StragglerAggregator(jc.to_round_spec(),
+                                 JaxTableProcess(T1=T1, T2=T2),
+                                 **jc.aggregator_kwargs())
+    t = StragglerAggregator(cfg, TorchTableProcess(T1=T1, T2=T2),
+                            device="cpu")
+    assert cfg.aggregator_kwargs() == jc.aggregator_kwargs()
+    for rnd in range(ROUNDS):
+        assert_bit_equal(t.current_matrix(), j.current_matrix())
+        assert_bit_equal(t.current_loads(), j.current_loads())
+        w_j, t_j = j.round_mask(jax.random.PRNGKey(rnd))
+        w_t, t_t = t.round_mask(rnd)
+        assert_bit_equal(w_t, w_j)
+        assert_bit_equal(t_t, t_j)
+        assert_bit_equal(t.scheduler.est, j.scheduler.est)
+    assert t.realized_k_history == j.realized_k_history
+
+
 @pytest.mark.parametrize("kw", [
-    dict(n=6, k=4, kind="cs", r=2, adaptive=True),
     dict(n=6, k=4, kind="cs", r=3, adaptive=True, rebalance=True,
          loads=(3, 1, 2, 3, 1, 2)),
     dict(n=6, k=4, kind="cs", r=2, deadline=1e-3)])
 def test_unported_round_features_refused(kw):
-    with pytest.raises(NotImplementedError, match="greedy_assign"):
+    with pytest.raises(NotImplementedError, match="fault-tolerance slice"):
         StragglerAggregator(tspec.RoundConfig(**kw), scenario1(),
                             device="cpu")
 
 
-def test_expected_completion_waits_for_rounds_engine():
-    agg = StragglerAggregator(tspec.RoundConfig(n=4, k=2, r=2), scenario1(),
-                              device="cpu")
-    with pytest.raises(NotImplementedError):
-        agg.expected_completion()
+@pytest.mark.parametrize("kw", [dict(n=8, k=6, kind="cs", r=3),
+                                dict(n=8, k=6, kind="ss", r=3, adaptive=True,
+                                     censored_feedback=True)])
+def test_expected_completion_matches_jax(kw):
+    """``expected_completion`` on each package's own Markov cluster (8
+    rounds, 2 048 trials): within 4.5 combined standard errors, the
+    standard error read from the port's sweep of the same policy (a bound
+    on the run mean's, shared by both sides)."""
+    proc = dict(spread=3.0, p_slow=0.25, persistence=0.9, slow=8.0, seed=1)
+    cj = jspec.RoundConfig(**kw)
+    ct = tspec.RoundConfig(**kw)
+    j = jagg.StragglerAggregator(cj.to_round_spec(), jcl.ec2_cluster(
+        8, base=jd.scenario1(), **proc), **cj.aggregator_kwargs())
+    tproc = tcl.ec2_cluster(8, base=scenario1(), **proc)
+    t = StragglerAggregator(ct, tproc, device="cpu")
+    a = t.expected_completion(3, trials=2048)
+    b = j.expected_completion(3, trials=2048)
+    res = tmc.sweep_rounds([ct.to_scheme_spec("s")], tproc, 8, rounds=8,
+                           trials=2048, seed=3, devices="cpu",
+                           **ct.sweep_rounds_kwargs())
+    assert a == res.mean_round("s")
+    se = float(res.stderr["s"].max())
+    assert abs(a - b) < 4.5 * np.sqrt(2) * se, (a, b, se)
 
 
 # ------------------------------ DGD loop ---------------------------------------
@@ -176,7 +240,51 @@ def test_paper_run_on_cpu_lowers_every_loss():
     runs = dgd.run_paper(cfg, 20, device="cpu")
     prob = dgd.paper_problem(cfg, device="cpu")
     loss0 = dgd.loss_of(torch.zeros(cfg.d), prob.X, prob.y)
-    assert sorted(runs) == ["CS", "PC", "PCMM", "RA", "SS"]
+    assert sorted(runs) == ["ADAPT", "CS", "PC", "PCMM", "RA", "SS"]
     for run in runs.values():
         assert dgd.loss_of(run.theta, prob.X, prob.y) < loss0
         assert len(run.used) == 20 and run.clock > 0
+
+
+def test_dgd_adaptive_matches_jax_example(regression):
+    """The ADAPT row: 5 iterations on shared tie-exact tables select the
+    same tasks every iteration as the JAX example's
+    ``run_uncoded(adaptive=True)`` (replayed through its aggregator), with
+    the same virtual clock and theta within rel 1e-5 (float32 sums in
+    another order)."""
+    kw = dict(n=NW, k=4, kind="cs", r=2)
+    cfg = tspec.RoundConfig(adaptive=True, **kw)
+    T1, T2 = tie_exact_tables(6, ITERS, NW, 2)
+    ex = load_example("linear_regression_dgd")
+    spec = jspec.RoundConfig(**kw).to_round_spec()
+    R = regression
+    theta_j, clock_j = ex.run_uncoded(
+        spec, JaxTableProcess(T1=T1, T2=T2), jnp.asarray(R["Xs_cols"]),
+        R["Xty_parts"], N_, R["X"], R["y"], ITERS, LR, adaptive=True,
+        label="jax")
+    agg = jagg.StragglerAggregator(spec, JaxTableProcess(T1=T1, T2=T2),
+                                   adaptive=True)
+    sel_j, mats = [], []
+    for it in range(ITERS):
+        C = agg.current_matrix()
+        mats.append(C)
+        w, _ = agg.round_mask(jax.random.PRNGKey(it))
+        sel_j.append(tuple(sorted({int(c) for c in C[np.asarray(w) > 0]})))
+    assert any(not np.array_equal(m, mats[0]) for m in mats)
+    run = dgd.run_uncoded(cfg, TorchTableProcess(T1=T1, T2=T2), R["prob"],
+                          ITERS, LR, label="port")
+    assert run.used == sel_j
+    assert run.clock == clock_j
+    assert rel_err(run.theta, theta_j) < 1e-5
+
+
+def test_paper_run_on_markov_cluster_lowers_every_loss():
+    cfg = RegressionConfig(N=240, d=60, n=6, r=2, k=6)
+    runs = dgd.run_paper(cfg, 10, device="cpu", cluster="markov")
+    prob = dgd.paper_problem(cfg, device="cpu")
+    loss0 = dgd.loss_of(torch.zeros(cfg.d), prob.X, prob.y)
+    assert list(runs) == ["CS", "SS", "RA", "ADAPT", "PC", "PCMM"]
+    for run in runs.values():
+        assert dgd.loss_of(run.theta, prob.X, prob.y) < loss0
+    with pytest.raises(ValueError):
+        dgd.paper_cluster(6, "bogus")

@@ -1,7 +1,10 @@
 """The port on a CUDA card: the gram_matvec kernel against its plain
 version (rel 1e-5 in float32, 3e-2 in bfloat16, the tolerances of
-tests/test_kernels.py), its launch counter and input checks, and the
-engine's per-trial samples on the card against its own CPU run.
+tests/test_kernels.py), the greedy_assign kernel against its plain version
+bit for bit (the two share one summation order and rounding, ties
+included), their launch counters and input checks, and the engines'
+per-trial samples and trajectories on the card against their own CPU
+runs.
 
 Skipped without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -12,8 +15,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (completion_samples, cyclic_to_matrix, lb_spec,
-                              pc_spec, scenario1, to_spec)
+from repro_torch.core import (DelayTrace, TraceProcess, adaptive_spec,
+                              completion_samples, cyclic_to_matrix,
+                              greedy_row_assignment_batch, lb_spec, pc_spec,
+                              scenario1, staircase_to_matrix, to_spec,
+                              trajectory_samples)
+from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.kernels import ops, ref
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
@@ -90,3 +97,96 @@ def test_samples_on_card_match_cpu(cuda, make):
                            devices=cuda)
     b = completion_samples(spec, scenario1(), 8, trials=512, devices="cpu")
     assert ((a.cpu() - b).abs() / b.abs()).max().item() < 1e-6
+
+
+def greedy_inputs(B, n, r, device, *, seed=0, need=False, ties=False,
+                  infs=False):
+    """Kernel-shaped greedy inputs for a CS matrix, made with numpy: W, the
+    stable argsort of random (or all-equal) estimates with some +inf
+    entries, epick = max(est, 1e-30), and optional need rows."""
+    gen = np.random.default_rng(seed + B * n + r)
+    C = cyclic_to_matrix(n, r)
+    W, A = _greedy_matrices(tuple(map(tuple, C.tolist())), 0.5)
+    est = (np.full((B, n), 0.25, np.float32) if ties
+           else gen.uniform(0.01, 1.0, (B, n)).astype(np.float32))
+    if infs:
+        est[gen.random((B, n)) < 0.2] = np.inf
+    est = torch.as_tensor(est, device=device)
+    order = torch.argsort(est, dim=-1, stable=True)
+    epick = torch.clamp(torch.take_along_dim(est, order, dim=-1), min=1e-30)
+    need_row = None
+    if need:
+        nd = torch.as_tensor(gen.random((B, n)) < 0.3, device=device)
+        A = torch.as_tensor(A > 0, device=device)
+        need_row = (nd[:, None, :] & A[None]).sum(-1).float()
+    return (torch.as_tensor(W, device=device), order.to(torch.int32), epick,
+            need_row)
+
+
+@pytest.mark.parametrize("B,n,r", [(1, 15, 3), (2000, 12, 3), (333, 12, 3),
+                                   (20000, 16, 4), (64, 128, 8), (5, 1, 1),
+                                   (70, 33, 5)])
+@pytest.mark.parametrize("case", ["plain", "need", "ties", "infs"])
+def test_greedy_kernel_equals_plain(cuda, B, n, r, case):
+    W, order, epick, need_row = greedy_inputs(
+        B, n, r, cuda, need=case == "need", ties=case == "ties",
+        infs=case == "infs")
+    before = ops.LAUNCHES["greedy_assign"]
+    got = ops.greedy_assign(W, order, epick, need_row)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["greedy_assign"] == before + 1
+    want = ref.greedy_assign_ref(W, order, epick, need_row)
+    assert got.dtype == torch.int32 and got.shape == (B, n)
+    assert torch.equal(got, want)
+    assert torch.equal(torch.sort(got.long(), dim=-1).values,
+                       torch.arange(n, device=cuda).expand(B, n))
+
+
+def test_greedy_kernel_rejects_what_it_cannot_take(cuda):
+    W, order, epick, _ = greedy_inputs(4, 8, 3, cuda)
+    with pytest.raises(ValueError):
+        ops.greedy_assign(W.cpu(), order, epick)
+    with pytest.raises(ValueError):
+        ops.greedy_assign(W[:4], order, epick)
+    with pytest.raises(ValueError):
+        big = torch.zeros((2, 129), device=cuda)
+        ops.greedy_assign(torch.zeros((129, 129), device=cuda),
+                          big.to(torch.int32), big)
+
+
+def test_batch_impls_agree_on_card(cuda):
+    """``impl="kernel"`` (the CUDA kernel) and ``impl="scan"`` (the plain
+    version on the card) give the same picks, with leading batch dims."""
+    gen = np.random.default_rng(4)
+    C = staircase_to_matrix(12, 3)
+    est = torch.as_tensor(gen.uniform(0.01, 1.0, (5, 13, 12)),
+                          dtype=torch.float32, device=cuda)
+    need = torch.as_tensor(gen.random((5, 13, 12)) < 0.4, device=cuda)
+    for nd in (None, need):
+        a = greedy_row_assignment_batch(C, est, need=nd, impl="kernel")
+        b = greedy_row_assignment_batch(C, est, need=nd, impl="scan")
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("censored", [False, True])
+def test_trajectories_on_card_equal_cpu(cuda, censored):
+    """On a shared trace the rounds engine's trajectories are the same bits
+    on the card (greedy kernel) as on the CPU (plain version): replay,
+    gathers, mins, selections, explicit left folds and the greedy picks are
+    all exact."""
+    gen = np.random.default_rng(9)
+    n, r, rounds, trials = 12, 3, 6, 300
+    T1 = (1e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
+        np.float32)
+    T2 = (5e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
+        np.float32)
+    proc = TraceProcess(DelayTrace(T1, T2))
+    for spec in (adaptive_spec("adapt", cyclic_to_matrix(n, r)),
+                 to_spec("cs", cyclic_to_matrix(n, r)), lb_spec(r)):
+        a = trajectory_samples(spec, proc, n, rounds=rounds, k=9,
+                               trials=trials, chunk=128, devices=cuda,
+                               censored_feedback=censored)
+        b = trajectory_samples(spec, proc, n, rounds=rounds, k=9,
+                               trials=trials, devices="cpu",
+                               censored_feedback=censored)
+        assert torch.equal(a.cpu(), b)

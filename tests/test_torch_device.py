@@ -18,8 +18,11 @@ from repro.core import scheduling as js
 from repro.core import spec as jspec
 from repro_torch import convert, dgd, resolve_device
 from repro_torch.configs import RegressionConfig
-from repro_torch.core import (StragglerAggregator, completion_samples,
-                              lb_spec, scenario1, sweep)
+from repro_torch.core import (AdaptiveScheduler, StragglerAggregator,
+                              adaptive_spec, completion_samples,
+                              cyclic_to_matrix, greedy_row_assignment,
+                              lb_spec, scenario1, sweep, sweep_rounds,
+                              trajectory_samples)
 from repro_torch.core import spec as tspec
 from repro_torch.data import regression_dataset
 
@@ -38,6 +41,18 @@ ENTRY_POINTS = {
                                                                 n=2)),
     "convert": lambda: convert.regression_state(np.zeros((2, 2)),
                                                 np.zeros(2)),
+    "sweep_rounds": lambda: sweep_rounds([lb_spec(2)], scenario1(), 4,
+                                         rounds=2, k=2, trials=4),
+    "trajectory_samples": lambda: trajectory_samples(
+        adaptive_spec("a", cyclic_to_matrix(4, 2)), scenario1(), 4,
+        rounds=2, k=2, trials=4),
+    "adaptive_aggregator": lambda: StragglerAggregator(
+        tspec.RoundConfig(n=4, k=2, r=2, adaptive=True), scenario1()),
+    "adaptive_scheduler": lambda: AdaptiveScheduler(cyclic_to_matrix(4, 2)),
+    "greedy_row_assignment": lambda: greedy_row_assignment(
+        cyclic_to_matrix(4, 2)),
+    "run_paper": lambda: dgd.run_paper(RegressionConfig(N=8, d=3, n=2, r=1,
+                                                        k=2), 1),
 }
 
 
@@ -139,6 +154,29 @@ def test_example_cli_runs_on_cpu():
         cwd=REPO, capture_output=True, text=True, timeout=300,
         env={**os.environ, "PYTHONPATH": str(REPO / "src")})
     assert out.returncode == 0, out.stderr
-    table = out.stdout.strip().splitlines()[-5:]
-    assert [row.split()[0] for row in table] == ["CS", "SS", "RA", "PC",
-                                                 "PCMM"]
+    table = out.stdout.strip().splitlines()[-6:]
+    assert [row.split()[0] for row in table] == ["CS", "SS", "RA", "ADAPT",
+                                                 "PC", "PCMM"]
+
+
+def test_markov_example_and_fig8_clis_run_on_cpu():
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src"),
+           "OMP_NUM_THREADS": "2"}
+    out = subprocess.run(
+        [sys.executable, str(REPO / "examples_torch" /
+                             "linear_regression_dgd.py"),
+         "--iters", "2", "--device", "cpu", "--cluster", "markov",
+         "--persistence", "0.9", "--spread", "2"],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    assert "cluster=markov" in out.stdout
+    assert out.stdout.strip().splitlines()[-3].split()[0] == "ADAPT"
+    out = subprocess.run(
+        [sys.executable, str(REPO / "benchmarks_torch" /
+                             "fig8_convergence.py"), "--trials", "200",
+         "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr
+    rows = out.stdout.strip().splitlines()
+    assert len(rows) == 7 and rows[-1].startswith("fig8/adaptive_beats")
+    assert "PASS" in rows[-1]

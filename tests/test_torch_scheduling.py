@@ -99,7 +99,10 @@ CONFIGS = [dict(n=8, k=5, kind="cs", r=3),
            dict(n=6, k=4, kind="ss", r=3, loads=(3, 1, 2, 3, 1, 2),
                 messages=2, comm_eps=1e-5),
            dict(n=6, k=6, kind="ss", r=2, deadline=1e-3,
-                deadline_policy="close_partial", adaptive=True)]
+                deadline_policy="close_partial", adaptive=True),
+           dict(n=6, k=4, kind="cs", r=3, loads=(3, 1, 2, 3, 2, 1),
+                adaptive=True, censored_feedback=True, dead_after=2,
+                messages=2)]
 
 
 @pytest.mark.parametrize("kw", CONFIGS)
@@ -109,13 +112,11 @@ def test_round_config_equal(kw):
     assert_bit_equal(ct.to_matrix(), cj.to_matrix())
     assert_bit_equal(ct.base_matrix(), cj.base_matrix())
     assert tspec.RoundConfig.from_json(cj.to_json()) == ct
-    if ct.adaptive:
-        with pytest.raises(NotImplementedError):
-            ct.to_scheme_spec()
-    else:
-        sj, st = cj.to_scheme_spec(), ct.to_scheme_spec()
-        assert (st.name, st.kind, st.C, st.loads, st.messages, st.comm_eps) \
-            == (sj.name, sj.kind, sj.C, sj.loads, sj.messages, sj.comm_eps)
+    sj, st = cj.to_scheme_spec(), ct.to_scheme_spec()
+    assert (st.name, st.kind, st.C, st.loads, st.messages, st.comm_eps) \
+        == (sj.name, sj.kind, sj.C, sj.loads, sj.messages, sj.comm_eps)
+    assert ct.sweep_rounds_kwargs() == cj.sweep_rounds_kwargs()
+    assert ct.aggregator_kwargs() == cj.aggregator_kwargs()
 
 
 @pytest.mark.parametrize("kw", [

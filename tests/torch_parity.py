@@ -112,3 +112,19 @@ def delay_tables(seed: int, rounds: int, n: int, r: int,
     T1 = (scale * (0.5 + gen.random((rounds, n, r)))).astype(np.float32)
     T2 = (5 * scale * (0.5 + gen.random((rounds, n, r)))).astype(np.float32)
     return T1, T2
+
+
+def tie_exact_tables(seed: int, rounds: int, n: int, r: int,
+                     trials: int | None = None, lo: int = 8, hi: int = 14):
+    """The tie-exact family of delay tables: T1 is constant per (trial,
+    worker) across rounds and slots and a power of two, ``2**-e`` with e in
+    [lo, hi); T2 is arbitrary positive.  With feedback_beta = coverage_gamma
+    = 0.5 every delay estimate stays that power of two, every greedy score is
+    exact in float32, and no summation order can change a pick.  Shapes are
+    (rounds, n, r), or (rounds, trials, n, r) when ``trials`` is given."""
+    gen = np.random.default_rng(seed)
+    lead = () if trials is None else (trials,)
+    e = gen.integers(lo, hi, size=(1,) + lead + (n, 1))
+    T1 = np.broadcast_to(2.0 ** -e, (rounds,) + lead + (n, r))
+    T2 = 5e-4 * (0.5 + gen.random((rounds,) + lead + (n, r)))
+    return T1.astype(np.float32), T2.astype(np.float32)
