@@ -11,7 +11,12 @@ Workloads (the ones ``chip_smoke.py`` drives):
           with launches per chunk-round;
   dgd     RegressionConfig() (N=900, d=400, n=15, r=3, k=15), 20 iterations
           of each of CS/SS/RA/ADAPT/PC/PCMM on the iid cluster;
-  dgd-markov  the same on the Markov cluster.
+  dgd-markov  the same on the Markov cluster;
+  serve-prefill  gemma3-4b at full width and depth, bf16, random weights:
+          one prefill of 2 x 2048 tokens into an empty cache (29
+          swa_attention launches);
+  serve-decode   8 greedy decode steps of that batch after the prefill,
+          with launches per step.
 
 Run on a machine with a card, from the repository root:
 
@@ -32,7 +37,9 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch import dgd  # noqa: E402
-from repro_torch.configs import RegressionConfig  # noqa: E402
+from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
+from repro_torch.models import forward, init_cache, init_params  # noqa: E402
+from repro_torch.train import make_serve_step  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import fig8_convergence as fig8  # noqa: E402
 from repro_torch.core import sweep_rounds  # noqa: E402
@@ -94,6 +101,30 @@ def main():
                                         device="cuda"), card)
     window("dgd-markov", lambda: dgd.run_paper(
         RegressionConfig(), 20, device="cuda", cluster="markov"), card)
+    serve_windows(card)
+
+
+@torch.inference_mode()
+def serve_windows(card, batch=2, prompt_len=2048, steps=8):
+    cfg = get_config("gemma3-4b")
+    model = init_params(cfg, seed=0, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                           generator=torch.Generator("cuda").manual_seed(0),
+                           device="cuda")
+    max_len = prompt_len + 2 * steps + 8
+    window("serve-prefill", lambda: forward(
+        model, cfg, prompt, cache=init_cache(cfg, batch, max_len)), card)
+    _, _, cache = forward(model, cfg, prompt,
+                          cache=init_cache(cfg, batch, max_len))
+    state = {"cache": cache, "tok": prompt[:, -1:].to(torch.int32)}
+    step = make_serve_step(cfg)
+
+    def decode():
+        for _ in range(steps):
+            state["tok"], state["cache"], _ = step(model, state["cache"],
+                                                   state["tok"])
+
+    window("serve-decode", decode, card, units=("decode step", steps))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,15 @@
 """Smoke run of the PyTorch port on one CUDA card: builds the port's kernels
-(gram_matvec, greedy_assign) from the checkout, holds each against its
-plain PyTorch version, drives the single-round Monte-Carlo engine at a
-10^6-trial sweep, the rounds engine over the full Fig. 8 grid (adaptive
-scheduling through the greedy_assign kernel, CUDA trajectories against CPU
-ones on a shared trace), and runs the paper's DGD regression loop end to
-end on the iid and the Markov cluster (gram_matvec for every uncoded
-scheme, greedy_assign for the ADAPT row).
+(gram_matvec, greedy_assign, swa_attention) from the checkout, holds each
+against its plain PyTorch version, drives the single-round Monte-Carlo
+engine at a 10^6-trial sweep, the rounds engine over the full Fig. 8 grid
+(adaptive scheduling through the greedy_assign kernel, CUDA trajectories
+against CPU ones on a shared trace), runs the paper's DGD regression loop
+end to end on the iid and the Markov cluster (gram_matvec for every
+uncoded scheme, greedy_assign for the ADAPT row), and serves gemma3-4b at
+full width and depth through ``repro_torch.launch.serve`` (prefill of two
+2048-token prompts and greedy decode; the prefill attention of every
+sliding-window layer through the swa_attention kernel), with the
+kernel route checked against the ring-cache route and the CPU.
 
 Run from the repository root on a machine with a card:
 
@@ -17,6 +21,7 @@ failed check raises, so the exit code is non-zero and the last line is
 never printed.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,7 +36,7 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import RegressionConfig  # noqa: E402
+from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
 from repro_torch.core import (DelayTrace, TraceProcess,  # noqa: E402
                               adaptive_spec, completion_samples,
                               cyclic_to_matrix, lb_spec,
@@ -42,15 +47,22 @@ from repro_torch.core import (DelayTrace, TraceProcess,  # noqa: E402
 from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.launch import serve  # noqa: E402
+from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
+                                layer_specs)
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks_torch"))
 import fig8_convergence as fig8  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM rate and float32
-# outside the tensor cores.
+# H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
+# the tensor cores, bf16 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12
 DEV = torch.device("cuda")
+# float32 stays float32 on the card: no TF32 in matmuls or convolutions
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 
 def check(cond, msg):
@@ -367,6 +379,211 @@ def dgd_phase():
             "seconds": {"iid": secs_iid, "markov": secs_markov}}
 
 
+def swa_pairs(T, W):
+    """Visible (query, key) pairs of causal window-W attention over T
+    positions: sum over t of min(t + 1, W)."""
+    W = min(W, T)
+    return W * (W + 1) // 2 + (T - W) * W
+
+
+def swa_bound(B, T, H, K, dh, W, dtype):
+    """Least time for swa_attention: 4 * dh flops per visible pair (QK^T and
+    PV) over the peak rate of the input type (bf16 tensor cores, or float32
+    outside them) vs q, k, v read and o written once over the HBM rate."""
+    item = 2 if dtype == torch.bfloat16 else 4
+    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
+    t_ops = 4 * dh * swa_pairs(T, W) * B * H / rate
+    t_bytes = (2 * B * T * H * dh + 2 * B * T * K * dh) * item / HBM_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa_banded(q, k, v, W):
+    """One library call computing the same function (timing yardstick only;
+    the port never calls it): inputs laid out and KV heads repeated for
+    ``scaled_dot_product_attention`` with a boolean band mask."""
+    T, G = q.shape[1], q.shape[2] // k.shape[2]
+    pos = torch.arange(T, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    qt = q.transpose(1, 2)
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2)
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2)
+    return lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=band)
+
+
+def swa_phase():
+    """swa_attention against its plain version at the JAX kernel tests'
+    shapes (B = 1, K = H; float32 and bfloat16), window 1, the gemma3-4b
+    prefill shape and one long shape.  float32: max-abs 2e-4, from
+    tests/test_kernels.py.  bfloat16: elementwise |got - want| <= 1e-3 +
+    1e-2 |want|, which scales with the output (a band of ~1 000 keys gives
+    outputs of std ~0.03, so a flat 3e-2 would pass an off-by-one window
+    edge) and still admits the one-ulp bf16 rounding difference."""
+    jax_shapes = [(128, 2, 64, 32), (200, 1, 32, 64), (256, 2, 128, 100),
+                  (64, 4, 16, 8), (96, 1, 64, 96), (130, 2, 32, 17),
+                  (64, 1, 32, 1)]
+    shapes = [(1, T, H, H, dh, W, dt) for T, H, dh, W in jax_shapes
+              for dt in (torch.float32, torch.bfloat16)]
+    shapes += [(2, 2048, 8, 4, 256, 1024, torch.bfloat16),   # gemma prefill
+               (2, 2048, 8, 4, 256, 1024, torch.float32),
+               (1, 16384, 8, 4, 256, 8192, torch.bfloat16)]  # long
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rows = []
+    for B, T, H, K, dh, W, dt in shapes:
+        q = (torch.randn(B, T, H, dh, generator=gen, device=DEV) * 0.5).to(dt)
+        k = (torch.randn(B, T, K, dh, generator=gen, device=DEV) * 0.5).to(dt)
+        v = torch.randn(B, T, K, dh, generator=gen, device=DEV).to(dt)
+        got = ops.swa_attention(q, k, v, window=W)
+        want = ref.swa_attention_ref(q, k, v, W)
+        torch.cuda.synchronize()
+        check(got.dtype == dt and got.shape == q.shape,
+              f"swa output {got.dtype} {tuple(got.shape)}")
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
+        if dt == torch.float32:
+            check(err < 2e-4, f"swa_attention max abs err {err:.2e} >= 2e-4"
+                              f" at {(B, T, H, K, dh, W, dt)}")
+        else:
+            worst = (diff / (1e-3 + 1e-2 * want.float().abs())).max().item()
+            check(worst <= 1, f"swa_attention |got - want| exceeds 1e-3 + "
+                              f"1e-2 |want| {worst:.2f}x (max abs err "
+                              f"{err:.2e}) at {(B, T, H, K, dh, W, dt)}")
+        del diff
+        if W == 1:
+            err1 = (got.float() - v.float()).abs().max().item()
+            check(err1 < 1e-5 if dt == torch.float32 else err1 == 0,
+                  f"swa_attention window 1 is not v: {err1:.2e}")
+        del want
+        big = T * T * B * H > 2 ** 27
+        row = dict(shape=[B, T, H, K, dh, W], dtype=str(dt).split(".")[-1],
+                   max_abs_err=err,
+                   ms=cuda_ms(lambda: ops.swa_attention(q, k, v, window=W),
+                              5 if big else 50),
+                   plain_ms=cuda_ms(lambda: ref.swa_attention_ref(q, k, v, W),
+                                    2 if big else 20),
+                   library_ms=cuda_ms(sdpa_banded(q, k, v, W),
+                                      5 if big else 50))
+        row["bound_ms"], row["bound_by"] = swa_bound(B, T, H, K, dh, W, dt)
+        rows.append(row)
+        print(f"kernel swa_attention B={B} T={T} H={H} K={K} dh={dh} W={W} "
+              f"{row['dtype']}: max_abs_err={err:.3e} ms={row['ms']:.5f} "
+              f"plain_ms={row['plain_ms']:.5f} library_ms="
+              f"{row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
+              f"({row['bound_by']})")
+        del q, k, v, got
+        torch.cuda.empty_cache()
+    return rows
+
+
+SERVE = dict(batch=2, prompt_len=2048, gen=32)
+
+
+def serve_phase():
+    """gemma3-4b at full width and depth, bf16, random weights from seed 0
+    on the card, through the serve CLI: a warm-up run (one decode step),
+    then the measured run with the launch counts set to 0 just before it.
+    Exactly one swa_attention launch per sliding-window layer in the
+    prefill, none in decode; every logit finite; tokens of the right
+    shape and range."""
+    cfg = get_config("gemma3-4b")
+    n_swa = sum(s.mixer == "swa" for s in layer_specs(cfg))
+    check(cfg.n_layers == 34 and n_swa == 29 and cfg.d_model == 2560,
+          f"gemma3-4b config: {cfg.n_layers} layers, {n_swa} swa")
+    argv = ["--arch", "gemma3-4b", "--batch", str(SERVE["batch"]),
+            "--prompt-len", str(SERVE["prompt_len"]), "--seed", "0"]
+    serve.main(argv + ["--gen", "2"])                          # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = serve.main(argv + ["--gen", str(SERVE["gen"])])
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(res.launches_after_prefill["swa_attention"] == n_swa,
+          f"serve prefill swa_attention launches "
+          f"{res.launches_after_prefill} != {n_swa}")
+    check(launches["swa_attention"] == n_swa,
+          f"swa_attention launched in decode: {launches}")
+    check(res.finite, "serve: non-finite logits")
+    B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
+    check(tuple(res.tokens.shape) == (B, G), f"tokens {tuple(res.tokens.shape)}")
+    check(bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          "serve: token out of the vocabulary")
+    out = {"prefill_ms": res.prefill_s * 1e3,
+           "prefill_tok_per_s": B * P / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / (G - 1),
+           "decode_tok_per_s": B * (G - 1) / res.decode_s,
+           "peak_mem_bytes": peak, "mem_before_bytes": base,
+           "swa_launches": launches["swa_attention"]}
+    print(f"serve gemma3-4b 34 layers bf16 batch={B} prompt={P} gen={G}: "
+          f"prefill {out['prefill_ms']:.3f} ms ({out['prefill_tok_per_s']:.1f}"
+          f" tok/s), decode {out['decode_ms_per_step']:.4f} ms/step "
+          f"({out['decode_tok_per_s']:.1f} tok/s), peak memory {peak} bytes "
+          f"({base} allocated before the run), "
+          f"swa_attention launches {launches['swa_attention']} (prefill "
+          f"{res.launches_after_prefill['swa_attention']})")
+    return out
+
+
+@torch.inference_mode()
+def consistency_phase():
+    """(1) gemma3-4b at full width, 7 layers (6 swa, 1 gqa), float32: the
+    full forward without a cache (kernel route) against a 1024-token
+    prefill plus 16 decode steps (kernel, then the ring route) at the same
+    positions, max abs logit difference < 2e-3 (tests/test_models.py's
+    decode-vs-full bound).  (2) the 7-layer smoke-width config on the card
+    against the same weights on the CPU, relative difference < 1e-4."""
+    cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=7,
+                              param_dtype="float32", dtype="float32")
+    specs = layer_specs(cfg)
+    check(sum(s.mixer == "swa" for s in specs) == 6, "7-layer plan")
+    model = init_params(cfg, seed=1, device=DEV)
+    B, P, steps = 2, 1024, 16
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
+                         device=DEV)
+    full, _, _ = forward(model, cfg, toks)
+    full = full[:, P:].clone()
+    cache = init_cache(cfg, B, P + steps + 8, device=DEV)
+    _, _, cache = forward(model, cfg, toks[:, :P], cache=cache)
+    worst = 0.0
+    for t in range(steps):
+        lg, _, cache = forward(model, cfg, toks[:, P + t:P + t + 1],
+                               cache=cache)
+        worst = max(worst, (lg[:, 0] - full[:, t]).abs().max().item())
+    check(worst < 2e-3, f"decode vs full (ring vs kernel) {worst:.2e}")
+    print(f"consistency gemma3-4b 7 layers f32: full forward vs prefill "
+          f"{P} + {steps} decode steps max abs logit diff {worst:.3e}")
+    del model, full, cache
+    torch.cuda.empty_cache()
+
+    small = dataclasses.replace(get_config("gemma3-4b").smoke(), n_layers=7)
+    cpu_model = init_params(small, seed=2, device="cpu")
+    gpu_model = init_params(small, seed=2, device="cpu").to(DEV)
+    toks = torch.as_tensor(np.random.default_rng(2).integers(
+        0, small.vocab_size, (2, 48)))
+    a, _, _ = forward(gpu_model, small, toks.to(DEV))
+    b, _, _ = forward(cpu_model, small, toks)
+    rel_full = ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    ca = init_cache(small, 2, 64, device=DEV)
+    cb = init_cache(small, 2, 64, device="cpu")
+    a, _, ca = forward(gpu_model, small, toks[:, :40].to(DEV), cache=ca)
+    b, _, cb = forward(cpu_model, small, toks[:, :40], cache=cb)
+    rel_dec = ((a.cpu() - b).abs().max() / b.abs().max()).item()
+    for t in range(40, 48):
+        a, _, ca = forward(gpu_model, small, toks[:, t:t + 1].to(DEV), cache=ca)
+        b, _, cb = forward(cpu_model, small, toks[:, t:t + 1], cache=cb)
+        rel_dec = max(rel_dec, ((a.cpu() - b).abs().max()
+                                / b.abs().max()).item())
+    check(rel_full < 1e-4 and rel_dec < 1e-4,
+          f"card vs CPU logits rel {rel_full:.2e} (full), {rel_dec:.2e} "
+          f"(prefill + decode)")
+    print(f"consistency {small.name} x7 f32 card vs CPU: rel diff "
+          f"{rel_full:.3e} (full forward), {rel_dec:.3e} (prefill 40 + 8 "
+          f"decode steps)")
+    return {"decode_vs_full": worst, "card_vs_cpu": max(rel_full, rel_dec)}
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -385,8 +602,14 @@ def main():
     engine = engine_phase()
     rounds = rounds_phase()
     dgd_launches = dgd_phase()
+    swa_rows = swa_phase()
+    served = serve_phase()
+    consistency = consistency_phase()
     main_row = rows[0]                 # the DGD shape, float32
     g_row = greedy_rows[1]             # the Fig. 8 chunk (2000, 12, 3)
+    s_row = next(r for r in swa_rows   # the gemma3-4b prefill shape, bf16
+                 if r["shape"] == [2, 2048, 8, 4, 256, 1024]
+                 and r["dtype"] == "bfloat16")
     print(json.dumps({"kernels": [{
         "name": "gram_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_matvec.cu",
@@ -411,9 +634,20 @@ def main():
         "max_abs_err": g_row["max_abs_err"],
         "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],
-        "library_ms": None, "card": card, "shapes": greedy_rows}],
+        "library_ms": None, "card": card, "shapes": greedy_rows}, {
+        "name": "swa_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:73",
+        "launches": served["swa_launches"],
+        "launches_by_path": {"serve": served["swa_launches"]},
+        "max_abs_err": s_row["max_abs_err"],
+        "ms": s_row["ms"], "plain_ms": s_row["plain_ms"],
+        "bound_ms": s_row["bound_ms"], "bound_by": s_row["bound_by"],
+        "library_ms": s_row["library_ms"], "card": card,
+        "shapes": swa_rows}],
         "engine": engine, "rounds": rounds,
-        "dgd_seconds": dgd_launches["seconds"]}))
+        "dgd_seconds": dgd_launches["seconds"], "serve": served,
+        "consistency": consistency}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

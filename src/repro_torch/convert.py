@@ -1,12 +1,13 @@
 """Carry the JAX side's state into the port.
 
-This system has no model weights: its state is delay-model and process
-parameters, TO matrices, round configurations, the regression data and
-parameters, delay tables and traces, and an adaptive scheduler's feedback
-estimates.  The JAX package hands them over as numpy arrays and plain
-dicts (``dataclasses.asdict`` of its frozen specs, ``RoundConfig.to_dict``,
-``np.asarray`` of its arrays); these functions turn them into the port's
-objects, so both packages can compute on the same inputs.
+The scheduling system's state is delay-model and process parameters, TO
+matrices, round configurations, the regression data and parameters, delay
+tables and traces, and an adaptive scheduler's feedback estimates; the LM
+stack's is its parameter tree.  The JAX package hands them over as numpy
+arrays and plain dicts (``dataclasses.asdict`` of its frozen specs,
+``RoundConfig.to_dict``, ``np.asarray`` of its arrays); these functions
+turn them into the port's objects, so both packages can compute on the
+same inputs.
 """
 from __future__ import annotations
 
@@ -19,10 +20,12 @@ from .core import cluster, delays, scheduling
 from .core.spec import RoundConfig
 from .core.trace import DelayTrace
 from .device import resolve_device
+from .models.config import ModelConfig
+from .models.model import plan_segments
 
 __all__ = ["delay_model", "delay_process", "to_matrix", "round_config",
            "regression_state", "delay_tables", "delay_trace",
-           "adaptive_scheduler"]
+           "adaptive_scheduler", "lm_params"]
 
 _MODELS = {cls.__name__: cls for cls in (
     delays.TruncatedGaussianDelays, delays.ShiftedExponentialDelays,
@@ -142,3 +145,55 @@ def adaptive_scheduler(C, est=None, silent=None, *, device=None,
                              f"{silent.shape}")
         sch.silent = silent
     return sch
+
+
+def _flatten(tree, prefix: str):
+    """(dotted name, leaf) pairs of a nested dict of arrays."""
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            yield from _flatten(val, name + ".")
+        else:
+            yield name, val
+
+
+def _unstack(params: dict, cfg: ModelConfig) -> dict:
+    """The JAX LM parameter tree as {port name: numpy array}: each
+    segment's (reps, ...) leaves are unstacked into one block per layer,
+    in ``layer_specs`` order (rep-major, then the position in the period),
+    for the periodic and the run-length plan alike."""
+    extra = set(params) - {"embed", "final_norm", "lm_head", "segments"}
+    if extra:
+        raise NotImplementedError(
+            f"parameters {sorted(extra)} belong to encoders or frontends, "
+            f"which the port does not run yet (ROADMAP.md)")
+    out = {"embed": np.asarray(params["embed"])}
+    for top in ("final_norm", "lm_head"):
+        if top in params:
+            out.update((n, np.asarray(a)) for n, a in _flatten(
+                params[top], top + "."))
+    layer = 0
+    for seg, stacked in zip(plan_segments(cfg), params["segments"],
+                            strict=True):
+        for rep in range(seg.reps):
+            for j in range(len(seg.specs)):
+                for name, leaf in _flatten(stacked[j], f"blocks.{layer}."):
+                    out[name] = np.asarray(leaf)[rep]
+                layer += 1
+    return out
+
+
+def _tensor(a: np.ndarray) -> torch.Tensor:
+    """A CPU tensor copy of a numpy array; JAX's bfloat16 arrays (numpy's
+    ``ml_dtypes.bfloat16``) keep their bits."""
+    if a.dtype.name == "bfloat16":
+        return torch.tensor(np.ascontiguousarray(a).view(np.uint16)).view(
+            torch.bfloat16)
+    return torch.tensor(a)
+
+
+def lm_params(params: dict, cfg: ModelConfig) -> dict:
+    """The JAX package's LM parameters (``repro.models.init_params``'s tree,
+    leaves as numpy arrays) as a state dict of the port's ``Transformer``
+    for ``cfg`` (CPU tensors; ``load_state_dict`` casts and moves them)."""
+    return {name: _tensor(a) for name, a in _unstack(params, cfg).items()}

@@ -34,6 +34,11 @@ SOURCES = {
                                  + [ctypes.c_void_p], ctypes.c_int),
         "greedy_assign_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
+    "swa_attention": ("swa_attention.cu", {
+        "swa_attention_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                                 + [ctypes.c_void_p], ctypes.c_int),
+        "swa_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    }),
 }
 
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -14,13 +14,17 @@ import torch
 from . import build, ref
 
 __all__ = ["gram_matvec", "batched_gram_matvec", "greedy_assign",
-           "GREEDY_MAX_N", "LAUNCHES", "reset_launch_counts"]
+           "swa_attention", "GREEDY_MAX_N", "SWA_HEAD_DIMS", "LAUNCHES",
+           "reset_launch_counts"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``
-LAUNCHES = {"gram_matvec": 0, "greedy_assign": 0}
+LAUNCHES = {"gram_matvec": 0, "greedy_assign": 0, "swa_attention": 0}
 
 #: the largest n the greedy_assign kernel takes (kMaxN in its source)
 GREEDY_MAX_N = 128
+
+#: the head dims the swa_attention kernel is compiled for
+SWA_HEAD_DIMS = (16, 32, 64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -126,4 +130,59 @@ def greedy_assign(W: torch.Tensor, order: torch.Tensor, epick: torch.Tensor,
         raise RuntimeError(f"greedy_assign launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES["greedy_assign"] += 1
+    return out
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  window: int) -> torch.Tensor:
+    """Causal sliding-window attention over one chunk of fresh tokens (see
+    ``ref.swa_attention_ref``): q (B, T, H, dh), k/v (B, T, K, dh) with
+    H % K == 0 -> (B, T, H, dh) in q's dtype; position t sees (t - window,
+    t], query head h reads KV head h // (H // K).  On the card this is the
+    ``swa_attention`` CUDA kernel (``csrc/swa_attention.cu``; float32 or
+    bfloat16, contiguous, dh in ``SWA_HEAD_DIMS``), one launch for the whole
+    batch; CPU tensors take the plain version."""
+    if not isinstance(window, int) or window < 1:
+        raise ValueError(f"swa_attention needs an integer window >= 1, got "
+                         f"{window!r}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(f"swa_attention needs q (B, T, H, dh) and k, v "
+                         f"(B, T, K, dh); got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    B, T, H, dh = q.shape
+    K = k.shape[2]
+    if (k.shape[0], k.shape[1], k.shape[3]) != (B, T, dh) or K < 1 or H % K:
+        raise ValueError(f"swa_attention needs k, v (B={B}, T={T}, K, "
+                         f"dh={dh}) with H={H} a multiple of K; got "
+                         f"{tuple(k.shape)}")
+    if all(t.device.type == "cpu" for t in (q, k, v)):
+        return ref.swa_attention_ref(q, k, v, window)
+    dev = q.device
+    if dev.type != "cuda" or k.device != dev or v.device != dev:
+        raise ValueError(f"swa_attention needs q, k, v on one CUDA device "
+                         f"(or all on the CPU); got {q.device}, {k.device}, "
+                         f"{v.device}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"swa_attention takes float32 or bfloat16 q, k, v of "
+                        f"one dtype; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if dh not in SWA_HEAD_DIMS:
+        raise ValueError(f"swa_attention takes head dims {SWA_HEAD_DIMS}; "
+                         f"got {dh}")
+    if min(B, T, H) < 1 or B > 65535 or H > 65535 or q.numel() >= 2 ** 40:
+        raise ValueError(f"swa_attention shape out of range: "
+                         f"{tuple(q.shape)}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("swa_attention needs contiguous q, k, v")
+    out = torch.empty_like(q)
+    lib = build.library("swa_attention")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        err = lib.swa_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
+            K, dh, min(window, T), _DTYPES[q.dtype], stream)
+    if err:
+        msg = lib.swa_attention_error_string(err).decode()
+        raise RuntimeError(f"swa_attention launch failed: CUDA error {err} "
+                           f"({msg})")
+    LAUNCHES["swa_attention"] += 1
     return out

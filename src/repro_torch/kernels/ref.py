@@ -2,9 +2,12 @@
 what the card's kernels are held against."""
 from __future__ import annotations
 
+import math
+
 import torch
 
-__all__ = ["gram_matvec_ref", "batched_gram_matvec_ref", "greedy_assign_ref"]
+__all__ = ["gram_matvec_ref", "batched_gram_matvec_ref", "greedy_assign_ref",
+           "swa_attention_ref"]
 
 
 def gram_matvec_ref(X: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -74,3 +77,24 @@ def greedy_assign_ref(W: torch.Tensor, order: torch.Tensor,
         taken = taken | hit
         cov = cov + W[p] / epick[:, t:t + 1]
     return wout
+
+
+def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: int) -> torch.Tensor:
+    """Causal sliding-window attention (plain version of the
+    ``swa_attention`` kernel; the JAX package's ``swa_attention_ref`` with
+    a batch axis and grouped KV heads).  q (B, T, H, dh), k/v (B, T, K, dh)
+    with H % K == 0 -> (B, T, H, dh) in q's dtype.  Position t attends to
+    positions (t - window, t]; query head h reads KV head h // (H // K), as
+    ``repeat_kv`` maps them.  Scores, softmax and the weighted sum are
+    float32."""
+    B, T, H, dh = q.shape
+    G = H // k.shape[2]
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(dh))
+    pos = torch.arange(T, device=q.device)
+    ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+    s = s.masked_fill(~ok, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)

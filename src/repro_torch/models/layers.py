@@ -1,0 +1,365 @@
+"""Dense layers of the port's LM stack (counterpart of the dense subset of
+``repro.models.layers``): projections, RMS norm, rotary embeddings, the
+attention core, grouped-query attention with its KV cache (full or ring
+buffer) and the SwiGLU feed-forward.
+
+Weights keep the JAX layout (a ``dense`` weight is ``(d_in, d_out)`` and is
+used as ``x @ w``) and the JAX names, so ``repro_torch.convert.lm_params``
+is a copy.  The attention of a sliding-window (``swa``) layer over a chunk
+of fresh tokens, with no cache or into an empty ring, is the
+``swa_attention`` kernel (``kernels/ops.py``); the other attention paths
+are torch ops, as the JAX package computes them in jnp.  KV caches are
+updated in place (the JAX package returns new arrays); ``pos`` is a host
+integer.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .config import ModelConfig
+
+__all__ = ["dense", "rms_norm", "rope_freqs", "apply_rope", "attention_core",
+           "repeat_kv", "gqa_init", "gqa_apply", "gqa_cache_init", "swiglu",
+           "Dense", "RMSNorm", "Attention", "SwiGLU"]
+
+
+def dense(x: torch.Tensor, w: torch.Tensor,
+          b: Optional[torch.Tensor] = None) -> torch.Tensor:
+    y = x @ w.to(x.dtype)
+    if b is not None:
+        y = y + b.to(x.dtype)
+    return y
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMS norm over the last axis, computed in float32."""
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# RoPE
+# --------------------------------------------------------------------------
+
+def rope_freqs(dim: int, theta: float, device=None) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                         device=device) / dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x (..., T, H, dh) or (..., T, dh); positions (..., T).  The head dim
+    splits into halves (not interleaved pairs), as in the JAX package."""
+    inv = rope_freqs(x.shape[-1], theta, device=x.device)
+    ang = positions.float()[..., None] * inv
+    cos, sin = torch.cos(ang), torch.sin(ang)
+    if x.dim() == positions.dim() + 2:                # head axis present
+        cos, sin = cos[..., None, :], sin[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# attention core
+# --------------------------------------------------------------------------
+
+def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, q_offset: int, window: Optional[int] = None,
+                   kv_len: Optional[int] = None,
+                   softcap: Optional[float] = None, chunk_q: int = 2048,
+                   chunk_k: int = 1024) -> torch.Tensor:
+    """q (B, H, Tq, dh), k/v (B, H, Tk, dh_v) with the same head count (the
+    caller repeats GQA's KV heads).  ``q_offset`` is the absolute position
+    of q's first row; ``kv_len`` masks cache positions >= it.  Up to
+    4096 x 4096 scores the softmax is dense; beyond, an online softmax over
+    (chunk_q x chunk_k) score tiles bounds the memory.  Rows with no
+    visible key give zeros."""
+    B, H, Tq, dh = q.shape
+    Tk = k.shape[2]
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    qpos = q_offset + torch.arange(Tq, device=dev)
+
+    def visible(qp, kp):
+        ok = torch.ones((qp.shape[0], kp.shape[0]), dtype=torch.bool,
+                        device=dev)
+        if causal:
+            ok &= kp[None, :] <= qp[:, None]
+        if window is not None:
+            ok &= kp[None, :] > qp[:, None] - window
+        if kv_len is not None:
+            ok &= (kp < kv_len)[None, :]
+        return ok
+
+    def scores(qc, kc):
+        s = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kc.float()) * scale
+        if softcap:
+            s = torch.tanh(s / softcap) * softcap
+        return s
+
+    if Tq * Tk <= 4096 * 4096 and Tq <= 4096:
+        s = scores(q, k).masked_fill(
+            ~visible(qpos, torch.arange(Tk, device=dev)), float("-inf"))
+        p = torch.softmax(s, dim=-1)
+        # rows with every key masked give nan: zero them
+        # (repro/models/layers.py:158)
+        p = torch.where(torch.isfinite(s).any(-1, keepdim=True), p, 0.0)
+        return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+    # ---- chunked online softmax ----
+    eff_len = Tk if kv_len is None else min(Tk, kv_len)
+    outs = []
+    for q0 in range(0, Tq, chunk_q):
+        qc, qp = q[:, :, q0:q0 + chunk_q], qpos[q0:q0 + chunk_q]
+        cq = qc.shape[2]
+        m = torch.full((B, H, cq), float("-inf"), device=dev)
+        l = torch.zeros((B, H, cq), device=dev)
+        acc = torch.zeros((B, H, cq, v.shape[-1]), device=dev)
+        for k0 in range(0, Tk, chunk_k):
+            ks, vs = k[:, :, k0:k0 + chunk_k], v[:, :, k0:k0 + chunk_k]
+            kp = k0 + torch.arange(ks.shape[2], device=dev)
+            ok = visible(qp, kp) & (kp < eff_len)[None, :]
+            s = scores(qc, ks).masked_fill(~ok, float("-inf"))
+            m_new = torch.maximum(m, s.amax(-1))
+            m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+            pexp = torch.exp(s - m_safe[..., None])
+            pexp = torch.where(torch.isfinite(s), pexp, 0.0)
+            corr = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+            l = l * corr + pexp.sum(-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", pexp.to(vs.dtype), vs).float()
+            m = m_new
+        outs.append((acc / l.clamp_min(1e-30)[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, K, T, dh) -> (B, K * groups, T, dh): query head h reads KV head
+    h // groups."""
+    if groups == 1:
+        return x
+    B, K, T, dh = x.shape
+    return x[:, :, None].expand(B, K, groups, T, dh).reshape(
+        B, K * groups, T, dh)
+
+
+# --------------------------------------------------------------------------
+# modules
+# --------------------------------------------------------------------------
+
+class Dense(nn.Module):
+    """``x @ w (+ b)`` with ``w`` (d_in, d_out); initialised N(0, scale^2),
+    scale 1/sqrt(d_in) unless given, bias zero."""
+
+    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
+                 scale: Optional[float] = None, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.init_scale = 1.0 / math.sqrt(d_in) if scale is None else scale
+        self.w = nn.Parameter(torch.empty((d_in, d_out), dtype=dtype,
+                                          device=device))
+        self.b = (nn.Parameter(torch.empty((d_out,), dtype=dtype,
+                                           device=device)) if bias else None)
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.w.normal_(0.0, self.init_scale, generator=generator)
+        if self.b is not None:
+            self.b.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dense(x, self.w, self.b)
+
+
+class RMSNorm(nn.Module):
+    """RMS norm with a learned scale (initialised to one), in float32."""
+
+    def __init__(self, d: int, eps: float, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty((d,), dtype=dtype,
+                                              device=device))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rms_norm(x, self.scale, self.eps)
+
+
+class Attention(nn.Module):
+    """Grouped-query attention's projections ``wq``, ``wk``, ``wv``, ``wo``;
+    ``forward`` is ``gqa_apply``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+        dt = getattr(torch, cfg.param_dtype)
+        kw = dict(dtype=dt, device=device)
+        self.wq = Dense(cfg.d_model, H * dh, bias=cfg.qkv_bias, **kw)
+        self.wk = Dense(cfg.d_model, K * dh, bias=cfg.qkv_bias, **kw)
+        self.wv = Dense(cfg.d_model, K * dh, bias=cfg.qkv_bias, **kw)
+        self.wo = Dense(H * dh, cfg.d_model, scale=1.0 / math.sqrt(H * dh),
+                        **kw)
+
+    def forward(self, x, **kw):
+        return gqa_apply(self, self.cfg, x, **kw)
+
+
+class SwiGLU(nn.Module):
+    """``w_down(silu(w_gate x) * w_up x)``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d_ff = cfg.d_ff
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.w_gate = Dense(cfg.d_model, d_ff, **kw)
+        self.w_up = Dense(cfg.d_model, d_ff, **kw)
+        self.w_down = Dense(d_ff, cfg.d_model, scale=1.0 / math.sqrt(d_ff),
+                            **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return swiglu(self, x)
+
+
+def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
+
+
+# --------------------------------------------------------------------------
+# GQA attention (full / sliding-window) with optional KV cache
+# --------------------------------------------------------------------------
+
+def gqa_init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
+             device=None) -> Attention:
+    """An ``Attention`` module, initialised from ``generator`` (left
+    uninitialised without one, e.g. on the ``meta`` device); serving
+    weights, without gradients."""
+    attn = Attention(cfg, device=device).requires_grad_(False)
+    if generator is not None:
+        for m in (attn.wq, attn.wk, attn.wv, attn.wo):
+            m.reset_parameters(generator)
+    return attn
+
+
+def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
+              window: Optional[int] = None,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[dict] = None, use_rope: bool = True,
+              causal: bool = True) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x (B, T, d) -> (y (B, T, d), new_cache).  ``cache`` = {"k", "v"
+    (B, K, S, dh), "pos" (int)}; its tensors are written in place."""
+    B, T, _ = x.shape
+    dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if window is not None and cfg.attn_logit_softcap:
+        raise NotImplementedError(
+            "a sliding-window layer with attn_logit_softcap: the JAX ring "
+            "path ignores the softcap while attention_core applies it "
+            "(ROADMAP.md section 3), so the port takes neither")
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None, :]
+    q = p.wq(x).reshape(B, T, H, dh)
+    kx = p.wk(x).reshape(B, T, K, dh)
+    vx = p.wv(x).reshape(B, T, K, dh)
+    if use_rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        kx = apply_rope(kx, positions, cfg.rope_theta)
+    pos = None if cache is None else cache["pos"]
+    S = None if cache is None else cache["k"].shape[2]
+    # the ring condition of repro/models/layers.py:374
+    ring = cache is not None and window is not None and S < cfg.max_seq_len
+
+    if window is not None and causal and (cache is None or
+                                          (ring and pos == 0)):
+        # Windowed causal attention over this chunk alone: without a cache,
+        # or into an empty ring, where every ring slot holds a negative
+        # position and is masked (repro/models/layers.py:374-402 reduces
+        # to this, also for T > S).  The kernel takes the (B, T, H, dh)
+        # layout as is.
+        out = ops.swa_attention(q.contiguous(), kx.contiguous(),
+                                vx.contiguous(), window=window)
+        o = out.reshape(B, T, H * dh)
+        if ring:
+            _ring_write(cache, kx.transpose(1, 2), vx.transpose(1, 2))
+            cache = {**cache, "pos": pos + T}
+        return p.wo(o), cache
+
+    q = q.transpose(1, 2)                      # (B, H, T, dh)
+    kx = kx.transpose(1, 2)
+    vx = vx.transpose(1, 2)
+    if cache is None:
+        out = attention_core(q, repeat_kv(kx, H // K), repeat_kv(vx, H // K),
+                             causal=causal, q_offset=0, window=window,
+                             softcap=cfg.attn_logit_softcap)
+    elif ring:
+        # ring buffer of S slots, pos > 0: attend over [pre-write ring |
+        # this chunk], then write (repro/models/layers.py:374-402)
+        dev = x.device
+        slot = torch.arange(S, device=dev)
+        qpos = pos + torch.arange(T, device=dev)
+        # latest absolute position per ring slot before this chunk
+        abs_old = (pos - 1) - torch.remainder(pos - 1 - slot, S)
+        k_all = torch.cat([cache["k"], kx], dim=2)
+        v_all = torch.cat([cache["v"], vx], dim=2)
+        kpos = torch.cat([abs_old, qpos])
+        valid = ((kpos[None, :] >= 0) & (kpos[None, :] <= qpos[:, None])
+                 & (kpos[None, :] > qpos[:, None] - window))
+        s = torch.einsum("bhqd,bhkd->bhqk", q.float(),
+                         repeat_kv(k_all, H // K).float()) / math.sqrt(dh)
+        s = s.masked_fill(~valid, float("-inf"))
+        w_ = torch.softmax(s, dim=-1)
+        # a fully masked row gives zeros (repro/models/layers.py:393)
+        w_ = torch.where(torch.isfinite(s).any(-1, keepdim=True), w_, 0.0)
+        out = torch.einsum("bhqk,bhkd->bhqd", w_.to(x.dtype),
+                           repeat_kv(v_all, H // K))
+        _ring_write(cache, kx, vx)
+        cache = {**cache, "pos": pos + T}
+    else:
+        if pos + T > S:
+            # lax.dynamic_update_slice_in_dim (repro/models/layers.py:414)
+            # would clamp the write and corrupt the cache silently
+            # (ROADMAP.md section 3)
+            raise ValueError(f"KV cache overflow: {pos} + {T} tokens into a "
+                             f"cache of {S}")
+        cache["k"][:, :, pos:pos + T] = kx
+        cache["v"][:, :, pos:pos + T] = vx
+        out = attention_core(q, repeat_kv(cache["k"], H // K),
+                             repeat_kv(cache["v"], H // K), causal=True,
+                             q_offset=pos, window=window, kv_len=pos + T,
+                             softcap=cfg.attn_logit_softcap)
+        cache = {**cache, "pos": pos + T}
+    o = out.transpose(1, 2).reshape(B, T, H * dh)
+    return p.wo(o), cache
+
+
+def _ring_write(cache: dict, kx: torch.Tensor, vx: torch.Tensor) -> None:
+    """Write a chunk's keys/values (B, K, T, dh) into the ring in place:
+    only the last S tokens persist, at slots (pos + t0 + i) % S
+    (repro/models/layers.py:396-397)."""
+    S, T, pos = cache["k"].shape[2], kx.shape[2], cache["pos"]
+    t0 = max(0, T - S)
+    slots = torch.remainder(pos + t0 + torch.arange(T - t0, device=kx.device),
+                            S)
+    cache["k"][:, :, slots] = kx[:, :, t0:]
+    cache["v"][:, :, slots] = vx[:, :, t0:]
+
+
+def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                   window: Optional[int] = None, device=None) -> dict:
+    """A layer's KV cache: S = min(window, max_len) slots for a windowed
+    layer (repro/models/layers.py:435; a ring when S < cfg.max_seq_len),
+    else max_len."""
+    S = min(window, max_len) if window else max_len
+    dt = getattr(torch, cfg.dtype)
+    shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device), "pos": 0}

@@ -2,15 +2,20 @@
 version (rel 1e-5 in float32, 3e-2 in bfloat16, the tolerances of
 tests/test_kernels.py), the greedy_assign kernel against its plain version
 bit for bit (the two share one summation order and rounding, ties
-included), their launch counters and input checks, and the engines'
-per-trial samples and trajectories on the card against their own CPU
-runs.
+included), the swa_attention kernel against its plain version (max abs
+2e-4 in float32, tests/test_kernels.py's; elementwise atol 1e-3 + rtol
+1e-2 in bfloat16, which scales with outputs of a wide window), their launch
+counters and input checks, the engines' per-trial samples and trajectories
+on the card against their own CPU runs, and the LM's logits on the card
+against the CPU with the swa route's launch counts.
 
 Skipped without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_card.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +25,10 @@ from repro_torch.core import (DelayTrace, TraceProcess, adaptive_spec,
                               greedy_row_assignment_batch, lb_spec, pc_spec,
                               scenario1, staircase_to_matrix, to_spec,
                               trajectory_samples)
+from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.kernels import ops, ref
+from repro_torch.models import forward, init_cache, init_params
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -190,3 +197,85 @@ def test_trajectories_on_card_equal_cpu(cuda, censored):
                                trials=trials, devices="cpu",
                                censored_feedback=censored)
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("B,T,H,K,dh,W", [
+    (1, 128, 2, 2, 64, 32), (1, 200, 1, 1, 32, 64), (1, 256, 2, 2, 128, 100),
+    (1, 64, 4, 4, 16, 8), (1, 96, 1, 1, 64, 96), (1, 130, 2, 2, 32, 17),
+    (1, 64, 1, 1, 32, 1), (3, 77, 6, 2, 16, 5), (2, 300, 8, 4, 256, 70),
+    (2, 129, 8, 1, 128, 1000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernel_matches_plain(cuda, B, T, H, K, dh, W, dtype):
+    gen = np.random.default_rng(B * T + W)
+    q = torch.as_tensor(0.5 * gen.standard_normal((B, T, H, dh)),
+                        dtype=torch.float32).to(cuda, dtype)
+    k = torch.as_tensor(0.5 * gen.standard_normal((B, T, K, dh)),
+                        dtype=torch.float32).to(cuda, dtype)
+    v = torch.as_tensor(gen.standard_normal((B, T, K, dh)),
+                        dtype=torch.float32).to(cuda, dtype)
+    before = ops.LAUNCHES["swa_attention"]
+    got = ops.swa_attention(q, k, v, window=W)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["swa_attention"] == before + 1
+    want = ref.swa_attention_ref(q, k, v, W)
+    assert got.dtype == dtype and got.shape == q.shape
+    if dtype == torch.float32:
+        assert (got.float() - want.float()).abs().max().item() < 2e-4
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                                   atol=1e-3)
+
+
+def test_swa_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 16, 4, 32), device=cuda)
+    k = torch.zeros((1, 16, 2, 32), device=cuda)
+    before = ops.LAUNCHES["swa_attention"]
+    with pytest.raises(TypeError):
+        ops.swa_attention(q.double(), k.double(), k.double(), window=4)
+    with pytest.raises(TypeError):
+        ops.swa_attention(q, k.bfloat16(), k, window=4)
+    with pytest.raises(ValueError, match="head dims"):
+        ops.swa_attention(q[..., :24].contiguous(), k[..., :24].contiguous(),
+                          k[..., :24].contiguous(), window=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.swa_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k,
+                          k, window=4)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.swa_attention(q, k.cpu(), k, window=4)
+    with pytest.raises(ValueError, match="window"):
+        ops.swa_attention(q, k, k, window=0)
+    assert ops.LAUNCHES["swa_attention"] == before
+
+
+@torch.inference_mode()
+def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
+    """gemma3-4b's smoke width with 7 layers (6 swa): the logits of a full
+    forward and of a prefill past the window plus decode steps agree with
+    the CPU (plain attention) within rel 1e-4; one kernel launch per swa
+    layer for the forward and for the prefill, none for decode."""
+    cfg = dataclasses.replace(get_config("gemma3-4b").smoke(), n_layers=7)
+    cpu_model = init_params(cfg, seed=3, device="cpu")
+    gpu_model = init_params(cfg, seed=3, device="cpu").to(cuda)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 48)))
+
+    def rel(a, b):
+        return ((a.cpu() - b).abs().max() / b.abs().max()).item()
+
+    before = ops.LAUNCHES["swa_attention"]
+    a, _, _ = forward(gpu_model, cfg, toks.to(cuda))
+    b, _, _ = forward(cpu_model, cfg, toks)
+    assert ops.LAUNCHES["swa_attention"] == before + 6
+    assert rel(a, b) < 1e-4
+    ca = init_cache(cfg, 2, 64, device=cuda)
+    cb = init_cache(cfg, 2, 64, device="cpu")
+    a, _, ca = forward(gpu_model, cfg, toks[:, :40].to(cuda), cache=ca)
+    b, _, cb = forward(cpu_model, cfg, toks[:, :40], cache=cb)
+    assert ops.LAUNCHES["swa_attention"] == before + 12
+    assert rel(a, b) < 1e-4
+    for t in range(40, 48):
+        a, _, ca = forward(gpu_model, cfg, toks[:, t:t + 1].to(cuda),
+                           cache=ca)
+        b, _, cb = forward(cpu_model, cfg, toks[:, t:t + 1], cache=cb)
+        assert rel(a, b) < 1e-4
+    assert ops.LAUNCHES["swa_attention"] == before + 12

@@ -17,7 +17,7 @@ from repro.core import delays as jd
 from repro.core import scheduling as js
 from repro.core import spec as jspec
 from repro_torch import convert, dgd, resolve_device
-from repro_torch.configs import RegressionConfig
+from repro_torch.configs import RegressionConfig, get_config
 from repro_torch.core import (AdaptiveScheduler, StragglerAggregator,
                               adaptive_spec, completion_samples,
                               cyclic_to_matrix, greedy_row_assignment,
@@ -25,6 +25,8 @@ from repro_torch.core import (AdaptiveScheduler, StragglerAggregator,
                               trajectory_samples)
 from repro_torch.core import spec as tspec
 from repro_torch.data import regression_dataset
+from repro_torch.launch import serve
+from repro_torch.models import init_cache, init_params
 
 from torch_parity import REPO, assert_bit_equal
 
@@ -53,6 +55,11 @@ ENTRY_POINTS = {
         cyclic_to_matrix(4, 2)),
     "run_paper": lambda: dgd.run_paper(RegressionConfig(N=8, d=3, n=2, r=1,
                                                         k=2), 1),
+    "lm_init_params": lambda: init_params(get_config("gemma3-4b").smoke()),
+    "lm_init_cache": lambda: init_cache(get_config("gemma3-4b").smoke(), 1,
+                                        8),
+    "serve_run": lambda: serve.run(get_config("gemma3-4b").smoke(), batch=1,
+                                   prompt_len=4, gen=2),
 }
 
 
