@@ -14,7 +14,7 @@ Workloads (the ones ``chip_smoke.py`` drives):
   dgd-markov  the same on the Markov cluster;
   serve-prefill  gemma3-4b at full width and depth, bf16, random weights:
           one prefill of 2 x 2048 tokens into an empty cache (29
-          swa_attention launches);
+          swa_attention launches, all on the tensor-core kernel);
   serve-decode   8 greedy decode steps of that batch after the prefill,
           with launches per step.
 

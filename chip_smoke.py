@@ -1,15 +1,17 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the port's kernels
-(gram_matvec, greedy_assign, swa_attention) from the checkout, holds each
-against its plain PyTorch version, drives the single-round Monte-Carlo
+"""Smoke run of the PyTorch port on one CUDA card: builds the port's four
+kernel sources (gram_matvec, greedy_assign, swa_attention on the CUDA cores
+and swa_attention_wgmma on the tensor cores) from the checkout, holds each
+kernel against its plain PyTorch version, drives the single-round Monte-Carlo
 engine at a 10^6-trial sweep, the rounds engine over the full Fig. 8 grid
 (adaptive scheduling through the greedy_assign kernel, CUDA trajectories
 against CPU ones on a shared trace), runs the paper's DGD regression loop
 end to end on the iid and the Markov cluster (gram_matvec for every
 uncoded scheme, greedy_assign for the ADAPT row), and serves gemma3-4b at
 full width and depth through ``repro_torch.launch.serve`` (prefill of two
-2048-token prompts and greedy decode; the prefill attention of every
-sliding-window layer through the swa_attention kernel), with the
-kernel route checked against the ring-cache route and the CPU.
+2048-token prompts and greedy decode; the bf16 prefill attention of every
+sliding-window layer through the tensor-core swa_attention kernel), with
+the float32 kernel route (CUDA-core kernel) checked against the ring-cache
+route and the CPU.
 
 Run from the repository root on a machine with a card:
 
@@ -411,10 +413,25 @@ def sdpa_banded(q, k, v, W):
         qt, kt, vt, attn_mask=band)
 
 
+def cuda_core_bf16(q, k, v, W):
+    """The CUDA-core kernel, bf16's route before the tensor-core kernel, on
+    bf16 inputs that now take the tensor-core route: timing of the earlier
+    kernel only, launched past the wrapper and not counted."""
+    B, T, H, dh = q.shape
+    out = torch.empty_like(q)
+    lib = build.library("swa_attention")
+    stream = torch.cuda.current_stream().cuda_stream
+    return lambda: lib.swa_attention_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
+        k.shape[2], dh, min(W, T), 1, stream)
+
+
 def swa_phase():
     """swa_attention against its plain version at the JAX kernel tests'
-    shapes (B = 1, K = H; float32 and bfloat16), window 1, the gemma3-4b
-    prefill shape and one long shape.  float32: max-abs 2e-4, from
+    shapes (B = 1, K = H; float32 and bfloat16), window 1, two grouped
+    bf16 shapes with ragged tiles, the gemma3-4b prefill shape and one long
+    shape; each call's route (tensor cores for bf16 at dh 64-256, CUDA cores
+    otherwise) checked by the launch counts.  float32: max-abs 2e-4, from
     tests/test_kernels.py.  bfloat16: elementwise |got - want| <= 1e-3 +
     1e-2 |want|, which scales with the output (a band of ~1 000 keys gives
     outputs of std ~0.03, so a flat 3e-2 would pass an off-by-one window
@@ -424,7 +441,9 @@ def swa_phase():
                   (64, 1, 32, 1)]
     shapes = [(1, T, H, H, dh, W, dt) for T, H, dh, W in jax_shapes
               for dt in (torch.float32, torch.bfloat16)]
-    shapes += [(2, 2048, 8, 4, 256, 1024, torch.bfloat16),   # gemma prefill
+    shapes += [(2, 300, 8, 4, 256, 70, torch.bfloat16),     # ragged, paired
+               (2, 129, 8, 1, 128, 1000, torch.bfloat16),   # K = 1, W >= T
+               (2, 2048, 8, 4, 256, 1024, torch.bfloat16),   # gemma prefill
                (2, 2048, 8, 4, 256, 1024, torch.float32),
                (1, 16384, 8, 4, 256, 8192, torch.bfloat16)]  # long
     gen = torch.Generator(device=DEV).manual_seed(3)
@@ -433,11 +452,18 @@ def swa_phase():
         q = (torch.randn(B, T, H, dh, generator=gen, device=DEV) * 0.5).to(dt)
         k = (torch.randn(B, T, K, dh, generator=gen, device=DEV) * 0.5).to(dt)
         v = torch.randn(B, T, K, dh, generator=gen, device=DEV).to(dt)
+        route = ops.swa_route(dt, dh)
+        before = dict(ops.LAUNCHES)
         got = ops.swa_attention(q, k, v, window=W)
         want = ref.swa_attention_ref(q, k, v, W)
         torch.cuda.synchronize()
         check(got.dtype == dt and got.shape == q.shape,
               f"swa output {got.dtype} {tuple(got.shape)}")
+        tc = ops.LAUNCHES["swa_attention_wgmma"] - before["swa_attention_wgmma"]
+        check(ops.LAUNCHES["swa_attention"] == before["swa_attention"] + 1
+              and tc == (route == "tensor_core"),
+              f"swa_attention at {(B, T, H, K, dh, W, dt)} did not take the "
+              f"{route} route: launches {before} -> {ops.LAUNCHES}")
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
         if dt == torch.float32:
@@ -456,7 +482,7 @@ def swa_phase():
         del want
         big = T * T * B * H > 2 ** 27
         row = dict(shape=[B, T, H, K, dh, W], dtype=str(dt).split(".")[-1],
-                   max_abs_err=err,
+                   swa_route=route, max_abs_err=err,
                    ms=cuda_ms(lambda: ops.swa_attention(q, k, v, window=W),
                               5 if big else 50),
                    plain_ms=cuda_ms(lambda: ref.swa_attention_ref(q, k, v, W),
@@ -464,12 +490,20 @@ def swa_phase():
                    library_ms=cuda_ms(sdpa_banded(q, k, v, W),
                                       5 if big else 50))
         row["bound_ms"], row["bound_by"] = swa_bound(B, T, H, K, dh, W, dt)
+        row["tflop_per_s"] = 4 * dh * swa_pairs(T, W) * B * H / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        earlier = ""
+        if route == "tensor_core" and T >= 2048:
+            row["cuda_core_ms"] = cuda_ms(cuda_core_bf16(q, k, v, W),
+                                          3 if big else 20)
+            earlier = f" cuda_core_ms={row['cuda_core_ms']:.5f}"
         rows.append(row)
         print(f"kernel swa_attention B={B} T={T} H={H} K={K} dh={dh} W={W} "
-              f"{row['dtype']}: max_abs_err={err:.3e} ms={row['ms']:.5f} "
-              f"plain_ms={row['plain_ms']:.5f} library_ms="
-              f"{row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f} "
-              f"({row['bound_by']})")
+              f"{row['dtype']} route={route}: max_abs_err={err:.3e} "
+              f"ms={row['ms']:.5f} ({row['tflop_per_s']:.1f} TFLOP/s, "
+              f"{row['bound_share']:.3f} of bound) plain_ms="
+              f"{row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){earlier}")
         del q, k, v, got
         torch.cuda.empty_cache()
     return rows
@@ -483,8 +517,8 @@ def serve_phase():
     on the card, through the serve CLI: a warm-up run (one decode step),
     then the measured run with the launch counts set to 0 just before it.
     Exactly one swa_attention launch per sliding-window layer in the
-    prefill, none in decode; every logit finite; tokens of the right
-    shape and range."""
+    prefill, all on the tensor-core route, none in decode; every logit
+    finite; tokens of the right shape and range."""
     cfg = get_config("gemma3-4b")
     n_swa = sum(s.mixer == "swa" for s in layer_specs(cfg))
     check(cfg.n_layers == 34 and n_swa == 29 and cfg.d_model == 2560,
@@ -502,7 +536,11 @@ def serve_phase():
     check(res.launches_after_prefill["swa_attention"] == n_swa,
           f"serve prefill swa_attention launches "
           f"{res.launches_after_prefill} != {n_swa}")
-    check(launches["swa_attention"] == n_swa,
+    check(res.launches_after_prefill["swa_attention_wgmma"] == n_swa,
+          f"serve prefill tensor-core launches "
+          f"{res.launches_after_prefill} != {n_swa}")
+    check(launches["swa_attention"] == n_swa
+          and launches["swa_attention_wgmma"] == n_swa,
           f"swa_attention launched in decode: {launches}")
     check(res.finite, "serve: non-finite logits")
     B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
@@ -514,14 +552,16 @@ def serve_phase():
            "decode_ms_per_step": res.decode_s * 1e3 / (G - 1),
            "decode_tok_per_s": B * (G - 1) / res.decode_s,
            "peak_mem_bytes": peak, "mem_before_bytes": base,
-           "swa_launches": launches["swa_attention"]}
+           "swa_launches": launches["swa_attention"],
+           "wgmma_launches": launches["swa_attention_wgmma"]}
     print(f"serve gemma3-4b 34 layers bf16 batch={B} prompt={P} gen={G}: "
           f"prefill {out['prefill_ms']:.3f} ms ({out['prefill_tok_per_s']:.1f}"
           f" tok/s), decode {out['decode_ms_per_step']:.4f} ms/step "
           f"({out['decode_tok_per_s']:.1f} tok/s), peak memory {peak} bytes "
           f"({base} allocated before the run), "
           f"swa_attention launches {launches['swa_attention']} (prefill "
-          f"{res.launches_after_prefill['swa_attention']})")
+          f"{res.launches_after_prefill['swa_attention']}, tensor-core "
+          f"{launches['swa_attention_wgmma']})")
     return out
 
 
@@ -531,8 +571,11 @@ def consistency_phase():
     full forward without a cache (kernel route) against a 1024-token
     prefill plus 16 decode steps (kernel, then the ring route) at the same
     positions, max abs logit difference < 2e-3 (tests/test_models.py's
-    decode-vs-full bound).  (2) the 7-layer smoke-width config on the card
-    against the same weights on the CPU, relative difference < 1e-4."""
+    decode-vs-full bound); the launch counts are set to 0 just before and
+    read after: one CUDA-core launch per swa layer for the forward and for
+    the prefill, no tensor-core launch.  (2) the 7-layer smoke-width config
+    on the card against the same weights on the CPU, relative difference
+    < 1e-4."""
     cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=7,
                               param_dtype="float32", dtype="float32")
     specs = layer_specs(cfg)
@@ -542,6 +585,7 @@ def consistency_phase():
     gen = torch.Generator(device=DEV).manual_seed(1)
     toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
                          device=DEV)
+    ops.reset_launch_counts()
     full, _, _ = forward(model, cfg, toks)
     full = full[:, P:].clone()
     cache = init_cache(cfg, B, P + steps + 8, device=DEV)
@@ -551,9 +595,15 @@ def consistency_phase():
         lg, _, cache = forward(model, cfg, toks[:, P + t:P + t + 1],
                                cache=cache)
         worst = max(worst, (lg[:, 0] - full[:, t]).abs().max().item())
+    launches = dict(ops.LAUNCHES)
+    check(launches["swa_attention"] == 12
+          and launches["swa_attention_wgmma"] == 0,
+          f"f32 LM path: swa_attention launches {launches} (want 12 on the "
+          f"CUDA-core route)")
     check(worst < 2e-3, f"decode vs full (ring vs kernel) {worst:.2e}")
     print(f"consistency gemma3-4b 7 layers f32: full forward vs prefill "
-          f"{P} + {steps} decode steps max abs logit diff {worst:.3e}")
+          f"{P} + {steps} decode steps max abs logit diff {worst:.3e}; "
+          f"swa_attention launches {launches['swa_attention']} (CUDA-core)")
     del model, full, cache
     torch.cuda.empty_cache()
 
@@ -581,7 +631,8 @@ def consistency_phase():
     print(f"consistency {small.name} x7 f32 card vs CPU: rel diff "
           f"{rel_full:.3e} (full forward), {rel_dec:.3e} (prefill 40 + 8 "
           f"decode steps)")
-    return {"decode_vs_full": worst, "card_vs_cpu": max(rel_full, rel_dec)}
+    return {"decode_vs_full": worst, "card_vs_cpu": max(rel_full, rel_dec),
+            "swa_launches": launches["swa_attention"]}
 
 
 def main():
@@ -596,7 +647,7 @@ def main():
         if log.exists():
             print(f"nvcc {name}: " + " | ".join(
                 ln.strip() for ln in log.read_text().splitlines()
-                if "registers" in ln or "spill" in ln))
+                if "registers" in ln or "spill" in ln or "arning" in ln))
     rows = kernel_phase()
     greedy_rows = greedy_phase()
     engine = engine_phase()
@@ -607,9 +658,11 @@ def main():
     consistency = consistency_phase()
     main_row = rows[0]                 # the DGD shape, float32
     g_row = greedy_rows[1]             # the Fig. 8 chunk (2000, 12, 3)
-    s_row = next(r for r in swa_rows   # the gemma3-4b prefill shape, bf16
-                 if r["shape"] == [2, 2048, 8, 4, 256, 1024]
+    gemma = [2, 2048, 8, 4, 256, 1024]    # the gemma3-4b prefill shape
+    t_row = next(r for r in swa_rows if r["shape"] == gemma
                  and r["dtype"] == "bfloat16")
+    c_row = next(r for r in swa_rows if r["shape"] == gemma
+                 and r["dtype"] == "float32")
     print(json.dumps({"kernels": [{
         "name": "gram_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_matvec.cu",
@@ -638,13 +691,27 @@ def main():
         "name": "swa_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:73",
-        "launches": served["swa_launches"],
-        "launches_by_path": {"serve": served["swa_launches"]},
-        "max_abs_err": s_row["max_abs_err"],
-        "ms": s_row["ms"], "plain_ms": s_row["plain_ms"],
-        "bound_ms": s_row["bound_ms"], "bound_by": s_row["bound_by"],
-        "library_ms": s_row["library_ms"], "card": card,
-        "shapes": swa_rows}],
+        "launches": consistency["swa_launches"],
+        "launches_by_path": {"lm_f32": consistency["swa_launches"],
+                             "serve": served["swa_launches"]
+                             - served["wgmma_launches"]},
+        "max_abs_err": c_row["max_abs_err"],
+        "ms": c_row["ms"], "plain_ms": c_row["plain_ms"],
+        "bound_ms": c_row["bound_ms"], "bound_by": c_row["bound_by"],
+        "library_ms": c_row["library_ms"], "card": card,
+        "shapes": [r for r in swa_rows if r["swa_route"] == "cuda_core"]}, {
+        "name": "swa_attention_wgmma", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention_wgmma.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:73",
+        "launches": served["wgmma_launches"],
+        "launches_by_path": {"serve": served["wgmma_launches"],
+                             "lm_f32": 0},
+        "max_abs_err": t_row["max_abs_err"],
+        "ms": t_row["ms"], "plain_ms": t_row["plain_ms"],
+        "bound_ms": t_row["bound_ms"], "bound_by": t_row["bound_by"],
+        "library_ms": t_row["library_ms"],
+        "cuda_core_ms": t_row["cuda_core_ms"], "card": card,
+        "shapes": [r for r in swa_rows if r["swa_route"] == "tensor_core"]}],
         "engine": engine, "rounds": rounds,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency}))

@@ -39,6 +39,11 @@ SOURCES = {
                                  + [ctypes.c_void_p], ctypes.c_int),
         "swa_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
+    "swa_attention_wgmma": ("swa_attention_wgmma.cu", {
+        "swa_wgmma_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                             + [ctypes.c_void_p], ctypes.c_int),
+        "swa_wgmma_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    }),
 }
 
 FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

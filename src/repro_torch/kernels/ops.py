@@ -14,17 +14,23 @@ import torch
 from . import build, ref
 
 __all__ = ["gram_matvec", "batched_gram_matvec", "greedy_assign",
-           "swa_attention", "GREEDY_MAX_N", "SWA_HEAD_DIMS", "LAUNCHES",
-           "reset_launch_counts"]
+           "swa_attention", "swa_route", "GREEDY_MAX_N", "SWA_HEAD_DIMS",
+           "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts"]
 
-#: kernel name -> launches since the last ``reset_launch_counts``
-LAUNCHES = {"gram_matvec": 0, "greedy_assign": 0, "swa_attention": 0}
+#: kernel name -> launches since the last ``reset_launch_counts``;
+#: "swa_attention" counts the launches of both of its routes,
+#: "swa_attention_wgmma" those of the tensor-core route alone
+LAUNCHES = {"gram_matvec": 0, "greedy_assign": 0, "swa_attention": 0,
+            "swa_attention_wgmma": 0}
 
 #: the largest n the greedy_assign kernel takes (kMaxN in its source)
 GREEDY_MAX_N = 128
 
-#: the head dims the swa_attention kernel is compiled for
+#: the head dims the swa_attention kernels are compiled for
 SWA_HEAD_DIMS = (16, 32, 64, 128, 256)
+
+#: the head dims of the tensor-core (wgmma) route, bfloat16 only
+SWA_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -133,15 +139,28 @@ def greedy_assign(W: torch.Tensor, order: torch.Tensor, epick: torch.Tensor,
     return out
 
 
+def swa_route(dtype: torch.dtype, dh: int) -> str:
+    """Which swa_attention kernel a CUDA call of this dtype and head dim
+    launches: ``"tensor_core"`` (``csrc/swa_attention_wgmma.cu``, wgmma fed
+    by TMA) for bfloat16 at dh in ``SWA_TENSOR_CORE_HEAD_DIMS``, else
+    ``"cuda_core"`` (``csrc/swa_attention.cu``): float32, which stays out of
+    TF32, and the narrow bfloat16 heads."""
+    if dtype == torch.bfloat16 and dh in SWA_TENSOR_CORE_HEAD_DIMS:
+        return "tensor_core"
+    return "cuda_core"
+
+
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window: int) -> torch.Tensor:
     """Causal sliding-window attention over one chunk of fresh tokens (see
     ``ref.swa_attention_ref``): q (B, T, H, dh), k/v (B, T, K, dh) with
     H % K == 0 -> (B, T, H, dh) in q's dtype; position t sees (t - window,
-    t], query head h reads KV head h // (H // K).  On the card this is the
-    ``swa_attention`` CUDA kernel (``csrc/swa_attention.cu``; float32 or
-    bfloat16, contiguous, dh in ``SWA_HEAD_DIMS``), one launch for the whole
-    batch; CPU tensors take the plain version."""
+    t], query head h reads KV head h // (H // K).  On the card this is one
+    launch for the whole batch of the kernel ``swa_route`` names: the
+    tensor-core kernel (``csrc/swa_attention_wgmma.cu``) or the CUDA-core
+    one (``csrc/swa_attention.cu``); float32 or bfloat16, contiguous, dh in
+    ``SWA_HEAD_DIMS``.  A build or launch failure of either raises.  CPU
+    tensors take the plain version."""
     if not isinstance(window, int) or window < 1:
         raise ValueError(f"swa_attention needs an integer window >= 1, got "
                          f"{window!r}")
@@ -174,15 +193,29 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("swa_attention needs contiguous q, k, v")
     out = torch.empty_like(q)
-    lib = build.library("swa_attention")
     stream = torch.cuda.current_stream(dev).cuda_stream
+    route = swa_route(q.dtype, dh)
+    tensor_core = route == "tensor_core"
+    if tensor_core:
+        # TMA reads rows of dh * 2 bytes from 16-byte aligned addresses
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("swa_attention needs 16-byte aligned q, k, v")
+        lib = build.library("swa_attention_wgmma")
+        launch, error_string = lib.swa_wgmma_launch, lib.swa_wgmma_error_string
+        args = ()
+    else:
+        lib = build.library("swa_attention")
+        launch = lib.swa_attention_launch
+        error_string = lib.swa_attention_error_string
+        args = (_DTYPES[q.dtype],)
     with torch.cuda.device(dev):
-        err = lib.swa_attention_launch(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
-            K, dh, min(window, T), _DTYPES[q.dtype], stream)
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     B, T, H, K, dh, min(window, T), *args, stream)
     if err:
-        msg = lib.swa_attention_error_string(err).decode()
-        raise RuntimeError(f"swa_attention launch failed: CUDA error {err} "
-                           f"({msg})")
+        msg = error_string(err).decode()
+        raise RuntimeError(f"swa_attention launch failed ({route} kernel): "
+                           f"error {err} ({msg})")
     LAUNCHES["swa_attention"] += 1
+    if tensor_core:
+        LAUNCHES["swa_attention_wgmma"] += 1
     return out

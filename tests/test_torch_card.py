@@ -2,10 +2,11 @@
 version (rel 1e-5 in float32, 3e-2 in bfloat16, the tolerances of
 tests/test_kernels.py), the greedy_assign kernel against its plain version
 bit for bit (the two share one summation order and rounding, ties
-included), the swa_attention kernel against its plain version (max abs
+included), the swa_attention kernels against their plain version (max abs
 2e-4 in float32, tests/test_kernels.py's; elementwise atol 1e-3 + rtol
-1e-2 in bfloat16, which scales with outputs of a wide window), their launch
-counters and input checks, the engines' per-trial samples and trajectories
+1e-2 in bfloat16, which scales with outputs of a wide window) with the
+route each call takes (tensor cores for bfloat16 at dh 64-256, CUDA cores
+otherwise), their launch counters and input checks, the engines' per-trial samples and trajectories
 on the card against their own CPU runs, and the LM's logits on the card
 against the CPU with the swa route's launch counts.
 
@@ -199,13 +200,28 @@ def test_trajectories_on_card_equal_cpu(cuda, censored):
         assert torch.equal(a.cpu(), b)
 
 
-@pytest.mark.parametrize("B,T,H,K,dh,W", [
+SWA_SHAPES = [
     (1, 128, 2, 2, 64, 32), (1, 200, 1, 1, 32, 64), (1, 256, 2, 2, 128, 100),
     (1, 64, 4, 4, 16, 8), (1, 96, 1, 1, 64, 96), (1, 130, 2, 2, 32, 17),
     (1, 64, 1, 1, 32, 1), (3, 77, 6, 2, 16, 5), (2, 300, 8, 4, 256, 70),
-    (2, 129, 8, 1, 128, 1000)])
+    (2, 129, 8, 1, 128, 1000)]
+# the tensor-core kernel's tiling: T off the 64-row tiles and 128-row
+# blocks, W off the 64-key tiles, W = 1 and W >= T, K = 1 and K = H, an odd
+# group (H / K = 3), B > 1, every dh it takes, and two heads of one KV group
+# per block (H / K even)
+SWA_TC_SHAPES = [
+    (1, 130, 2, 2, 64, 70), (2, 321, 4, 2, 128, 100), (1, 257, 4, 4, 256, 1),
+    (2, 190, 4, 2, 64, 500), (1, 64, 2, 1, 256, 64), (2, 300, 8, 1, 64, 130),
+    (1, 250, 3, 3, 128, 90), (2, 200, 6, 2, 128, 64), (3, 65, 4, 4, 64, 65),
+    (1, 1100, 8, 4, 256, 1024), (2, 513, 4, 2, 256, 129)]
+
+
+@pytest.mark.parametrize("B,T,H,K,dh,W", SWA_SHAPES + SWA_TC_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_kernel_matches_plain(cuda, B, T, H, K, dh, W, dtype):
+    """Each call launches one kernel: the tensor-core one for bfloat16 at dh
+    64, 128 and 256, the CUDA-core one for float32 and for bfloat16 at dh
+    16 and 32."""
     gen = np.random.default_rng(B * T + W)
     q = torch.as_tensor(0.5 * gen.standard_normal((B, T, H, dh)),
                         dtype=torch.float32).to(cuda, dtype)
@@ -213,10 +229,15 @@ def test_swa_kernel_matches_plain(cuda, B, T, H, K, dh, W, dtype):
                         dtype=torch.float32).to(cuda, dtype)
     v = torch.as_tensor(gen.standard_normal((B, T, K, dh)),
                         dtype=torch.float32).to(cuda, dtype)
-    before = ops.LAUNCHES["swa_attention"]
+    before = dict(ops.LAUNCHES)
     got = ops.swa_attention(q, k, v, window=W)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["swa_attention"] == before + 1
+    tensor_core = dtype == torch.bfloat16 and dh in (64, 128, 256)
+    assert ops.swa_route(dtype, dh) == ("tensor_core" if tensor_core
+                                        else "cuda_core")
+    assert ops.LAUNCHES["swa_attention"] == before["swa_attention"] + 1
+    assert (ops.LAUNCHES["swa_attention_wgmma"]
+            == before["swa_attention_wgmma"] + tensor_core)
     want = ref.swa_attention_ref(q, k, v, W)
     assert got.dtype == dtype and got.shape == q.shape
     if dtype == torch.float32:
@@ -244,6 +265,13 @@ def test_swa_kernel_rejects_what_it_cannot_take(cuda):
         ops.swa_attention(q, k.cpu(), k, window=4)
     with pytest.raises(ValueError, match="window"):
         ops.swa_attention(q, k, k, window=0)
+    # the tensor-core route's TMA needs 16-byte aligned rows: a contiguous
+    # view two bytes into its storage is refused
+    flat = torch.zeros(1 + 16 * 4 * 64, dtype=torch.bfloat16, device=cuda)
+    qm = flat[1:].view(1, 16, 4, 64)
+    km = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.swa_attention(qm, km, km, window=4)
     assert ops.LAUNCHES["swa_attention"] == before
 
 

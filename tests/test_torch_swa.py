@@ -5,8 +5,11 @@ Pallas kernel (``ops.swa_attention``, interpret mode on the CPU, as
 tests/test_kernels.py runs it), at the JAX kernel tests' shapes with their
 tolerances (max abs 2e-4 in float32, 3e-2 in bfloat16); the batched GQA
 mapping against ``repeat_kv`` and a per-batch call; window 1 and window >= T
-as closed forms; and the wrapper's input checks.  The CUDA kernel itself is
-held against the plain version in tests/test_torch_card.py."""
+as closed forms; the edge shapes of the tensor-core kernel's tiling (T not
+a multiple of 64 or 128, W not a multiple of 64, W >= T, batched GQA with
+K = 1) against JAX's reference; the route that picks the kernel on a card;
+and the wrapper's input checks.  The CUDA kernels themselves are held
+against the plain version in tests/test_torch_card.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -104,6 +107,40 @@ def test_window_at_least_t_is_causal():
         got = ops.swa_attention(*(torch.as_tensor(a)[None] for a in (q, k, v)),
                                 window=W)[0].numpy()
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("B,T,H,K,dh,W", [
+    (1, 130, 2, 2, 64, 70), (1, 257, 2, 2, 64, 70), (1, 130, 2, 2, 32, 130),
+    (1, 257, 1, 1, 16, 1000), (2, 130, 4, 1, 64, 70), (3, 257, 4, 1, 16, 257),
+    (2, 257, 8, 4, 32, 1)])
+@pytest.mark.parametrize("dtype,tol", [("float32", 2e-4), ("bfloat16", 3e-2)])
+def test_plain_version_matches_jax_at_edge_shapes(B, T, H, K, dh, W, dtype,
+                                                  tol):
+    """The plain version, batched and grouped, against JAX's reference on
+    each batch row with the KV heads repeated, at the shapes that cut the
+    tensor-core kernel's 64-row tiles and 128-row blocks raggedly."""
+    q, k, v = _qkv(T, H, dh, seed=B * T + W, K=K, B=B)
+    jq, jk, jv = (jnp.asarray(a).astype(dtype) for a in (q, k, v))
+    tq, tk, tv = (torch.as_tensor(np.array(a.astype(jnp.float32)))
+                  .to(getattr(torch, dtype)) for a in (jq, jk, jv))
+    got = ref.swa_attention_ref(tq, tk, tv, W)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (B, T, H, dh)
+    assert torch.equal(ops.swa_attention(tq, tk, tv, window=W), got)
+    kr, vr = (jnp.repeat(a, H // K, axis=2) for a in (jk, jv))
+    for b in range(B):
+        want = np.asarray(jref.swa_attention_ref(jq[b], kr[b], vr[b], W),
+                          np.float32)
+        assert np.abs(got[b].float().numpy() - want).max() < tol
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_route_by_dtype_and_head_dim(dtype, dh):
+    """bfloat16 at dh 64, 128 and 256 takes the tensor-core kernel; float32
+    (no TF32) and the narrow bfloat16 heads take the CUDA-core kernel."""
+    want = ("tensor_core" if dtype == torch.bfloat16 and dh >= 64
+            else "cuda_core")
+    assert ops.swa_route(dtype, dh) == want
 
 
 def test_wrapper_input_checks():
