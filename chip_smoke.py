@@ -1,12 +1,13 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the port's four
-kernel sources (gram_matvec, greedy_assign, swa_attention on the CUDA cores
-and swa_attention_wgmma on the tensor cores) from the checkout, holds each
+"""Smoke run of the PyTorch port on one CUDA card: builds the port's five
+kernel sources (gram_matvec_onepass, gram_matvec's two-pass kernel for
+columns no cluster holds, greedy_assign, swa_attention on the CUDA cores and
+swa_attention_wgmma on the tensor cores) from the checkout, holds each
 kernel against its plain PyTorch version, drives the single-round Monte-Carlo
 engine at a 10^6-trial sweep, the rounds engine over the full Fig. 8 grid
 (adaptive scheduling through the greedy_assign kernel, CUDA trajectories
 against CPU ones on a shared trace), runs the paper's DGD regression loop
-end to end on the iid and the Markov cluster (gram_matvec for every
-uncoded scheme, greedy_assign for the ADAPT row), and serves gemma3-4b at
+end to end on the iid and the Markov cluster (the one-pass gram_matvec kernel
+for every uncoded scheme, greedy_assign for the ADAPT row), and serves gemma3-4b at
 full width and depth through ``repro_torch.launch.serve`` (prefill of two
 2048-token prompts and greedy decode; the bf16 prefill attention of every
 sliding-window layer through the tensor-core swa_attention kernel), with
@@ -32,6 +33,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device available")
@@ -39,8 +41,8 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
-from repro_torch.core import (DelayTrace, TraceProcess,  # noqa: E402
-                              adaptive_spec, completion_samples,
+from repro_torch.core import (DelayTrace, RoundConfig,  # noqa: E402
+                              TraceProcess, adaptive_spec, completion_samples,
                               cyclic_to_matrix, lb_spec,
                               pc_spec, pcmm_spec,
                               random_assignment_to_matrix, scenario1,
@@ -87,12 +89,54 @@ def cuda_ms(fn, iters):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters):
+    """Mean device milliseconds per call of ``fn`` over ``iters`` calls, as
+    torch.profiler records the kernels they launch (their summed device
+    time); None where it records none (not measured)."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(float(getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)))
+             for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / iters if us else None
+
+
 def bmm_pair(Xs, theta):
     """One library call pair computing the same function (timing yardstick
     only; the port never calls it)."""
     th = theta.reshape(1, -1, 1).expand(Xs.shape[0], -1, 1)
     u = torch.bmm(Xs.transpose(1, 2), th)
     return torch.bmm(Xs, u)[..., 0]
+
+
+def two_pass(Xs, theta):
+    """The two-pass kernel (csrc/gram_matvec.cu, every call's route before
+    the one-pass kernel) on the same inputs: timing of the earlier kernel,
+    launched past the wrapper and not counted."""
+    n, d, b = Xs.shape
+    u = torch.empty((n, b), dtype=torch.float32, device=DEV)
+    y = torch.empty((n, d), dtype=Xs.dtype, device=DEV)
+    lib = build.library("gram_matvec")
+    stream = torch.cuda.current_stream().cuda_stream
+    dt = 0 if Xs.dtype == torch.float32 else 1
+
+    def launch():
+        err = lib.gram_matvec_launch(Xs.data_ptr(), theta.data_ptr(),
+                                     u.data_ptr(), y.data_ptr(), n, d, b, dt,
+                                     stream)
+        if err:
+            raise RuntimeError(f"two-pass gram_matvec launch failed: CUDA "
+                               f"error {err}")
+    return launch
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.5f}"
 
 
 def gram_bound(n, d, b, itemsize):
@@ -105,19 +149,39 @@ def gram_bound(n, d, b, itemsize):
 
 def kernel_phase():
     """gram_matvec against its plain version at the DGD shape, the odd
-    shapes of the JAX kernel tests and one large shape."""
+    shapes of the JAX kernel tests, a ragged shape of several column blocks,
+    the large shape in float32 and bfloat16, and d just past the one-pass
+    limit.  Each call's route is the one ops.gram_plan names (checked by the
+    launch counts); two calls give the same bits.  Returns the rows and the
+    launches of the past-limit call, the counts set to 0 just before it."""
+    big = ops.gram_onepass_max_d(8, torch.float32) + 1
     shapes = [(15, 400, 60, torch.float32), (15, 400, 60, torch.bfloat16),
               (4, 37, 53, torch.float32), (4, 37, 53, torch.bfloat16),
               (4, 300, 200, torch.float32), (4, 300, 200, torch.bfloat16),
-              (64, 4096, 1024, torch.float32)]
+              (8, 3000, 700, torch.float32),
+              (64, 4096, 1024, torch.float32),
+              (64, 4096, 1024, torch.bfloat16),
+              (1, big, 8, torch.float32)]
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = []
+    twopass_launches = None
     for n, d, b, dt in shapes:
         Xs = torch.randn(n, d, b, generator=gen, device=DEV).to(dt)
         th = torch.randn(d, generator=gen, device=DEV).to(dt)
+        plan = ops.gram_plan(n, d, b, dt)
+        check(plan.route == ("twopass" if d == big else "onepass"),
+              f"gram_plan route {plan} at {(n, d, b, dt)}")
+        ops.reset_launch_counts()
         got = ops.batched_gram_matvec(Xs, th)
+        launches = dict(ops.LAUNCHES)
         want = ref.batched_gram_matvec_ref(Xs, th)
         torch.cuda.synchronize()
+        check(launches["gram_matvec"] == 1
+              and launches["gram_matvec_onepass"] == (plan.route == "onepass"),
+              f"gram_matvec at {(n, d, b, dt)} did not take the {plan.route} "
+              f"route: launches {launches}")
+        if plan.route == "twopass":
+            twopass_launches = launches["gram_matvec"]
         check(got.dtype == dt and got.shape == (n, d), f"output {got.dtype} "
               f"{tuple(got.shape)} at {(n, d, b)}")
         diff = (got.float() - want.float()).abs().max().item()
@@ -125,18 +189,44 @@ def kernel_phase():
         tol = 1e-5 if dt == torch.float32 else 3e-2
         check(rel < tol, f"gram_matvec rel err {rel:.2e} >= {tol} at "
                          f"{(n, d, b, dt)}")
+        again = ops.batched_gram_matvec(Xs, th)
+        torch.cuda.synchronize()
+        check(torch.equal(got, again), f"gram_matvec not deterministic at "
+                                       f"{(n, d, b, dt)}")
         iters = 20 if n * d * b > 10 ** 7 else 200
+        kernel = lambda: ops.batched_gram_matvec(Xs, th)  # noqa: E731
+        library = lambda: bmm_pair(Xs, th)                # noqa: E731
         row = dict(shape=[n, d, b], dtype=str(dt).split(".")[-1],
-                   max_abs_err=diff, max_rel_err=rel,
-                   ms=cuda_ms(lambda: ops.batched_gram_matvec(Xs, th), iters),
+                   route=plan.route, plan=dict(c=plan.c, R=plan.R, C=plan.C,
+                                               nbc=plan.nbc, smem=plan.smem),
+                   max_abs_err=diff, max_rel_err=rel, deterministic=True,
+                   ms=cuda_ms(kernel, iters),
+                   device_ms=device_ms(kernel, iters),
                    plain_ms=cuda_ms(
                        lambda: ref.batched_gram_matvec_ref(Xs, th), iters),
-                   library_ms=cuda_ms(lambda: bmm_pair(Xs, th), iters))
+                   library_ms=cuda_ms(library, iters),
+                   library_device_ms=device_ms(library, iters),
+                   twopass_ms=cuda_ms(two_pass(Xs, th), iters),
+                   twopass_device_ms=device_ms(two_pass(Xs, th), iters))
         row["bound_ms"], row["bound_by"] = gram_bound(n, d, b, Xs.element_size())
+        row["gb_per_s"] = Xs.numel() * Xs.element_size() / row["ms"] / 1e6
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
-        print(f"kernel gram_matvec {n}x{d}x{b} {row['dtype']}: rel_err={rel:.3e}"
-              f" ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
-              f" library_ms={row['library_ms']:.5f} bound_ms={row['bound_ms']:.5f}")
+        print(f"kernel gram_matvec {n}x{d}x{b} {row['dtype']} route="
+              f"{plan.route} plan=(c={plan.c} R={plan.R} C={plan.C} "
+              f"nbc={plan.nbc} smem={plan.smem}): rel_err={rel:.3e} "
+              f"deterministic ms={row['ms']:.5f} device_ms="
+              f"{ms_text(row['device_ms'])} "
+              f"({row['gb_per_s']:.1f} GB/s of X, {row['bound_share']:.3f} "
+              f"of bound) plain_ms={row['plain_ms']:.5f} library_ms="
+              f"{row['library_ms']:.5f} library_device_ms="
+              f"{ms_text(row['library_device_ms'])} "
+              f"twopass_ms={row['twopass_ms']:.5f} twopass_device_ms="
+              f"{ms_text(row['twopass_device_ms'])} "
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
+        del Xs, th, got, want, again
+        torch.cuda.empty_cache()
+    check(twopass_launches == 1, "no call took the two-pass route")
     # eq. (48): the task sum of h is the full-data X^T X theta
     n, d, b = 15, 400, 60
     Xs = torch.randn(n, d, b, generator=gen, device=DEV)
@@ -147,7 +237,7 @@ def kernel_phase():
     rel = ((got - want).abs().max() / want.abs().max()).item()
     check(rel < 1e-4, f"eq. 48 task sum rel err {rel:.2e}")
     print(f"kernel gram_matvec eq48 task-sum rel_err={rel:.3e}")
-    return rows
+    return rows, twopass_launches
 
 
 def engine_phase():
@@ -327,9 +417,10 @@ def dgd_leg(cfg, iters, cluster):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
-    check(launches["gram_matvec"] == 4 * iters,
+    check(launches["gram_matvec"] == 4 * iters
+          and launches["gram_matvec_onepass"] == 4 * iters,
           f"{cluster}: gram_matvec launches {launches} != {4 * iters} "
-          f"(CS/SS/RA/ADAPT x iters)")
+          f"(CS/SS/RA/ADAPT x iters, all on the one-pass route)")
     check(launches["greedy_assign"] == iters,
           f"{cluster}: greedy_assign launches {launches} != {iters} "
           f"(ADAPT x iters)")
@@ -356,6 +447,42 @@ def dgd_leg(cfg, iters, cluster):
     return prob, launches, secs
 
 
+def dgd_tall_leg(iters=5, b=8):
+    """The uncoded DGD loop (CS at the paper's n=15, r=3, k=15) on tasks of
+    b samples whose feature dim is one past the tallest column the one-pass
+    gram_matvec route holds, so every worker step takes the two-pass kernel:
+    the launch counts set to 0 just before, read just after; the loss must
+    fall.  Returns the counts and the seconds."""
+    cfg = RegressionConfig()
+    N, d = cfg.n * b, ops.gram_onepass_max_d(b, torch.float32) + 1
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    X = torch.randn(N, d, generator=gen, device=DEV) / d ** 0.5
+    y = torch.randn(N, generator=gen, device=DEV)
+    prob = dgd.regression_problem(X, y, cfg.n)
+    rc = RoundConfig(n=cfg.n, k=cfg.k, kind="cs", r=cfg.r)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    # X X^T is close to the identity at this scale: lr = N / 4 halves the
+    # residual each iteration
+    run = dgd.run_uncoded(rc, dgd.paper_cluster(cfg.n), prob, iters, N / 4,
+                          label="CS")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(launches["gram_matvec"] == iters
+          and launches["gram_matvec_onepass"] == 0,
+          f"tall DGD: gram_matvec launches {launches}, expected {iters} on "
+          f"the two-pass route")
+    loss0 = dgd.loss_of(torch.zeros(d, device=DEV), X, y)
+    loss = dgd.loss_of(run.theta, X, y)
+    check(np.isfinite(loss) and loss < loss0,
+          f"tall DGD loss did not fall: {loss0} -> {loss}")
+    print(f"dgd tall (N={N} d={d} n={cfg.n}, two-pass gram_matvec) CS: loss "
+          f"{loss0:.5f} -> {loss:.5f} in {iters} iterations, {secs:.3f} s, "
+          f"launches {launches['gram_matvec']}")
+    return launches, secs
+
+
 def dgd_phase():
     """The paper's DGD loop at RegressionConfig() for 100 iterations on the
     card, on the iid and on the Markov cluster, and the Table I one-step
@@ -364,6 +491,7 @@ def dgd_phase():
     iters = 100
     prob, launches_iid, secs_iid = dgd_leg(cfg, iters, "iid")
     _, launches_markov, secs_markov = dgd_leg(cfg, iters, "markov")
+    launches_tall, secs_tall = dgd_tall_leg()
     small = dgd.paper_problem(RegressionConfig(N=240, d=60, n=6, r=2, k=6),
                               device="cuda")
     errs = dgd.table1_check(small, 2)
@@ -378,7 +506,9 @@ def dgd_phase():
           + " ".join(f"{k}={v:.3e}" for k, v in errs.items())
           + " (pcmm: raster-order decode, ill-conditioned at n=15)")
     return {"iid": launches_iid, "markov": launches_markov,
-            "seconds": {"iid": secs_iid, "markov": secs_markov}}
+            "tall": launches_tall,
+            "seconds": {"iid": secs_iid, "markov": secs_markov,
+                        "tall": secs_tall}}
 
 
 def swa_pairs(T, W):
@@ -648,7 +778,7 @@ def main():
             print(f"nvcc {name}: " + " | ".join(
                 ln.strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln or "arning" in ln))
-    rows = kernel_phase()
+    rows, twopass_launches = kernel_phase()
     greedy_rows = greedy_phase()
     engine = engine_phase()
     rounds = rounds_phase()
@@ -657,6 +787,7 @@ def main():
     served = serve_phase()
     consistency = consistency_phase()
     main_row = rows[0]                 # the DGD shape, float32
+    tp_row = next(r for r in rows if r["route"] == "twopass")
     g_row = greedy_rows[1]             # the Fig. 8 chunk (2000, 12, 3)
     gemma = [2, 2048, 8, 4, 256, 1024]    # the gemma3-4b prefill shape
     t_row = next(r for r in swa_rows if r["shape"] == gemma
@@ -664,18 +795,37 @@ def main():
     c_row = next(r for r in swa_rows if r["shape"] == gemma
                  and r["dtype"] == "float32")
     print(json.dumps({"kernels": [{
+        "name": "gram_matvec_onepass", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gram_matvec_onepass.cu",
+        "replaces": "src/repro/kernels/gram_matvec.py:67",
+        "launches": dgd_launches["markov"]["gram_matvec_onepass"],
+        "launches_by_path": {
+            f"dgd_{leg}": dgd_launches[leg]["gram_matvec_onepass"]
+            for leg in ("iid", "markov", "tall")},
+        "max_abs_err": main_row["max_abs_err"],
+        "ms": main_row["ms"], "device_ms": main_row["device_ms"],
+        "plain_ms": main_row["plain_ms"],
+        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
+        "library_ms": main_row["library_ms"], "card": card,
+        "shapes": [r for r in rows if r["route"] == "onepass"]}, {
         "name": "gram_matvec", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_matvec.cu",
         "replaces": "src/repro/kernels/gram_matvec.py:67",
-        "launches": dgd_launches["markov"]["gram_matvec"],
+        "launches": dgd_launches["tall"]["gram_matvec"],
         "launches_by_path": {
-            "dgd_iid": dgd_launches["iid"]["gram_matvec"],
-            "dgd_markov": dgd_launches["markov"]["gram_matvec"]},
-        "max_abs_err": main_row["max_abs_err"],
-        "ms": main_row["ms"], "plain_ms": main_row["plain_ms"],
-        "bound_ms": main_row["bound_ms"], "bound_by": main_row["bound_by"],
-        "library_ms": main_row["library_ms"],
-        "card": card, "shapes": rows}, {
+            f"dgd_{leg}": dgd_launches[leg]["gram_matvec"]
+            - dgd_launches[leg]["gram_matvec_onepass"]
+            for leg in ("iid", "markov", "tall")},
+        "kernel_phase_launches": twopass_launches,
+        "max_abs_err": tp_row["max_abs_err"],
+        "ms": tp_row["ms"], "device_ms": tp_row["device_ms"],
+        "plain_ms": tp_row["plain_ms"],
+        "bound_ms": tp_row["bound_ms"], "bound_by": tp_row["bound_by"],
+        "library_ms": tp_row["library_ms"], "card": card,
+        "twopass_ms_at_onepass_shapes": {
+            f"{r['shape']} {r['dtype']}": r["twopass_ms"]
+            for r in rows if r["route"] == "onepass"},
+        "shapes": [r for r in rows if r["route"] == "twopass"]}, {
         "name": "greedy_assign", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/greedy_assign.cu",
         "replaces": "src/repro/kernels/greedy_assign.py:73",

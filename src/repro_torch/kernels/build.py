@@ -29,6 +29,12 @@ SOURCES = {
                                + [ctypes.c_void_p], ctypes.c_int),
         "gram_matvec_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
+    "gram_matvec_onepass": ("gram_matvec_onepass.cu", {
+        "gram_onepass_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                                + [ctypes.c_void_p], ctypes.c_int),
+        "gram_onepass_smem": ([ctypes.c_int] * 3, ctypes.c_longlong),
+        "gram_onepass_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    }),
     "greedy_assign": ("greedy_assign.cu", {
         "greedy_assign_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                                  + [ctypes.c_void_p], ctypes.c_int),

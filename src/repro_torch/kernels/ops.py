@@ -9,19 +9,26 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
+from functools import lru_cache
+from typing import NamedTuple
+
 import torch
 
 from . import build, ref
 
-__all__ = ["gram_matvec", "batched_gram_matvec", "greedy_assign",
+__all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
+           "gram_onepass_max_d",
+           "greedy_assign",
            "swa_attention", "swa_route", "GREEDY_MAX_N", "SWA_HEAD_DIMS",
            "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``;
+#: "gram_matvec" counts the calls of both of its routes,
+#: "gram_matvec_onepass" those of the one-pass route alone;
 #: "swa_attention" counts the launches of both of its routes,
 #: "swa_attention_wgmma" those of the tensor-core route alone
-LAUNCHES = {"gram_matvec": 0, "greedy_assign": 0, "swa_attention": 0,
-            "swa_attention_wgmma": 0}
+LAUNCHES = {"gram_matvec": 0, "gram_matvec_onepass": 0, "greedy_assign": 0,
+            "swa_attention": 0, "swa_attention_wgmma": 0}
 
 #: the largest n the greedy_assign kernel takes (kMaxN in its source)
 GREEDY_MAX_N = 128
@@ -32,12 +39,126 @@ SWA_HEAD_DIMS = (16, 32, 64, 128, 256)
 #: the head dims of the tensor-core (wgmma) route, bfloat16 only
 SWA_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
+#: the one-pass gram_matvec kernel's tile layout, mirrored from
+#: csrc/gram_matvec_onepass.cu (kThreads, kStages, kMaxCluster, kHeader,
+#: kMaxBox, kSmemLimit there): its block size, the mbarrier stages of a
+#: tile, its largest cluster, the bytes before the tile, the widest TMA box
+#: and the most shared memory a block may use on an H100.  The launcher
+#: refuses a plan whose shared memory differs from its own count, and
+#: tests/test_torch_gram_plan.py reads these values from the source.
+GRAM_THREADS = 256
+GRAM_STAGES = 4
+GRAM_MAX_CLUSTER = 8
+GRAM_HEADER = 128
+GRAM_MAX_BOX = 256
+GRAM_SMEM_LIMIT = 232448
+#: the fewest rows gram_plan gives a CTA where d allows, and the most
+#: elements it puts in a tile: 192 KB in float32 (one CTA an SM), 96 KB in
+#: bfloat16 (two).  The budget is the best of the widths that
+#: benchmarks_torch/gram_tiles.py timed at (64, 4096, 1024) on an H100
+#: (PERF.md); no path of the repo sends that shape, and the DGD shape
+#: fits one tile whatever the budget.
+GRAM_MIN_ROWS = 16
+GRAM_TILE_ELEMS = 48 * 1024
+
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+
+
+class GramPlan(NamedTuple):
+    """How a CUDA call of ``batched_gram_matvec`` runs.  ``route`` is
+    ``"onepass"`` (``csrc/gram_matvec_onepass.cu``: clusters of ``c`` CTAs,
+    each holding ``R`` rows of a column block of ``C`` columns in ``smem``
+    bytes of shared memory, ``nbc`` column blocks) or ``"twopass"``
+    (``csrc/gram_matvec.cu``; the other fields 0)."""
+    route: str
+    c: int
+    R: int
+    C: int
+    nbc: int
+    smem: int
+
+
+def _gram_tile_rows(R: int) -> int:
+    """Rows a tile holds room for: a whole number of boxes per stage, each
+    a multiple of 8 rows and at most ``GRAM_MAX_BOX`` (``boxes`` x
+    ``box_rows`` in the kernel's source)."""
+    nbox = GRAM_STAGES * -(-R // (GRAM_STAGES * GRAM_MAX_BOX))
+    return nbox * ((-(-R // nbox) + 7) & ~7)
+
+
+def _gram_smem(R: int, C: int, item: int) -> int:
+    """Shared memory of one CTA (``smem_bytes`` in the kernel's source): the
+    barriers' header, the tile (rounded up to 128 bytes), then float32
+    theta, the row groups' column sums, two parts of u and u, each rounded
+    up to 4 floats."""
+    def r4(v):
+        return (v + 3) & ~3
+    return (GRAM_HEADER + ((_gram_tile_rows(R) * C * item + 127) & ~127)
+            + 4 * (r4(R) + r4(max(GRAM_THREADS * (16 // item), C)) + 3 * r4(C)))
+
+
+@lru_cache(maxsize=256)
+def gram_plan(n: int, d: int, b: int, dtype: torch.dtype) -> GramPlan:
+    """The plan of a CUDA ``batched_gram_matvec`` call on Xs (n, d, b).
+
+    A cluster holds one column block of one task over its whole height:
+    c = min(8, ceil(d / 16)) CTAs of R = ceil(d / c) rows.  If a tile of the
+    whole width fits (at most ``GRAM_TILE_ELEMS`` elements, within
+    ``GRAM_SMEM_LIMIT``), one block covers b (one launch).  Otherwise c = 8
+    and the block takes the widest C that fits and TMA's box (256 columns),
+    in steps of 64 bytes (16 where even 64 do not fit, and at least 16
+    bytes), evened out over ceil(b / C) blocks.  A column that 8 CTAs
+    cannot hold 16 bytes wide within ``GRAM_SMEM_LIMIT`` takes the two-pass
+    kernel."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"gram_matvec takes float32 or bfloat16, got {dtype}")
+    item = 2 if dtype == torch.bfloat16 else 4
+    q = min(b, 16 // item)                  # the narrowest block: 16 bytes
+
+    def cdiv(a, m):
+        return -(-a // m)
+
+    def cluster(c):
+        R = cdiv(d, c)
+        return cdiv(d, R), R                # no CTA left without rows
+
+    def fits(C):
+        return (_gram_tile_rows(R) * C <= GRAM_TILE_ELEMS
+                and _gram_smem(R, C, item) <= GRAM_SMEM_LIMIT)
+
+    c, R = cluster(min(GRAM_MAX_CLUSTER, max(1, cdiv(d, GRAM_MIN_ROWS))))
+    if fits(b):
+        return GramPlan("onepass", c, R, b, 1, _gram_smem(R, b, item))
+    c, R = cluster(GRAM_MAX_CLUSTER)
+    if _gram_smem(R, q, item) > GRAM_SMEM_LIMIT or n * cdiv(b, q) >= 2 ** 31:
+        return GramPlan("twopass", 0, 0, 0, 0, 0)
+    step = 64 // item if fits(min(b, 64 // item)) else q
+    C = max(step, min(GRAM_MAX_BOX, b) // step * step)
+    while C > step and not fits(C):
+        C -= step
+    nbc = cdiv(b, C)
+    C = min(b, cdiv(cdiv(b, nbc), step) * step)
+    return GramPlan("onepass", c, R, C, nbc, _gram_smem(R, C, item))
+
+
+@lru_cache(maxsize=64)
+def gram_onepass_max_d(b: int, dtype: torch.dtype) -> int:
+    """The largest d whose columns of width b the one-pass route holds
+    (``gram_plan(1, d, b, dtype)``); every taller task takes the two-pass
+    kernel."""
+    lo, hi = 1, 1 << 24
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if gram_plan(1, mid, b, dtype).route == "onepass":
+            lo = mid
+        else:
+            hi = mid
+    return lo
 
 
 def gram_matvec(X: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
@@ -49,10 +170,14 @@ def gram_matvec(X: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
 
 def batched_gram_matvec(Xs: torch.Tensor,
                         theta: torch.Tensor) -> torch.Tensor:
-    """h over a batch of tasks in one launch: Xs (n, d, b), theta (d,) ->
-    (n, d) in Xs's dtype, accumulated in float32.  On the card this is the
-    ``gram_matvec`` CUDA kernel (``csrc/gram_matvec.cu``); CPU tensors take
-    the plain version."""
+    """h over a batch of tasks: Xs (n, d, b), theta (d,) -> (n, d) in Xs's
+    dtype, accumulated in float32.  On the card this is the route
+    ``gram_plan`` names: the one-pass kernel
+    (``csrc/gram_matvec_onepass.cu``, one launch when a cluster holds a
+    task's whole width, plus a fold of the column blocks' partials
+    otherwise) or, for a column no cluster can hold, the two-pass kernel
+    (``csrc/gram_matvec.cu``).  A build or launch failure of either raises.
+    CPU tensors take the plain version."""
     if Xs.device.type == "cpu" and theta.device.type == "cpu":
         return ref.batched_gram_matvec_ref(Xs, theta)
     if Xs.device.type != "cuda" or theta.device != Xs.device:
@@ -70,19 +195,36 @@ def batched_gram_matvec(Xs: torch.Tensor,
         raise ValueError(f"gram_matvec shape out of range: {tuple(Xs.shape)}")
     if not (Xs.is_contiguous() and theta.is_contiguous()):
         raise ValueError("gram_matvec needs contiguous Xs and theta")
-    u = torch.empty((n, b), dtype=torch.float32, device=Xs.device)
+    plan = gram_plan(n, d, b, Xs.dtype)
     y = torch.empty((n, d), dtype=Xs.dtype, device=Xs.device)
-    lib = build.library("gram_matvec")
+    onepass = plan.route == "onepass"
+    if onepass:
+        P = (torch.empty((n, plan.nbc, d), dtype=torch.float32,
+                         device=Xs.device) if plan.nbc > 1 else None)
+        lib = build.library("gram_matvec_onepass")
+        launch, error_string = (lib.gram_onepass_launch,
+                                lib.gram_onepass_error_string)
+        args = (Xs.data_ptr(), theta.data_ptr(), y.data_ptr(),
+                None if P is None else P.data_ptr(), n, d, b,
+                _DTYPES[Xs.dtype], plan.c, plan.R, plan.C, plan.nbc,
+                plan.smem)
+    else:
+        u = torch.empty((n, b), dtype=torch.float32, device=Xs.device)
+        lib = build.library("gram_matvec")
+        launch, error_string = (lib.gram_matvec_launch,
+                                lib.gram_matvec_error_string)
+        args = (Xs.data_ptr(), theta.data_ptr(), u.data_ptr(), y.data_ptr(),
+                n, d, b, _DTYPES[Xs.dtype])
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     with torch.cuda.device(Xs.device):
-        err = lib.gram_matvec_launch(Xs.data_ptr(), theta.data_ptr(),
-                                     u.data_ptr(), y.data_ptr(), n, d, b,
-                                     _DTYPES[Xs.dtype], stream)
+        err = launch(*args, stream)
     if err:
-        msg = lib.gram_matvec_error_string(err).decode()
-        raise RuntimeError(f"gram_matvec launch failed: CUDA error {err} "
-                           f"({msg})")
+        msg = error_string(err).decode()
+        raise RuntimeError(f"gram_matvec launch failed ({plan.route} route):"
+                           f" CUDA error {err} ({msg})")
     LAUNCHES["gram_matvec"] += 1
+    if onepass:
+        LAUNCHES["gram_matvec_onepass"] += 1
     return y
 
 

@@ -1,7 +1,9 @@
-"""The port on a CUDA card: the gram_matvec kernel against its plain
+"""The port on a CUDA card: the gram_matvec kernels against their plain
 version (rel 1e-5 in float32, 3e-2 in bfloat16, the tolerances of
-tests/test_kernels.py), the greedy_assign kernel against its plain version
-bit for bit (the two share one summation order and rounding, ties
+tests/test_kernels.py) on the route ops.gram_plan names (one-pass, or
+two-pass past its limit), bit for bit from call to call, the
+greedy_assign kernel against its plain version bit for bit (the two
+share one summation order and rounding, ties
 included), the swa_attention kernels against their plain version (max abs
 2e-4 in float32, tests/test_kernels.py's; elementwise atol 1e-3 + rtol
 1e-2 in bfloat16, which scales with outputs of a wide window) with the
@@ -28,7 +30,7 @@ from repro_torch.core import (DelayTrace, TraceProcess, adaptive_spec,
                               trajectory_samples)
 from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import build, ops, ref
 from repro_torch.models import forward, init_cache, init_params
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
@@ -50,20 +52,60 @@ def _inputs(n, d, b, dtype, device, seed=0):
                                                     dtype=dtype)
 
 
-@pytest.mark.parametrize("n,d,b", [(15, 400, 60), (4, 37, 53), (4, 300, 200),
-                                   (1, 512, 64), (3, 100, 300), (2, 8, 1)])
+#: stand for the largest d the one-pass route holds and the d just past it
+AT_LIMIT, PAST_LIMIT = "at_limit", "past_limit"
+
+
+# the JAX tests' shapes and the plan's edges: d off multiples of c and R
+# (37, 513, 3000), b off multiples of C and b = 1, rows that are not
+# 16-byte multiples (b = 53, 37), several column blocks (2000 x 300,
+# 3000 x 700), n = 1, more items than resident clusters (64 x 512 x 256),
+# many TMA boxes a tile (2 x 60 000 rows, 32 columns), the one-pass limit (one
+# tile of ~11 000 rows a CTA) and d just past it (the two-pass route)
+GRAM_SHAPES = [(15, 400, 60), (4, 37, 53), (4, 300, 200), (1, 512, 64),
+               (3, 100, 300), (2, 8, 1), (3, 513, 1), (2, 513, 53),
+               (1, 300, 37), (3, 2000, 300), (2, 3000, 700), (1, 1000, 53),
+               (64, 512, 256), (2, 60000, 32), (1, AT_LIMIT, 8),
+               (1, PAST_LIMIT, 8)]
+
+
+@pytest.mark.parametrize("n,d,b", GRAM_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_matches_plain(cuda, n, d, b, dtype):
+    """One call on the route gram_plan names: the launch counters add one
+    (and one more for the one-pass route)."""
+    past = d == PAST_LIMIT
+    if d in (AT_LIMIT, PAST_LIMIT):
+        d = ops.gram_onepass_max_d(b, dtype) + past
+    route = ops.gram_plan(n, d, b, dtype).route
+    assert route == ("twopass" if past else "onepass")
     Xs, th = _inputs(n, d, b, dtype, cuda)
-    before = ops.LAUNCHES["gram_matvec"]
+    before = dict(ops.LAUNCHES)
     got = ops.batched_gram_matvec(Xs, th)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["gram_matvec"] == before + 1
+    assert ops.LAUNCHES["gram_matvec"] == before["gram_matvec"] + 1
+    assert (ops.LAUNCHES["gram_matvec_onepass"]
+            == before["gram_matvec_onepass"] + (route == "onepass"))
     want = ref.batched_gram_matvec_ref(Xs, th)
     assert got.dtype == dtype and got.device == Xs.device
     rel = ((got.float() - want.float()).abs().max()
            / want.float().abs().max()).item()
     assert rel < TOL[dtype], rel
+
+
+@pytest.mark.parametrize("n,d,b", [(15, 400, 60), (2, 513, 53),
+                                   (3, 2000, 300), (1, PAST_LIMIT, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_is_deterministic(cuda, n, d, b, dtype):
+    """Two calls on the same inputs give the same bits, on both routes (no
+    atomics, every sum in a fixed order)."""
+    if d == PAST_LIMIT:
+        d = ops.gram_onepass_max_d(b, dtype) + 1
+    Xs, th = _inputs(n, d, b, dtype, cuda, seed=1)
+    a = ops.batched_gram_matvec(Xs, th)
+    c = ops.batched_gram_matvec(Xs, th)
+    torch.cuda.synchronize()
+    assert torch.equal(a, c)
 
 
 def test_single_task_wrapper_and_eq48(cuda):
@@ -92,6 +134,32 @@ def test_kernel_rejects_what_it_cannot_take(cuda):
         ops.batched_gram_matvec(Xs, torch.zeros(8))
     with pytest.raises(ValueError):
         ops.batched_gram_matvec(Xs, torch.zeros(5, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plan_smem_is_the_kernels_own(cuda, dtype):
+    """gram_plan's count of a CTA's shared memory equals the kernel's own
+    (smem_bytes in csrc/gram_matvec_onepass.cu) from one row to past the
+    one-pass limit and from one column to past a TMA box, and the launcher
+    refuses a plan whose count differs."""
+    item = torch.finfo(dtype).bits // 8
+    lib = build.library("gram_matvec_onepass")
+    top = -(-ops.gram_onepass_max_d(1, dtype) // ops.GRAM_MAX_CLUSTER) + 8
+    for R in [*range(1, 2100), *range(2100, top, 37)]:
+        for C in (1, 2, 4, 8, 16, 37, 53, 60, 64, 96, 128, 256, 300):
+            assert lib.gram_onepass_smem(R, C, item) == ops._gram_smem(
+                R, C, item), (R, C, item)
+    n, d, b = 2, 513, 53
+    Xs, th = _inputs(n, d, b, dtype, cuda)
+    y = torch.empty((n, d), dtype=dtype, device=cuda)
+    plan = ops.gram_plan(n, d, b, dtype)
+    assert plan.route == "onepass" and plan.nbc == 1
+    stream = torch.cuda.current_stream().cuda_stream
+    err = lib.gram_onepass_launch(
+        Xs.data_ptr(), th.data_ptr(), y.data_ptr(), None, n, d, b,
+        int(dtype == torch.bfloat16), plan.c, plan.R, plan.C, plan.nbc,
+        plan.smem + 16, stream)
+    assert lib.gram_onepass_error_string(err).decode() == "invalid argument"
 
 
 @pytest.mark.parametrize("make", [
