@@ -114,23 +114,27 @@ def bmm_pair(Xs, theta):
     return torch.bmm(Xs, u)[..., 0]
 
 
-def two_pass(Xs, theta):
-    """The two-pass kernel (csrc/gram_matvec.cu, every call's route before
-    the one-pass kernel) on the same inputs: timing of the earlier kernel,
-    launched past the wrapper and not counted."""
+def split_pass(Xs, theta):
+    """The split-d two-pass kernel (csrc/gram_matvec.cu, the route of tasks
+    past the one-pass limit) on inputs that take the one-pass route: its
+    time there, launched past the wrapper with ops.gram_tall_plan's plan and
+    not counted."""
     n, d, b = Xs.shape
-    u = torch.empty((n, b), dtype=torch.float32, device=DEV)
+    tall = ops.gram_tall_plan(n, d, b, Xs.dtype)
+    scratch = torch.empty(n * b * (1 + (tall.s1 > 1) * tall.s1),
+                          dtype=torch.float32, device=DEV)
+    part = scratch[n * b:].data_ptr() if tall.s1 > 1 else None
     y = torch.empty((n, d), dtype=Xs.dtype, device=DEV)
     lib = build.library("gram_matvec")
     stream = torch.cuda.current_stream().cuda_stream
     dt = 0 if Xs.dtype == torch.float32 else 1
 
     def launch():
-        err = lib.gram_matvec_launch(Xs.data_ptr(), theta.data_ptr(),
-                                     u.data_ptr(), y.data_ptr(), n, d, b, dt,
-                                     stream)
+        err = lib.gram_matvec_launch(Xs.data_ptr(), theta.data_ptr(), part,
+                                     scratch.data_ptr(), y.data_ptr(), n, d,
+                                     b, dt, *tall, stream)
         if err:
-            raise RuntimeError(f"two-pass gram_matvec launch failed: CUDA "
+            raise RuntimeError(f"split-d gram_matvec launch failed: CUDA "
                                f"error {err}")
     return launch
 
@@ -150,26 +154,35 @@ def gram_bound(n, d, b, itemsize):
 def kernel_phase():
     """gram_matvec against its plain version at the DGD shape, the odd
     shapes of the JAX kernel tests, a ragged shape of several column blocks,
-    the large shape in float32 and bfloat16, and d just past the one-pass
-    limit.  Each call's route is the one ops.gram_plan names (checked by the
-    launch counts); two calls give the same bits.  Returns the rows and the
-    launches of the past-limit call, the counts set to 0 just before it."""
-    big = ops.gram_onepass_max_d(8, torch.float32) + 1
-    shapes = [(15, 400, 60, torch.float32), (15, 400, 60, torch.bfloat16),
-              (4, 37, 53, torch.float32), (4, 37, 53, torch.bfloat16),
-              (4, 300, 200, torch.float32), (4, 300, 200, torch.bfloat16),
-              (8, 3000, 700, torch.float32),
-              (64, 4096, 1024, torch.float32),
-              (64, 4096, 1024, torch.bfloat16),
-              (1, big, 8, torch.float32)]
+    the large shape in float32 and bfloat16, and tall tasks past the
+    one-pass limit (the split-d two-pass route): d one past it at b = 8 for
+    one task and for the dgd-tall leg's 15, in bfloat16, at b = 1, and
+    (1, 100 000, 256), whose X is twice the L2.  Each call's route is the
+    one ops.gram_plan names (checked by the launch counts, set to 0 just
+    before each call); two calls give the same bits.  Returns the rows and
+    the launches of the dgd-tall shape's call."""
+    def past(b, dt):
+        return ops.gram_onepass_max_d(b, dt) + 1
+    f32, bf16 = torch.float32, torch.bfloat16
+    dgd_tall = (15, past(8, f32), 8, f32)
+    shapes = [(15, 400, 60, f32), (15, 400, 60, bf16),
+              (4, 37, 53, f32), (4, 37, 53, bf16),
+              (4, 300, 200, f32), (4, 300, 200, bf16),
+              (8, 3000, 700, f32),
+              (64, 4096, 1024, f32),
+              (64, 4096, 1024, bf16),
+              (1, past(8, f32), 8, f32), dgd_tall,
+              (1, past(8, bf16), 8, bf16), (1, past(1, f32), 1, f32),
+              (1, 100000, 256, f32)]
     gen = torch.Generator(device=DEV).manual_seed(0)
     rows = []
-    twopass_launches = None
+    tall_launches = None
     for n, d, b, dt in shapes:
         Xs = torch.randn(n, d, b, generator=gen, device=DEV).to(dt)
         th = torch.randn(d, generator=gen, device=DEV).to(dt)
         plan = ops.gram_plan(n, d, b, dt)
-        check(plan.route == ("twopass" if d == big else "onepass"),
+        tall = d > ops.gram_onepass_max_d(b, dt)
+        check(plan.route == ("twopass" if tall else "onepass"),
               f"gram_plan route {plan} at {(n, d, b, dt)}")
         ops.reset_launch_counts()
         got = ops.batched_gram_matvec(Xs, th)
@@ -180,8 +193,8 @@ def kernel_phase():
               and launches["gram_matvec_onepass"] == (plan.route == "onepass"),
               f"gram_matvec at {(n, d, b, dt)} did not take the {plan.route} "
               f"route: launches {launches}")
-        if plan.route == "twopass":
-            twopass_launches = launches["gram_matvec"]
+        if (n, d, b, dt) == dgd_tall:
+            tall_launches = launches["gram_matvec"]
         check(got.dtype == dt and got.shape == (n, d), f"output {got.dtype} "
               f"{tuple(got.shape)} at {(n, d, b)}")
         diff = (got.float() - want.float()).abs().max().item()
@@ -205,28 +218,35 @@ def kernel_phase():
                    plain_ms=cuda_ms(
                        lambda: ref.batched_gram_matvec_ref(Xs, th), iters),
                    library_ms=cuda_ms(library, iters),
-                   library_device_ms=device_ms(library, iters),
-                   twopass_ms=cuda_ms(two_pass(Xs, th), iters),
-                   twopass_device_ms=device_ms(two_pass(Xs, th), iters))
+                   library_device_ms=device_ms(library, iters))
+        if tall:
+            row["tall_plan"] = ops.gram_tall_plan(n, d, b, dt)._asdict()
+        else:
+            row["split_ms"] = cuda_ms(split_pass(Xs, th), iters)
+            row["split_device_ms"] = device_ms(split_pass(Xs, th), iters)
         row["bound_ms"], row["bound_by"] = gram_bound(n, d, b, Xs.element_size())
         row["gb_per_s"] = Xs.numel() * Xs.element_size() / row["ms"] / 1e6
         row["bound_share"] = row["bound_ms"] / row["ms"]
         rows.append(row)
+        shown = (f"tall_plan={tuple(row['tall_plan'].values())}" if tall else
+                 f"plan=(c={plan.c} R={plan.R} C={plan.C} nbc={plan.nbc} "
+                 f"smem={plan.smem})")
+        split = ("" if tall else
+                 f" split_ms={row['split_ms']:.5f} split_device_ms="
+                 f"{ms_text(row['split_device_ms'])}")
         print(f"kernel gram_matvec {n}x{d}x{b} {row['dtype']} route="
-              f"{plan.route} plan=(c={plan.c} R={plan.R} C={plan.C} "
-              f"nbc={plan.nbc} smem={plan.smem}): rel_err={rel:.3e} "
+              f"{plan.route} {shown}: rel_err={rel:.3e} "
               f"deterministic ms={row['ms']:.5f} device_ms="
               f"{ms_text(row['device_ms'])} "
               f"({row['gb_per_s']:.1f} GB/s of X, {row['bound_share']:.3f} "
               f"of bound) plain_ms={row['plain_ms']:.5f} library_ms="
               f"{row['library_ms']:.5f} library_device_ms="
-              f"{ms_text(row['library_device_ms'])} "
-              f"twopass_ms={row['twopass_ms']:.5f} twopass_device_ms="
-              f"{ms_text(row['twopass_device_ms'])} "
+              f"{ms_text(row['library_device_ms'])}{split} "
               f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})")
         del Xs, th, got, want, again
         torch.cuda.empty_cache()
-    check(twopass_launches == 1, "no call took the two-pass route")
+    check(tall_launches == 1, "the dgd-tall shape did not take the two-pass "
+                              "route once")
     # eq. (48): the task sum of h is the full-data X^T X theta
     n, d, b = 15, 400, 60
     Xs = torch.randn(n, d, b, generator=gen, device=DEV)
@@ -237,7 +257,7 @@ def kernel_phase():
     rel = ((got - want).abs().max() / want.abs().max()).item()
     check(rel < 1e-4, f"eq. 48 task sum rel err {rel:.2e}")
     print(f"kernel gram_matvec eq48 task-sum rel_err={rel:.3e}")
-    return rows, twopass_launches
+    return rows, tall_launches
 
 
 def engine_phase():
@@ -778,7 +798,7 @@ def main():
             print(f"nvcc {name}: " + " | ".join(
                 ln.strip() for ln in log.read_text().splitlines()
                 if "registers" in ln or "spill" in ln or "arning" in ln))
-    rows, twopass_launches = kernel_phase()
+    rows, tall_launches = kernel_phase()
     greedy_rows = greedy_phase()
     engine = engine_phase()
     rounds = rounds_phase()
@@ -787,7 +807,8 @@ def main():
     served = serve_phase()
     consistency = consistency_phase()
     main_row = rows[0]                 # the DGD shape, float32
-    tp_row = next(r for r in rows if r["route"] == "twopass")
+    tp_row = next(r for r in rows if r["route"] == "twopass"
+                  and r["shape"][0] == 15)      # the dgd-tall shape
     g_row = greedy_rows[1]             # the Fig. 8 chunk (2000, 12, 3)
     gemma = [2, 2048, 8, 4, 256, 1024]    # the gemma3-4b prefill shape
     t_row = next(r for r in swa_rows if r["shape"] == gemma
@@ -816,14 +837,15 @@ def main():
             f"dgd_{leg}": dgd_launches[leg]["gram_matvec"]
             - dgd_launches[leg]["gram_matvec_onepass"]
             for leg in ("iid", "markov", "tall")},
-        "kernel_phase_launches": twopass_launches,
+        "kernel_phase_launches": tall_launches,
         "max_abs_err": tp_row["max_abs_err"],
         "ms": tp_row["ms"], "device_ms": tp_row["device_ms"],
         "plain_ms": tp_row["plain_ms"],
         "bound_ms": tp_row["bound_ms"], "bound_by": tp_row["bound_by"],
-        "library_ms": tp_row["library_ms"], "card": card,
-        "twopass_ms_at_onepass_shapes": {
-            f"{r['shape']} {r['dtype']}": r["twopass_ms"]
+        "library_ms": tp_row["library_ms"],
+        "library_device_ms": tp_row["library_device_ms"], "card": card,
+        "split_device_ms_at_onepass_shapes": {
+            f"{r['shape']} {r['dtype']}": r["split_device_ms"]
             for r in rows if r["route"] == "onepass"},
         "shapes": [r for r in rows if r["route"] == "twopass"]}, {
         "name": "greedy_assign", "route": "cuda",

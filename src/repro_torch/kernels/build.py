@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 #: kernel name -> (source file in csrc/, {C function: (argtypes, restype)})
 SOURCES = {
     "gram_matvec": ("gram_matvec.cu", {
-        "gram_matvec_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+        "gram_matvec_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 12
                                + [ctypes.c_void_p], ctypes.c_int),
         "gram_matvec_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),

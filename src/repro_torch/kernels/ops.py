@@ -17,7 +17,7 @@ import torch
 from . import build, ref
 
 __all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
-           "gram_onepass_max_d",
+           "gram_onepass_max_d", "gram_tall_plan", "TallPlan",
            "greedy_assign",
            "swa_attention", "swa_route", "GREEDY_MAX_N", "SWA_HEAD_DIMS",
            "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts"]
@@ -60,6 +60,20 @@ GRAM_SMEM_LIMIT = 232448
 #: fits one tile whatever the budget.
 GRAM_MIN_ROWS = 16
 GRAM_TILE_ELEMS = 48 * 1024
+
+#: the two-pass gram_matvec kernel's layout, mirrored from
+#: csrc/gram_matvec.cu (kThreads and kFoldMax there): its block size and the
+#: most partials of u (slabs x b) that each CTA of its second pass folds.
+#: tests/test_torch_gram_tall.py reads these values from the source.
+TALL_THREADS = 256
+TALL_FOLD_MAX = 8192
+#: gram_tall_plan's aims: the CTAs a pass spreads a call over (two per SM of
+#: a 132-SM H100, a constant so that the plan, and so the bits, do not
+#: depend on the card), the fewest bytes of X a CTA reads where the task is
+#: that tall, and the bytes a column block is rounded to (one cache line).
+TALL_ITEMS = 264
+TALL_MIN_BYTES = 16384
+TALL_LINE = 128
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -161,6 +175,61 @@ def gram_onepass_max_d(b: int, dtype: torch.dtype) -> int:
     return lo
 
 
+class TallPlan(NamedTuple):
+    """How the two-pass kernel (``csrc/gram_matvec.cu``) splits a call on
+    Xs (n, d, b).  A thread loads ``vec`` elements at once (16 bytes where b
+    is a multiple of that, else 1).  Pass 1 (u = Xᵀθ) runs a CTA per (task,
+    slab of ``rows1`` rows, column block of ``qb`` vectors): ``s1`` slabs
+    and ``ncb`` blocks a task; pass 2 (y = X u) a CTA per slab of ``rows2``
+    rows, ``s2`` a task, with ``tr`` threads sharing a row."""
+    vec: int
+    qb: int
+    ncb: int
+    rows1: int
+    s1: int
+    rows2: int
+    s2: int
+    tr: int
+
+
+@lru_cache(maxsize=256)
+def gram_tall_plan(n: int, d: int, b: int, dtype: torch.dtype) -> TallPlan:
+    """The plan of the two-pass kernel for Xs (n, d, b), from the shape and
+    dtype alone.
+
+    Pass 1 aims at ``TALL_ITEMS`` CTAs: a column block is at most
+    ``TALL_THREADS`` vectors wide, and a task is cut into as many slabs as
+    reach that count, as long as its partials (slabs x b floats) stay within
+    ``TALL_FOLD_MAX``; where that caps the slabs, narrower column blocks
+    (whole cache lines, ``TALL_LINE`` bytes) make up the count.  A slab
+    holds at least ``TALL_MIN_BYTES`` of X where d allows.  Pass 2 aims at
+    the same count with slabs of whole rows; a row takes one thread when it
+    has at most 4 vectors, else up to a warp, about 2 vectors a thread."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"gram_matvec takes float32 or bfloat16, got {dtype}")
+    item = 2 if dtype == torch.bfloat16 else 4
+
+    def cdiv(a, m):
+        return -(-a // m)
+
+    vec = 16 // item if b % (16 // item) == 0 else 1
+    Q = b // vec                            # vectors a row
+    line = max(1, TALL_LINE // (vec * item))
+    ncb = cdiv(Q, TALL_THREADS)
+    s1 = max(1, min(cdiv(TALL_ITEMS, n * ncb), TALL_FOLD_MAX // b))
+    if n * s1 * ncb < TALL_ITEMS:
+        ncb = max(ncb, min(cdiv(TALL_ITEMS, n * s1), cdiv(Q, line)))
+    qb = min(Q, cdiv(cdiv(Q, ncb), line) * line)
+    ncb = cdiv(Q, qb)
+    s1 = min(s1, max(1, d // cdiv(TALL_MIN_BYTES, qb * vec * item)))
+    rows1 = cdiv(d, s1)
+    s2 = max(1, min(cdiv(TALL_ITEMS, n), d // cdiv(TALL_MIN_BYTES, b * item)))
+    rows2 = cdiv(d, s2)
+    tr = 1 if Q <= 4 else min(32, 1 << ((Q // 2).bit_length() - 1))
+    return TallPlan(vec, qb, ncb, rows1, cdiv(d, rows1), rows2,
+                    cdiv(d, rows2), tr)
+
+
 def gram_matvec(X: torch.Tensor, theta: torch.Tensor) -> torch.Tensor:
     """h(X) = X X^T theta.  X (d, b), theta (d,) -> (d,), X's dtype."""
     if X.dim() != 2:
@@ -176,7 +245,8 @@ def batched_gram_matvec(Xs: torch.Tensor,
     (``csrc/gram_matvec_onepass.cu``, one launch when a cluster holds a
     task's whole width, plus a fold of the column blocks' partials
     otherwise) or, for a column no cluster can hold, the two-pass kernel
-    (``csrc/gram_matvec.cu``).  A build or launch failure of either raises.
+    (``csrc/gram_matvec.cu``, d split into slabs over every SM as
+    ``gram_tall_plan`` says).  A build or launch failure of either raises.
     CPU tensors take the plain version."""
     if Xs.device.type == "cpu" and theta.device.type == "cpu":
         return ref.batched_gram_matvec_ref(Xs, theta)
@@ -209,12 +279,17 @@ def batched_gram_matvec(Xs: torch.Tensor,
                 _DTYPES[Xs.dtype], plan.c, plan.R, plan.C, plan.nbc,
                 plan.smem)
     else:
-        u = torch.empty((n, b), dtype=torch.float32, device=Xs.device)
+        tall = gram_tall_plan(n, d, b, Xs.dtype)
+        # u (n, b), then the partials (n, s1, b) when a task has slabs
+        scratch = torch.empty(n * b * (1 + (tall.s1 > 1) * tall.s1),
+                              dtype=torch.float32, device=Xs.device)
         lib = build.library("gram_matvec")
         launch, error_string = (lib.gram_matvec_launch,
                                 lib.gram_matvec_error_string)
-        args = (Xs.data_ptr(), theta.data_ptr(), u.data_ptr(), y.data_ptr(),
-                n, d, b, _DTYPES[Xs.dtype])
+        args = (Xs.data_ptr(), theta.data_ptr(),
+                scratch[n * b:].data_ptr() if tall.s1 > 1 else None,
+                scratch.data_ptr(), y.data_ptr(), n, d, b, _DTYPES[Xs.dtype],
+                *tall)
     stream = torch.cuda.current_stream(Xs.device).cuda_stream
     with torch.cuda.device(Xs.device):
         err = launch(*args, stream)

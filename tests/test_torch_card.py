@@ -61,12 +61,17 @@ AT_LIMIT, PAST_LIMIT = "at_limit", "past_limit"
 # 16-byte multiples (b = 53, 37), several column blocks (2000 x 300,
 # 3000 x 700), n = 1, more items than resident clusters (64 x 512 x 256),
 # many TMA boxes a tile (2 x 60 000 rows, 32 columns), the one-pass limit (one
-# tile of ~11 000 rows a CTA) and d just past it (the two-pass route)
+# tile of ~11 000 rows a CTA) and d just past it (the split-d two-pass route:
+# one task and the dgd-tall leg's 15, one column, odd rows of 3 elements,
+# 256 columns, where the slabs are capped and the column blocks narrowed, so
+# many tasks that each takes one slab, and a u too wide for shared memory)
 GRAM_SHAPES = [(15, 400, 60), (4, 37, 53), (4, 300, 200), (1, 512, 64),
                (3, 100, 300), (2, 8, 1), (3, 513, 1), (2, 513, 53),
                (1, 300, 37), (3, 2000, 300), (2, 3000, 700), (1, 1000, 53),
                (64, 512, 256), (2, 60000, 32), (1, AT_LIMIT, 8),
-               (1, PAST_LIMIT, 8)]
+               (1, PAST_LIMIT, 8), (15, PAST_LIMIT, 8), (1, PAST_LIMIT, 1),
+               (1, PAST_LIMIT, 3), (1, PAST_LIMIT, 256), (300, PAST_LIMIT, 8),
+               (1, PAST_LIMIT, 4104)]
 
 
 @pytest.mark.parametrize("n,d,b", GRAM_SHAPES)
@@ -94,7 +99,8 @@ def test_kernel_matches_plain(cuda, n, d, b, dtype):
 
 
 @pytest.mark.parametrize("n,d,b", [(15, 400, 60), (2, 513, 53),
-                                   (3, 2000, 300), (1, PAST_LIMIT, 8)])
+                                   (3, 2000, 300), (1, PAST_LIMIT, 8),
+                                   (15, PAST_LIMIT, 8), (1, PAST_LIMIT, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_is_deterministic(cuda, n, d, b, dtype):
     """Two calls on the same inputs give the same bits, on both routes (no
@@ -106,6 +112,42 @@ def test_kernel_is_deterministic(cuda, n, d, b, dtype):
     c = ops.batched_gram_matvec(Xs, th)
     torch.cuda.synchronize()
     assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_calls_carry_no_state(cuda, dtype):
+    """Calls of two tall shapes in turn (different slab counts, so the
+    scratch of partials is laid out differently) each equal that shape's
+    first call bit for bit: nothing one call leaves behind changes the
+    next."""
+    shapes = [(15, ops.gram_onepass_max_d(8, dtype) + 1, 8),
+              (2, ops.gram_onepass_max_d(64, dtype) + 1000, 64)]
+    inputs, first = [], []
+    for n, d, b in shapes:
+        plan = ops.gram_tall_plan(n, d, b, dtype)
+        assert ops.gram_plan(n, d, b, dtype).route == "twopass"
+        assert plan.s1 > 1
+        inputs.append(_inputs(n, d, b, dtype, cuda, seed=2))
+        first.append(ops.batched_gram_matvec(*inputs[-1]))
+    for _ in range(3):
+        for (Xs, th), want in zip(inputs, first):
+            assert torch.equal(ops.batched_gram_matvec(Xs, th), want)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_two_pass_bits_do_not_depend_on_the_address(cuda, dtype):
+    """A task stack that starts off a 16-byte boundary takes the same plan
+    with element loads in place of vector loads: the same bits as an
+    aligned copy."""
+    n, d, b = 2, ops.gram_onepass_max_d(8, dtype) + 1, 8
+    Xs, th = _inputs(n, d, b, dtype, cuda, seed=3)
+    buf = torch.empty(Xs.numel() + 1, dtype=dtype, device=cuda)
+    off = buf[1:].view(n, d, b)
+    off.copy_(Xs)
+    assert off.is_contiguous() and off.data_ptr() % 16 != 0
+    assert torch.equal(ops.batched_gram_matvec(off, th),
+                       ops.batched_gram_matvec(Xs, th))
 
 
 def test_single_task_wrapper_and_eq48(cuda):
