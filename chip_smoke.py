@@ -1,7 +1,8 @@
-"""Smoke run of the PyTorch port on one CUDA card: builds the port's five
+"""Smoke run of the PyTorch port on one CUDA card: builds the port's six
 kernel sources (gram_matvec_onepass, gram_matvec's two-pass kernel for
-columns no cluster holds, greedy_assign, swa_attention on the CUDA cores and
-swa_attention_wgmma on the tensor cores) from the checkout, holds each
+columns no cluster holds, greedy_assign, swa_attention on the CUDA cores,
+swa_attention_wgmma on the tensor cores for bfloat16 and swa_attention_f32
+on the tensor cores for float32) from the checkout, holds each
 kernel against its plain PyTorch version, drives the single-round Monte-Carlo
 engine at a 10^6-trial sweep, the rounds engine over the full Fig. 8 grid
 (adaptive scheduling through the greedy_assign kernel, CUDA trajectories
@@ -11,8 +12,9 @@ for every uncoded scheme, greedy_assign for the ADAPT row), and serves gemma3-4b
 full width and depth through ``repro_torch.launch.serve`` (prefill of two
 2048-token prompts and greedy decode; the bf16 prefill attention of every
 sliding-window layer through the tensor-core swa_attention kernel), with
-the float32 kernel route (CUDA-core kernel) checked against the ring-cache
-route and the CPU.
+the float32 kernel route (error-compensated TF32 on the tensor cores)
+checked against the ring-cache route and the CPU, and a bfloat16 model of
+narrow heads (dh 32, the CUDA-core kernel's route) against the CPU.
 
 Run from the repository root on a machine with a card:
 
@@ -59,10 +61,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks_torch"))
 import fig8_convergence as fig8  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
-# the tensor cores, bf16 on the tensor cores (dense).
+# the tensor cores, bf16 and TF32 on the tensor cores (dense).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
+TF32_FLOPS_PER_S = 495e12
 DEV = torch.device("cuda")
 # float32 stays float32 on the card: no TF32 in matmuls or convolutions
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -362,8 +365,9 @@ def greedy_phase():
                                       f"{(B, n, r)}")
         err = (got - want).abs().max().item()
         plain_iters = 2 if n > 32 else 20
+        kernel = lambda: ops.greedy_assign(W, order, epick)  # noqa: E731
         row = dict(shape=[B, n, r], max_abs_err=float(err),
-                   ms=cuda_ms(lambda: ops.greedy_assign(W, order, epick), 200),
+                   ms=cuda_ms(kernel, 200), device_ms=device_ms(kernel, 200),
                    plain_ms=cuda_ms(
                        lambda: ref.greedy_assign_ref(W, order, epick),
                        plain_iters),
@@ -371,7 +375,8 @@ def greedy_phase():
         row["bound_ms"], row["bound_by"] = greedy_bound(W, B, n, False)
         rows.append(row)
         print(f"kernel greedy_assign B={B} n={n} r={r}: equal (need, ties, "
-              f"+inf, plain) ms={row['ms']:.5f} plain_ms={row['plain_ms']:.5f}"
+              f"+inf, plain) ms={row['ms']:.5f} device_ms="
+              f"{ms_text(row['device_ms'])} plain_ms={row['plain_ms']:.5f}"
               f" bound_ms={row['bound_ms']:.6f} library_ms=none (no single "
               f"PyTorch call computes the pick loop)")
     return rows
@@ -540,13 +545,24 @@ def swa_pairs(T, W):
 
 def swa_bound(B, T, H, K, dh, W, dtype):
     """Least time for swa_attention: 4 * dh flops per visible pair (QK^T and
-    PV) over the peak rate of the input type (bf16 tensor cores, or float32
-    outside them) vs q, k, v read and o written once over the HBM rate."""
+    PV) over the least time the card takes for them at the input type's
+    accuracy, vs q, k, v read and o written once over the HBM rate.
+    bfloat16: the bf16 tensor-core rate.  float32: the CUDA cores' FMA rate
+    or three TF32 tensor-core products a float32 product, whichever is
+    faster.  Returns (ms, "bytes" or "operations", {bound name: ms}) with
+    both float32 bounds named."""
     item = 2 if dtype == torch.bfloat16 else 4
-    rate = BF16_FLOPS_PER_S if dtype == torch.bfloat16 else F32_FLOPS_PER_S
-    t_ops = 4 * dh * swa_pairs(T, W) * B * H / rate
+    flops = 4 * dh * swa_pairs(T, W) * B * H
+    if dtype == torch.bfloat16:
+        named = {"bf16": flops / BF16_FLOPS_PER_S}
+    else:
+        named = {"fma": flops / F32_FLOPS_PER_S,
+                 "tf32x3": 3 * flops / TF32_FLOPS_PER_S}
+    t_ops = min(named.values())
     t_bytes = (2 * B * T * H * dh + 2 * B * T * K * dh) * item / HBM_BYTES_PER_S
-    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations",
+            {k: v * 1e3 for k, v in named.items()})
 
 
 def sdpa_banded(q, k, v, W):
@@ -563,39 +579,59 @@ def sdpa_banded(q, k, v, W):
         qt, kt, vt, attn_mask=band)
 
 
-def cuda_core_bf16(q, k, v, W):
-    """The CUDA-core kernel, bf16's route before the tensor-core kernel, on
-    bf16 inputs that now take the tensor-core route: timing of the earlier
-    kernel only, launched past the wrapper and not counted."""
+def cuda_core_kernel(q, k, v, W):
+    """The CUDA-core kernel (csrc/swa_attention.cu), the route of bfloat16
+    before the wgmma kernel and of float32 before the float32 tensor-core
+    kernel, on inputs that now take a tensor-core route: timing of the
+    earlier kernel only, launched past the wrapper and not counted."""
     B, T, H, dh = q.shape
     out = torch.empty_like(q)
     lib = build.library("swa_attention")
     stream = torch.cuda.current_stream().cuda_stream
+    dt = 0 if q.dtype == torch.float32 else 1
     return lambda: lib.swa_attention_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
-        k.shape[2], dh, min(W, T), 1, stream)
+        k.shape[2], dh, min(W, T), dt, stream)
+
+
+#: the swa layers' attention shape in consistency_phase's bfloat16 leg
+#: (gemma3-4b's smoke width with dh 32): (B, T, H, K, dh, W)
+NARROW_SWA = (2, 48, 4, 2, 32, 32)
+#: the swa layers' attention shapes in consistency_phase's float32 leg
+#: (gemma3-4b at full width): the full forward of 1 040 tokens and the
+#: 1 024-token prefill
+F32_LM_SWA = [(2, 1040, 8, 4, 256, 1024), (2, 1024, 8, 4, 256, 1024)]
 
 
 def swa_phase():
     """swa_attention against its plain version at the JAX kernel tests'
     shapes (B = 1, K = H; float32 and bfloat16), window 1, two grouped
-    bf16 shapes with ragged tiles, the gemma3-4b prefill shape and one long
-    shape; each call's route (tensor cores for bf16 at dh 64-256, CUDA cores
-    otherwise) checked by the launch counts.  float32: max-abs 2e-4, from
-    tests/test_kernels.py.  bfloat16: elementwise |got - want| <= 1e-3 +
-    1e-2 |want|, which scales with the output (a band of ~1 000 keys gives
-    outputs of std ~0.03, so a flat 3e-2 would pass an off-by-one window
-    edge) and still admits the one-ulp bf16 rounding difference."""
+    shapes with ragged tiles, the shapes of the LM legs of
+    consistency_phase, the gemma3-4b prefill shape and one long shape; each
+    call's route (float32: its tensor-core kernel; bfloat16:
+    wgmma at dh 64-256, CUDA cores at dh 16 / 32) checked by the launch
+    counts.  float32: max-abs 2e-4, from tests/test_kernels.py, and the
+    float64 guard: against a float64 evaluation of the same inputs the
+    kernel's max-abs error is at most 10x the plain float32 version's own
+    (error-compensated TF32 keeps float32 accuracy; one TF32 product would
+    miss the guard by orders of magnitude).  bfloat16: elementwise |got -
+    want| <= 1e-3 + 1e-2 |want|, which scales with the output (a band of
+    ~1 000 keys gives outputs of std ~0.03, so a flat 3e-2 would pass an
+    off-by-one window edge) and still admits the one-ulp bf16 rounding
+    difference."""
     jax_shapes = [(128, 2, 64, 32), (200, 1, 32, 64), (256, 2, 128, 100),
                   (64, 4, 16, 8), (96, 1, 64, 96), (130, 2, 32, 17),
                   (64, 1, 32, 1)]
+    f32, bf16 = torch.float32, torch.bfloat16
     shapes = [(1, T, H, H, dh, W, dt) for T, H, dh, W in jax_shapes
-              for dt in (torch.float32, torch.bfloat16)]
-    shapes += [(2, 300, 8, 4, 256, 70, torch.bfloat16),     # ragged, paired
-               (2, 129, 8, 1, 128, 1000, torch.bfloat16),   # K = 1, W >= T
-               (2, 2048, 8, 4, 256, 1024, torch.bfloat16),   # gemma prefill
-               (2, 2048, 8, 4, 256, 1024, torch.float32),
-               (1, 16384, 8, 4, 256, 8192, torch.bfloat16)]  # long
+              for dt in (f32, bf16)]
+    shapes += [(2, 300, 8, 4, 256, 70, dt) for dt in (f32, bf16)]  # ragged
+    shapes += [(2, 129, 8, 1, 128, 1000, dt) for dt in (f32, bf16)]  # K = 1
+    shapes += [NARROW_SWA + (bf16,)]                # the dh-32 bf16 LM leg
+    shapes += [shape + (f32,) for shape in F32_LM_SWA]   # the f32 LM leg
+    shapes += [(2, 2048, 8, 4, 256, 1024, bf16),                  # gemma
+               (2, 2048, 8, 4, 256, 1024, f32),                   # prefill
+               (1, 16384, 8, 4, 256, 8192, bf16)]                 # long
     gen = torch.Generator(device=DEV).manual_seed(3)
     rows = []
     for B, T, H, K, dh, W, dt in shapes:
@@ -603,22 +639,41 @@ def swa_phase():
         k = (torch.randn(B, T, K, dh, generator=gen, device=DEV) * 0.5).to(dt)
         v = torch.randn(B, T, K, dh, generator=gen, device=DEV).to(dt)
         route = ops.swa_route(dt, dh)
+        check(route == ("tensor_core_f32" if dt == f32 else "tensor_core"
+                        if dh >= 64 else "cuda_core"),
+              f"swa_route {route} for {dt} at dh {dh}")
         before = dict(ops.LAUNCHES)
         got = ops.swa_attention(q, k, v, window=W)
         want = ref.swa_attention_ref(q, k, v, W)
         torch.cuda.synchronize()
         check(got.dtype == dt and got.shape == q.shape,
               f"swa output {got.dtype} {tuple(got.shape)}")
-        tc = ops.LAUNCHES["swa_attention_wgmma"] - before["swa_attention_wgmma"]
-        check(ops.LAUNCHES["swa_attention"] == before["swa_attention"] + 1
-              and tc == (route == "tensor_core"),
+        counts = {name: ops.LAUNCHES[name] - before[name]
+                  for name in ("swa_attention", "swa_attention_wgmma",
+                               "swa_attention_f32")}
+        check(counts == {"swa_attention": 1,
+                         "swa_attention_wgmma": int(route == "tensor_core"),
+                         "swa_attention_f32": int(route == "tensor_core_f32")},
               f"swa_attention at {(B, T, H, K, dh, W, dt)} did not take the "
-              f"{route} route: launches {before} -> {ops.LAUNCHES}")
+              f"{route} route: launches {counts}")
         diff = (got.float() - want.float()).abs()
         err = diff.max().item()
-        if dt == torch.float32:
+        guard = ""
+        if dt == f32:
             check(err < 2e-4, f"swa_attention max abs err {err:.2e} >= 2e-4"
                               f" at {(B, T, H, K, dh, W, dt)}")
+            exact = ref.swa_attention_ref(q.double(), k.double(), v.double(), W)
+            err64 = (got.double() - exact).abs().max().item()
+            plain64 = (want.double() - exact).abs().max().item()
+            del exact
+            check(err64 <= 10 * plain64,
+                  f"swa_attention float64 guard: error {err64:.3e} > 10 x the "
+                  f"plain float32 version's {plain64:.3e} at "
+                  f"{(B, T, H, K, dh, W, dt)}")
+            ratio = err64 / plain64 if plain64 else (0.0 if err64 == 0
+                                                     else float("inf"))
+            guard = (f" f64_err={err64:.3e} plain_f64_err={plain64:.3e} "
+                     f"guard_ratio={ratio:.3f} (<= 10)")
         else:
             worst = (diff / (1e-3 + 1e-2 * want.float().abs())).max().item()
             check(worst <= 1, f"swa_attention |got - want| exceeds 1e-3 + "
@@ -627,33 +682,42 @@ def swa_phase():
         del diff
         if W == 1:
             err1 = (got.float() - v.float()).abs().max().item()
-            check(err1 < 1e-5 if dt == torch.float32 else err1 == 0,
+            check(err1 < 1e-5 if dt == f32 else err1 == 0,
                   f"swa_attention window 1 is not v: {err1:.2e}")
         del want
         big = T * T * B * H > 2 ** 27
+        kernel = lambda: ops.swa_attention(q, k, v, window=W)  # noqa: E731
         row = dict(shape=[B, T, H, K, dh, W], dtype=str(dt).split(".")[-1],
                    swa_route=route, max_abs_err=err,
-                   ms=cuda_ms(lambda: ops.swa_attention(q, k, v, window=W),
-                              5 if big else 50),
+                   ms=cuda_ms(kernel, 5 if big else 50),
                    plain_ms=cuda_ms(lambda: ref.swa_attention_ref(q, k, v, W),
                                     2 if big else 20),
                    library_ms=cuda_ms(sdpa_banded(q, k, v, W),
                                       5 if big else 50))
-        row["bound_ms"], row["bound_by"] = swa_bound(B, T, H, K, dh, W, dt)
+        row["bound_ms"], row["bound_by"], named = swa_bound(B, T, H, K, dh,
+                                                            W, dt)
         row["tflop_per_s"] = 4 * dh * swa_pairs(T, W) * B * H / row["ms"] / 1e9
         row["bound_share"] = row["bound_ms"] / row["ms"]
-        earlier = ""
-        if route == "tensor_core" and T >= 2048:
-            row["cuda_core_ms"] = cuda_ms(cuda_core_bf16(q, k, v, W),
+        extra = guard
+        if dt == f32:
+            row.update(f64_err=err64, plain_f64_err=plain64, guard_ratio=ratio,
+                       device_ms=device_ms(kernel, 20 if big else 50),
+                       fma_bound_ms=named["fma"],
+                       tf32x3_bound_ms=named["tf32x3"])
+            extra += (f" device_ms={ms_text(row['device_ms'])} fma_bound_ms="
+                      f"{named['fma']:.5f} tf32x3_bound_ms="
+                      f"{named['tf32x3']:.5f}")
+        if route != "cuda_core" and T >= 2048:
+            row["cuda_core_ms"] = cuda_ms(cuda_core_kernel(q, k, v, W),
                                           3 if big else 20)
-            earlier = f" cuda_core_ms={row['cuda_core_ms']:.5f}"
+            extra += f" cuda_core_ms={row['cuda_core_ms']:.5f} (earlier kernel)"
         rows.append(row)
         print(f"kernel swa_attention B={B} T={T} H={H} K={K} dh={dh} W={W} "
               f"{row['dtype']} route={route}: max_abs_err={err:.3e} "
               f"ms={row['ms']:.5f} ({row['tflop_per_s']:.1f} TFLOP/s, "
               f"{row['bound_share']:.3f} of bound) plain_ms="
               f"{row['plain_ms']:.5f} library_ms={row['library_ms']:.5f} "
-              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){earlier}")
+              f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}){extra}")
         del q, k, v, got
         torch.cuda.empty_cache()
     return rows
@@ -690,7 +754,8 @@ def serve_phase():
           f"serve prefill tensor-core launches "
           f"{res.launches_after_prefill} != {n_swa}")
     check(launches["swa_attention"] == n_swa
-          and launches["swa_attention_wgmma"] == n_swa,
+          and launches["swa_attention_wgmma"] == n_swa
+          and launches["swa_attention_f32"] == 0,
           f"swa_attention launched in decode: {launches}")
     check(res.finite, "serve: non-finite logits")
     B, P, G = SERVE["batch"], SERVE["prompt_len"], SERVE["gen"]
@@ -703,7 +768,8 @@ def serve_phase():
            "decode_tok_per_s": B * (G - 1) / res.decode_s,
            "peak_mem_bytes": peak, "mem_before_bytes": base,
            "swa_launches": launches["swa_attention"],
-           "wgmma_launches": launches["swa_attention_wgmma"]}
+           "wgmma_launches": launches["swa_attention_wgmma"],
+           "f32_launches": launches["swa_attention_f32"]}
     print(f"serve gemma3-4b 34 layers bf16 batch={B} prompt={P} gen={G}: "
           f"prefill {out['prefill_ms']:.3f} ms ({out['prefill_tok_per_s']:.1f}"
           f" tok/s), decode {out['decode_ms_per_step']:.4f} ms/step "
@@ -722,10 +788,14 @@ def consistency_phase():
     prefill plus 16 decode steps (kernel, then the ring route) at the same
     positions, max abs logit difference < 2e-3 (tests/test_models.py's
     decode-vs-full bound); the launch counts are set to 0 just before and
-    read after: one CUDA-core launch per swa layer for the forward and for
-    the prefill, no tensor-core launch.  (2) the 7-layer smoke-width config
-    on the card against the same weights on the CPU, relative difference
-    < 1e-4."""
+    read after: one launch of the float32 tensor-core kernel per swa layer
+    for the forward and for the prefill, none of the other two.  (2) the
+    7-layer smoke-width config on the card against the same weights on the
+    CPU, relative difference < 1e-4.  (3) the same config in bfloat16 with
+    heads of dh 32, the CUDA-core kernel's route (counts set to 0 just
+    before, one launch per swa layer): its card logits are no further from
+    the CPU's float32 logits than twice the CPU's own bfloat16 logits
+    are."""
     cfg = dataclasses.replace(get_config("gemma3-4b"), n_layers=7,
                               param_dtype="float32", dtype="float32")
     specs = layer_specs(cfg)
@@ -747,13 +817,15 @@ def consistency_phase():
         worst = max(worst, (lg[:, 0] - full[:, t]).abs().max().item())
     launches = dict(ops.LAUNCHES)
     check(launches["swa_attention"] == 12
+          and launches["swa_attention_f32"] == 12
           and launches["swa_attention_wgmma"] == 0,
           f"f32 LM path: swa_attention launches {launches} (want 12 on the "
-          f"CUDA-core route)")
+          f"float32 tensor-core route)")
     check(worst < 2e-3, f"decode vs full (ring vs kernel) {worst:.2e}")
     print(f"consistency gemma3-4b 7 layers f32: full forward vs prefill "
           f"{P} + {steps} decode steps max abs logit diff {worst:.3e}; "
-          f"swa_attention launches {launches['swa_attention']} (CUDA-core)")
+          f"swa_attention launches {launches['swa_attention']} (float32 "
+          f"tensor-core {launches['swa_attention_f32']})")
     del model, full, cache
     torch.cuda.empty_cache()
 
@@ -781,8 +853,44 @@ def consistency_phase():
     print(f"consistency {small.name} x7 f32 card vs CPU: rel diff "
           f"{rel_full:.3e} (full forward), {rel_dec:.3e} (prefill 40 + 8 "
           f"decode steps)")
+
+    narrow = dataclasses.replace(small, head_dim=32)
+    narrow16 = dataclasses.replace(narrow, param_dtype="bfloat16",
+                                   dtype="bfloat16")
+    f32_model = init_params(narrow, seed=4, device="cpu")
+    weights = {k: v.to(torch.bfloat16)
+               for k, v in f32_model.state_dict().items()}
+    cpu16 = init_params(narrow16, seed=4, device="cpu")
+    cpu16.load_state_dict(weights)
+    gpu16 = init_params(narrow16, seed=4, device=DEV)
+    gpu16.load_state_dict(weights)
+    ops.reset_launch_counts()
+    a, _, _ = forward(gpu16, narrow16, toks.to(DEV))
+    narrow_launches = dict(ops.LAUNCHES)
+    b, _, _ = forward(cpu16, narrow16, toks)
+    c, _, _ = forward(f32_model, narrow, toks)
+    rel_card = ((a.float().cpu() - c).abs().max() / c.abs().max()).item()
+    rel_cpu = ((b.float() - c).abs().max() / c.abs().max()).item()
+    check(narrow_launches["swa_attention"] == 6
+          and narrow_launches["swa_attention_wgmma"] == 0
+          and narrow_launches["swa_attention_f32"] == 0,
+          f"bf16 dh-32 LM path: swa_attention launches {narrow_launches} "
+          f"(want 6 on the CUDA-core route)")
+    check(bool(torch.isfinite(a).all()) and rel_card <= 2 * rel_cpu,
+          f"bf16 dh-32 card logits rel {rel_card:.3e} from the float32 ones,"
+          f" the CPU's bf16 {rel_cpu:.3e}")
+    print(f"consistency {narrow16.name} dh 32 x7 bf16: card vs CPU float32 "
+          f"rel diff {rel_card:.3e} (the CPU's own bf16: {rel_cpu:.3e}); "
+          f"swa_attention launches {narrow_launches['swa_attention']} "
+          f"(CUDA-core)")
     return {"decode_vs_full": worst, "card_vs_cpu": max(rel_full, rel_dec),
-            "swa_launches": launches["swa_attention"]}
+            "swa_launches": launches["swa_attention"],
+            "f32_launches": launches["swa_attention_f32"],
+            "f32_wgmma_launches": launches["swa_attention_wgmma"],
+            "narrow_bf16_rel": rel_card, "narrow_bf16_cpu_rel": rel_cpu,
+            "cuda_core_launches": narrow_launches["swa_attention"],
+            "narrow_wgmma_launches": narrow_launches["swa_attention_wgmma"],
+            "narrow_f32_launches": narrow_launches["swa_attention_f32"]}
 
 
 def main():
@@ -814,7 +922,11 @@ def main():
     t_row = next(r for r in swa_rows if r["shape"] == gemma
                  and r["dtype"] == "bfloat16")
     c_row = next(r for r in swa_rows if r["shape"] == gemma
-                 and r["dtype"] == "float32")
+                 and r["dtype"] == "float32")      # the yardstick vs SDPA
+    f_row = next(r for r in swa_rows if r["shape"] == list(F32_LM_SWA[1])
+                 and r["dtype"] == "float32")   # the f32 LM leg's prefill
+    n_row = next(r for r in swa_rows if r["shape"] == list(NARROW_SWA)
+                 and r["dtype"] == "bfloat16")   # the dh-32 bf16 LM leg
     print(json.dumps({"kernels": [{
         "name": "gram_matvec_onepass", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gram_matvec_onepass.cu",
@@ -857,27 +969,56 @@ def main():
             "dgd_iid": dgd_launches["iid"]["greedy_assign"],
             "dgd_markov": dgd_launches["markov"]["greedy_assign"]},
         "max_abs_err": g_row["max_abs_err"],
-        "ms": g_row["ms"], "plain_ms": g_row["plain_ms"],
+        "ms": g_row["ms"], "device_ms": g_row["device_ms"],
+        "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],
         "library_ms": None, "card": card, "shapes": greedy_rows}, {
         "name": "swa_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:73",
-        "launches": consistency["swa_launches"],
-        "launches_by_path": {"lm_f32": consistency["swa_launches"],
+        "launches": consistency["cuda_core_launches"],
+        "launches_by_path": {"lm_bf16_dh32": consistency["cuda_core_launches"],
+                             "lm_f32": consistency["swa_launches"]
+                             - consistency["f32_launches"]
+                             - consistency["f32_wgmma_launches"],
                              "serve": served["swa_launches"]
-                             - served["wgmma_launches"]},
-        "max_abs_err": c_row["max_abs_err"],
-        "ms": c_row["ms"], "plain_ms": c_row["plain_ms"],
-        "bound_ms": c_row["bound_ms"], "bound_by": c_row["bound_by"],
-        "library_ms": c_row["library_ms"], "card": card,
+                             - served["wgmma_launches"]
+                             - served["f32_launches"]},
+        "max_abs_err": n_row["max_abs_err"],
+        "ms": n_row["ms"], "plain_ms": n_row["plain_ms"],
+        "bound_ms": n_row["bound_ms"], "bound_by": n_row["bound_by"],
+        "library_ms": n_row["library_ms"], "card": card,
+        "f32_gemma_ms": c_row["cuda_core_ms"],
         "shapes": [r for r in swa_rows if r["swa_route"] == "cuda_core"]}, {
+        "name": "swa_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/swa_attention_f32.cu",
+        "replaces": "src/repro/kernels/swa_attention.py:73",
+        "launches": consistency["f32_launches"],
+        "launches_by_path": {"lm_f32": consistency["f32_launches"],
+                             "lm_bf16_dh32": consistency["narrow_f32_launches"],
+                             "serve": served["f32_launches"]},
+        "max_abs_err": f_row["max_abs_err"],
+        "guard_ratio": f_row["guard_ratio"],
+        "ms": f_row["ms"], "device_ms": f_row["device_ms"],
+        "plain_ms": f_row["plain_ms"],
+        "bound_ms": f_row["bound_ms"], "bound_by": f_row["bound_by"],
+        "fma_bound_ms": f_row["fma_bound_ms"],
+        "tf32x3_bound_ms": f_row["tf32x3_bound_ms"],
+        "library_ms": f_row["library_ms"], "card": card,
+        "gemma_prefill_2048": {key: c_row[key] for key in (
+            "max_abs_err", "guard_ratio", "ms", "device_ms", "plain_ms",
+            "bound_ms", "bound_by", "fma_bound_ms", "tf32x3_bound_ms",
+            "library_ms", "cuda_core_ms")},
+        "shapes": [r for r in swa_rows
+                   if r["swa_route"] == "tensor_core_f32"]}, {
         "name": "swa_attention_wgmma", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention_wgmma.cu",
         "replaces": "src/repro/kernels/swa_attention.py:73",
         "launches": served["wgmma_launches"],
-        "launches_by_path": {"serve": served["wgmma_launches"],
-                             "lm_f32": 0},
+        "launches_by_path": {
+            "serve": served["wgmma_launches"],
+            "lm_f32": consistency["f32_wgmma_launches"],
+            "lm_bf16_dh32": consistency["narrow_wgmma_launches"]},
         "max_abs_err": t_row["max_abs_err"],
         "ms": t_row["ms"], "plain_ms": t_row["plain_ms"],
         "bound_ms": t_row["bound_ms"], "bound_by": t_row["bound_by"],

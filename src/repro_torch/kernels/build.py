@@ -45,6 +45,12 @@ SOURCES = {
                                  + [ctypes.c_void_p], ctypes.c_int),
         "swa_attention_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
+    "swa_attention_f32": ("swa_attention_f32.cu", {
+        "swa_f32_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                           + [ctypes.c_void_p] * 3, ctypes.c_int),
+        "swa_f32_error_string": ([ctypes.c_int], ctypes.c_char_p),
+    }),
     "swa_attention_wgmma": ("swa_attention_wgmma.cu", {
         "swa_wgmma_launch": ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                              + [ctypes.c_void_p], ctypes.c_int),

@@ -9,6 +9,8 @@ main path went through the kernels.
 """
 from __future__ import annotations
 
+import heapq
+import math
 from functools import lru_cache
 from typing import NamedTuple
 
@@ -18,17 +20,19 @@ from . import build, ref
 
 __all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
            "gram_onepass_max_d", "gram_tall_plan", "TallPlan",
-           "greedy_assign",
-           "swa_attention", "swa_route", "GREEDY_MAX_N", "SWA_HEAD_DIMS",
+           "greedy_assign", "swa_attention", "swa_route", "swa_f32_plan",
+           "swa_f32_makespan", "SwaF32Plan", "GREEDY_MAX_N", "SWA_HEAD_DIMS",
            "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``;
 #: "gram_matvec" counts the calls of both of its routes,
 #: "gram_matvec_onepass" those of the one-pass route alone;
-#: "swa_attention" counts the launches of both of its routes,
-#: "swa_attention_wgmma" those of the tensor-core route alone
+#: "swa_attention" counts the launches of all three of its routes,
+#: "swa_attention_wgmma" those of the bfloat16 tensor-core route alone,
+#: "swa_attention_f32" those of the float32 tensor-core route alone
 LAUNCHES = {"gram_matvec": 0, "gram_matvec_onepass": 0, "greedy_assign": 0,
-            "swa_attention": 0, "swa_attention_wgmma": 0}
+            "swa_attention": 0, "swa_attention_wgmma": 0,
+            "swa_attention_f32": 0}
 
 #: the largest n the greedy_assign kernel takes (kMaxN in its source)
 GREEDY_MAX_N = 128
@@ -36,7 +40,8 @@ GREEDY_MAX_N = 128
 #: the head dims the swa_attention kernels are compiled for
 SWA_HEAD_DIMS = (16, 32, 64, 128, 256)
 
-#: the head dims of the tensor-core (wgmma) route, bfloat16 only
+#: the head dims of the bfloat16 tensor-core (wgmma) route; float32 takes
+#: its own tensor-core route at every dh in SWA_HEAD_DIMS
 SWA_TENSOR_CORE_HEAD_DIMS = (64, 128, 256)
 
 #: the one-pass gram_matvec kernel's tile layout, mirrored from
@@ -74,6 +79,27 @@ TALL_FOLD_MAX = 8192
 TALL_ITEMS = 264
 TALL_MIN_BYTES = 16384
 TALL_LINE = 128
+
+#: the float32 swa_attention kernel's layout, mirrored from
+#: csrc/swa_attention_f32.cu (kThreads, kRows and Cfg::kKeys there): its
+#: block size, the query rows (head, position) a block holds, and the keys
+#: of a KV tile (32 at dh 256, else 64).  tests/test_torch_swa_plan.py reads
+#: these values from the source.
+SWA_F32_THREADS = 256
+SWA_F32_ROWS = 128
+SWA_F32_KEYS = {16: 64, 32: 64, 64: 64, 128: 64, 256: 32}
+#: swa_f32_plan's model, in KV-tile times: what a block costs beyond its
+#: tiles (Q, the prologue, the epilogue) and what a split half costs beyond
+#: that (its state written, the other's merged), both fitted by
+#: benchmarks_torch/swa_f32.py to the kernel's times on an H100; and the
+#: shares of the longest KV range past which its plans split ranges
+SWA_F32_BLOCK_COST = 0.75
+SWA_F32_SPLIT_COST = 0.25
+SWA_F32_SHARES = (1, 0.75, 0.5)
+#: the blocks the model runs at once: one a multiprocessor of an H100 SXM.
+#: A constant, not the card's count, so that a call's plan, and with it the
+#: bits of its result, depend on the shape alone.
+SWA_F32_SLOTS = 132
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -356,12 +382,131 @@ def greedy_assign(W: torch.Tensor, order: torch.Tensor, epick: torch.Tensor,
     return out
 
 
+class SwaF32Plan(NamedTuple):
+    """How a CUDA call of the float32 swa_attention kernel
+    (``csrc/swa_attention_f32.cu``) runs.  A block holds ``nh`` query heads
+    of one KV group at ``npos`` consecutive positions (``SWA_F32_ROWS``
+    rows) and walks KV tiles of ``keys`` keys.  ``items`` is the work in
+    launch order, each ``(x, kt0, kt1, code)``: query tile x (positions x *
+    npos ...), KV tiles kt0..kt1, and code -1 where that is the tile's whole
+    range, else 2 * pair + half for one half of a range split in two (the
+    two halves write their partial state to scratch slots 2 * pair and 2 *
+    pair + 1; the later one merges).  Every item runs once for each head
+    group and batch row."""
+    nh: int
+    npos: int
+    keys: int
+    items: tuple
+    pairs: int
+
+
+@lru_cache(maxsize=256)
+def swa_f32_plan(B: int, T: int, H: int, K: int, dh: int, window: int,
+                 split: float | None = None) -> SwaF32Plan:
+    """The plan of a float32 CUDA ``swa_attention`` call, from the shape.
+
+    nh is the largest power of two (at most 8) that divides H / K.  Query
+    tile x sees the KV tiles from max(0, x * npos - W + 1) // keys to its
+    last position's.  The ranges longer than ``split`` times the longest
+    are split in two halves (1 splits none), and the items run longest
+    first.  ``split`` None takes, of ``SWA_F32_SHARES``, the share whose
+    plan has the shortest ``swa_f32_makespan`` (ties: the larger share)."""
+    if split is None:
+        return min((swa_f32_plan(B, T, H, K, dh, window, share)
+                    for share in SWA_F32_SHARES),
+                   key=lambda plan: swa_f32_makespan(plan, B, H))
+    G = H // K
+    nh = 1
+    while nh < 8 and G % (2 * nh) == 0:
+        nh *= 2
+    npos = SWA_F32_ROWS // nh
+    keys = SWA_F32_KEYS[dh]
+    w = min(window, T)
+    spans = [(x, max(0, x * npos - w + 1) // keys,
+              (min((x + 1) * npos, T) - 1) // keys)
+             for x in range(-(-T // npos))]
+    cap = math.ceil(max(hi - lo + 1 for _, lo, hi in spans) * split)
+    items = []                          # (x, kt0, kt1, half or -1)
+    for x, lo, hi in spans:
+        if hi - lo + 1 <= cap:
+            items.append((x, lo, hi, -1))
+        else:
+            mid = lo + (hi - lo + 2) // 2
+            items += [(x, lo, mid - 1, 0), (x, mid, hi, 1)]
+    items.sort(key=lambda it: (it[1] - it[2], -it[0], it[3]))
+    pair = {}
+    out = []
+    for x, lo, hi, half in items:
+        code = -1 if half < 0 else 2 * pair.setdefault(x, len(pair)) + half
+        out.append((x, lo, hi, code))
+    return SwaF32Plan(nh, npos, keys, tuple(out), len(pair))
+
+
+def swa_f32_makespan(plan: SwaF32Plan, B: int, H: int,
+                     block_cost: float = SWA_F32_BLOCK_COST,
+                     split_cost: float = SWA_F32_SPLIT_COST) -> float:
+    """The plan's modelled time in KV-tile times: each of its (H / nh) * B
+    blocks an item costs the item's tiles plus ``block_cost`` (a split
+    half ``split_cost`` more) and runs, in plan order, on the first of
+    ``SWA_F32_SLOTS`` slots to free."""
+    free = [0.0] * SWA_F32_SLOTS
+    for _, lo, hi, code in plan.items:
+        cost = hi - lo + 1 + block_cost + (split_cost if code >= 0 else 0)
+        for _ in range((H // plan.nh) * B):
+            heapq.heapreplace(free, free[0] + cost)
+    return max(free)
+
+
+@lru_cache(maxsize=64)
+def _swa_f32_table(plan: SwaF32Plan, device: torch.device) -> torch.Tensor:
+    """The plan's items as an int32 (n, 4) tensor on ``device``, made once
+    per plan and device."""
+    return torch.tensor(plan.items, dtype=torch.int32).to(device)
+
+
+def _swa_f32_run(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: int, plan: SwaF32Plan, lib=None) -> torch.Tensor:
+    """One launch of the float32 swa kernel (``lib``: the built
+    ``csrc/swa_attention_f32.cu`` or a copy with its entry points) on
+    ``plan``, for inputs the caller has checked; counts nothing.  Scratch
+    is sized here, and only here, from the kernel's state layout: per split
+    half and block, each thread's accumulator (dh / 2 floats), row maxima
+    and sums (4); a count per pair, zeroed, says which half merges."""
+    B, T, H, dh = q.shape
+    dev = q.device
+    per = (H // plan.nh) * B
+    scratch = torch.empty(
+        2 * plan.pairs * per * SWA_F32_THREADS * (dh // 2 + 4),
+        dtype=torch.float32, device=dev) if plan.pairs else None
+    counts = (torch.zeros(plan.pairs * per, dtype=torch.int32, device=dev)
+              if plan.pairs else None)
+    lib = lib or build.library("swa_attention_f32")
+    out = torch.empty_like(q)
+    with torch.cuda.device(dev):
+        err = lib.swa_f32_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, T, H,
+            k.shape[2], dh, min(window, T),
+            _swa_f32_table(plan, dev).data_ptr(), len(plan.items), plan.nh,
+            None if scratch is None else scratch.data_ptr(),
+            None if counts is None else counts.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"swa_attention launch failed (tensor_core_f32 "
+                           f"kernel): error {err} "
+                           f"({lib.swa_f32_error_string(err).decode()})")
+    return out
+
+
 def swa_route(dtype: torch.dtype, dh: int) -> str:
     """Which swa_attention kernel a CUDA call of this dtype and head dim
-    launches: ``"tensor_core"`` (``csrc/swa_attention_wgmma.cu``, wgmma fed
-    by TMA) for bfloat16 at dh in ``SWA_TENSOR_CORE_HEAD_DIMS``, else
-    ``"cuda_core"`` (``csrc/swa_attention.cu``): float32, which stays out of
-    TF32, and the narrow bfloat16 heads."""
+    launches: ``"tensor_core_f32"`` (``csrc/swa_attention_f32.cu``, TF32
+    mma.sync with each float32 product taken as three or four TF32 ones, so
+    float32 accuracy) for float32; ``"tensor_core"``
+    (``csrc/swa_attention_wgmma.cu``, wgmma fed by TMA) for bfloat16 at dh
+    in ``SWA_TENSOR_CORE_HEAD_DIMS``; ``"cuda_core"``
+    (``csrc/swa_attention.cu``) for the narrow bfloat16 heads."""
+    if dtype == torch.float32:
+        return "tensor_core_f32"
     if dtype == torch.bfloat16 and dh in SWA_TENSOR_CORE_HEAD_DIMS:
         return "tensor_core"
     return "cuda_core"
@@ -374,9 +519,10 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H % K == 0 -> (B, T, H, dh) in q's dtype; position t sees (t - window,
     t], query head h reads KV head h // (H // K).  On the card this is one
     launch for the whole batch of the kernel ``swa_route`` names: the
-    tensor-core kernel (``csrc/swa_attention_wgmma.cu``) or the CUDA-core
-    one (``csrc/swa_attention.cu``); float32 or bfloat16, contiguous, dh in
-    ``SWA_HEAD_DIMS``.  A build or launch failure of either raises.  CPU
+    float32 tensor-core kernel (``csrc/swa_attention_f32.cu``), the bfloat16
+    one (``csrc/swa_attention_wgmma.cu``) or the CUDA-core one
+    (``csrc/swa_attention.cu``); float32 or bfloat16, contiguous, dh in
+    ``SWA_HEAD_DIMS``.  A build or launch failure of any raises.  CPU
     tensors take the plain version."""
     if not isinstance(window, int) or window < 1:
         raise ValueError(f"swa_attention needs an integer window >= 1, got "
@@ -409,14 +555,19 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("swa_attention needs contiguous q, k, v")
+    route = swa_route(q.dtype, dh)
+    # TMA and cp.async read rows of q, k, v from 16-byte aligned addresses
+    if route != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("swa_attention needs 16-byte aligned q, k, v")
+    if route == "tensor_core_f32":
+        out = _swa_f32_run(q, k, v, window,
+                           swa_f32_plan(B, T, H, K, dh, min(window, T)))
+        LAUNCHES["swa_attention"] += 1
+        LAUNCHES["swa_attention_f32"] += 1
+        return out
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    route = swa_route(q.dtype, dh)
-    tensor_core = route == "tensor_core"
-    if tensor_core:
-        # TMA reads rows of dh * 2 bytes from 16-byte aligned addresses
-        if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("swa_attention needs 16-byte aligned q, k, v")
+    if route == "tensor_core":
         lib = build.library("swa_attention_wgmma")
         launch, error_string = lib.swa_wgmma_launch, lib.swa_wgmma_error_string
         args = ()
@@ -433,6 +584,6 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise RuntimeError(f"swa_attention launch failed ({route} kernel): "
                            f"error {err} ({msg})")
     LAUNCHES["swa_attention"] += 1
-    if tensor_core:
+    if route == "tensor_core":
         LAUNCHES["swa_attention_wgmma"] += 1
     return out

@@ -87,12 +87,14 @@ def swa_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with H % K == 0 -> (B, T, H, dh) in q's dtype.  Position t attends to
     positions (t - window, t]; query head h reads KV head h // (H // K), as
     ``repeat_kv`` maps them.  Scores, softmax and the weighted sum are
-    float32."""
+    float32 (float64 for float64 inputs: the error guard of the float32
+    kernels holds both against that evaluation)."""
     B, T, H, dh = q.shape
     G = H // k.shape[2]
-    kf = k.float().repeat_interleave(G, dim=2)
-    vf = v.float().repeat_interleave(G, dim=2)
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(dh))
+    acc = torch.promote_types(q.dtype, torch.float32)
+    kf = k.to(acc).repeat_interleave(G, dim=2)
+    vf = v.to(acc).repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(acc), kf) * (1.0 / math.sqrt(dh))
     pos = torch.arange(T, device=q.device)
     ok = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
     s = s.masked_fill(~ok, float("-inf"))

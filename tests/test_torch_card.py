@@ -7,8 +7,10 @@ share one summation order and rounding, ties
 included), the swa_attention kernels against their plain version (max abs
 2e-4 in float32, tests/test_kernels.py's; elementwise atol 1e-3 + rtol
 1e-2 in bfloat16, which scales with outputs of a wide window) with the
-route each call takes (tensor cores for bfloat16 at dh 64-256, CUDA cores
-otherwise), their launch counters and input checks, the engines' per-trial samples and trajectories
+route each call takes (float32 on its TF32 tensor-core kernel, bfloat16
+on the wgmma kernel at dh 64-256 and on the CUDA cores at dh 16 / 32), the
+float32 kernel's error against a float64 evaluation (at most 10x the plain
+float32 version's own), their launch counters and input checks, the engines' per-trial samples and trajectories
 on the card against their own CPU runs, and the LM's logits on the card
 against the CPU with the swa route's launch counts.
 
@@ -329,9 +331,13 @@ SWA_TC_SHAPES = [
 @pytest.mark.parametrize("B,T,H,K,dh,W", SWA_SHAPES + SWA_TC_SHAPES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_kernel_matches_plain(cuda, B, T, H, K, dh, W, dtype):
-    """Each call launches one kernel: the tensor-core one for bfloat16 at dh
-    64, 128 and 256, the CUDA-core one for float32 and for bfloat16 at dh
-    16 and 32."""
+    """Each call launches one kernel: the float32 tensor-core one
+    (error-compensated TF32) for float32, the wgmma one for bfloat16 at dh
+    64, 128 and 256, the CUDA-core one for bfloat16 at dh 16 and 32.  The
+    float32 kernel also keeps float32 accuracy: against a float64
+    evaluation of the same inputs its max-abs error is at most 10x the
+    plain float32 version's own (a single TF32 product misses that by
+    orders of magnitude; tests/test_torch_swa_split.py)."""
     gen = np.random.default_rng(B * T + W)
     q = torch.as_tensor(0.5 * gen.standard_normal((B, T, H, dh)),
                         dtype=torch.float32).to(cuda, dtype)
@@ -342,19 +348,59 @@ def test_swa_kernel_matches_plain(cuda, B, T, H, K, dh, W, dtype):
     before = dict(ops.LAUNCHES)
     got = ops.swa_attention(q, k, v, window=W)
     torch.cuda.synchronize()
+    f32 = dtype == torch.float32
     tensor_core = dtype == torch.bfloat16 and dh in (64, 128, 256)
-    assert ops.swa_route(dtype, dh) == ("tensor_core" if tensor_core
-                                        else "cuda_core")
+    assert ops.swa_route(dtype, dh) == (
+        "tensor_core_f32" if f32 else
+        "tensor_core" if tensor_core else "cuda_core")
     assert ops.LAUNCHES["swa_attention"] == before["swa_attention"] + 1
     assert (ops.LAUNCHES["swa_attention_wgmma"]
             == before["swa_attention_wgmma"] + tensor_core)
+    assert (ops.LAUNCHES["swa_attention_f32"]
+            == before["swa_attention_f32"] + f32)
     want = ref.swa_attention_ref(q, k, v, W)
     assert got.dtype == dtype and got.shape == q.shape
-    if dtype == torch.float32:
+    if f32:
         assert (got.float() - want.float()).abs().max().item() < 2e-4
+        exact = ref.swa_attention_ref(q.double(), k.double(), v.double(), W)
+        err = (got.double() - exact).abs().max().item()
+        assert err <= 10 * (want.double() - exact).abs().max().item()
     else:
         torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
                                    atol=1e-3)
+
+
+def _swa_f32_launch(q, k, v, W, plan):
+    """The float32 swa kernel launched past the wrapper on ``plan``."""
+    out = ops._swa_f32_run(q, k, v, W, plan)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("B,T,H,K,dh,W", [
+    (2, 300, 8, 4, 256, 70), (1, 1100, 8, 4, 256, 1024), (1, 257, 4, 4, 256, 1),
+    (2, 300, 8, 1, 64, 130), (1, 250, 3, 3, 128, 90)])
+def test_swa_f32_split_ranges_merge(cuda, B, T, H, K, dh, W):
+    """A plan that splits the KV ranges past half the longest in two and
+    one that splits none give the plain version's result within 2e-4 and the float64
+    guard, and the split one gives the same bits twice (the merge does not
+    depend on which half finishes last)."""
+    gen = np.random.default_rng(B * T + W + 1)
+    q, k, v = (torch.as_tensor(s * gen.standard_normal(shape),
+                               dtype=torch.float32).to(cuda)
+               for s, shape in ((0.5, (B, T, H, dh)), (0.5, (B, T, K, dh)),
+                                (1.0, (B, T, K, dh))))
+    split = ops.swa_f32_plan(B, T, H, K, dh, min(W, T), 0.5)
+    whole = ops.swa_f32_plan(B, T, H, K, dh, min(W, T), 1)
+    assert split.pairs > 0 and whole.pairs == 0
+    want = ref.swa_attention_ref(q, k, v, W)
+    exact = ref.swa_attention_ref(q.double(), k.double(), v.double(), W)
+    bound = 10 * (want.double() - exact).abs().max().item()
+    a = _swa_f32_launch(q, k, v, W, split)
+    for got in (a, _swa_f32_launch(q, k, v, W, whole)):
+        assert (got - want).abs().max().item() < 2e-4
+        assert (got.double() - exact).abs().max().item() <= bound
+    assert torch.equal(a, _swa_f32_launch(q, k, v, W, split))
 
 
 def test_swa_kernel_rejects_what_it_cannot_take(cuda):
@@ -382,6 +428,10 @@ def test_swa_kernel_rejects_what_it_cannot_take(cuda):
     km = torch.zeros((1, 16, 2, 64), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="aligned"):
         ops.swa_attention(qm, km, km, window=4)
+    # so does the float32 route's cp.async: a view one float in
+    flat = torch.zeros(1 + 16 * 4 * 32, device=cuda)
+    with pytest.raises(ValueError, match="aligned"):
+        ops.swa_attention(flat[1:].view(1, 16, 4, 32), k, k, window=4)
     assert ops.LAUNCHES["swa_attention"] == before
 
 
@@ -389,8 +439,9 @@ def test_swa_kernel_rejects_what_it_cannot_take(cuda):
 def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
     """gemma3-4b's smoke width with 7 layers (6 swa): the logits of a full
     forward and of a prefill past the window plus decode steps agree with
-    the CPU (plain attention) within rel 1e-4; one kernel launch per swa
-    layer for the forward and for the prefill, none for decode."""
+    the CPU (plain attention) within rel 1e-4; one launch of the float32
+    tensor-core kernel per swa layer for the forward and for the prefill,
+    none for decode."""
     cfg = dataclasses.replace(get_config("gemma3-4b").smoke(), n_layers=7)
     cpu_model = init_params(cfg, seed=3, device="cpu")
     gpu_model = init_params(cfg, seed=3, device="cpu").to(cuda)
@@ -401,15 +452,18 @@ def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
         return ((a.cpu() - b).abs().max() / b.abs().max()).item()
 
     before = ops.LAUNCHES["swa_attention"]
+    before_f32 = ops.LAUNCHES["swa_attention_f32"]
     a, _, _ = forward(gpu_model, cfg, toks.to(cuda))
     b, _, _ = forward(cpu_model, cfg, toks)
     assert ops.LAUNCHES["swa_attention"] == before + 6
+    assert ops.LAUNCHES["swa_attention_f32"] == before_f32 + 6
     assert rel(a, b) < 1e-4
     ca = init_cache(cfg, 2, 64, device=cuda)
     cb = init_cache(cfg, 2, 64, device="cpu")
     a, _, ca = forward(gpu_model, cfg, toks[:, :40].to(cuda), cache=ca)
     b, _, cb = forward(cpu_model, cfg, toks[:, :40], cache=cb)
     assert ops.LAUNCHES["swa_attention"] == before + 12
+    assert ops.LAUNCHES["swa_attention_f32"] == before_f32 + 12
     assert rel(a, b) < 1e-4
     for t in range(40, 48):
         a, _, ca = forward(gpu_model, cfg, toks[:, t:t + 1].to(cuda),
@@ -417,3 +471,4 @@ def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
         b, _, cb = forward(cpu_model, cfg, toks[:, t:t + 1], cache=cb)
         assert rel(a, b) < 1e-4
     assert ops.LAUNCHES["swa_attention"] == before + 12
+    assert ops.LAUNCHES["swa_attention_f32"] == before_f32 + 12

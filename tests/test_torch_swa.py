@@ -7,7 +7,8 @@ tolerances (max abs 2e-4 in float32, 3e-2 in bfloat16); the batched GQA
 mapping against ``repeat_kv`` and a per-batch call; window 1 and window >= T
 as closed forms; the edge shapes of the tensor-core kernel's tiling (T not
 a multiple of 64 or 128, W not a multiple of 64, W >= T, batched GQA with
-K = 1) against JAX's reference; the route that picks the kernel on a card;
+K = 1) against JAX's reference; the route that picks the kernel on a card
+(the float32 kernel's split arithmetic is in tests/test_torch_swa_split.py);
 and the wrapper's input checks.  The CUDA kernels themselves are held
 against the plain version in tests/test_torch_card.py."""
 import jax.numpy as jnp
@@ -136,10 +137,11 @@ def test_plain_version_matches_jax_at_edge_shapes(B, T, H, K, dh, W, dtype,
 @pytest.mark.parametrize("dh", [16, 32, 64, 128, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_route_by_dtype_and_head_dim(dtype, dh):
-    """bfloat16 at dh 64, 128 and 256 takes the tensor-core kernel; float32
-    (no TF32) and the narrow bfloat16 heads take the CUDA-core kernel."""
-    want = ("tensor_core" if dtype == torch.bfloat16 and dh >= 64
-            else "cuda_core")
+    """float32 takes its tensor-core kernel (error-compensated TF32) at
+    every dh; bfloat16 at dh 64, 128 and 256 takes the wgmma kernel, and
+    the narrow bfloat16 heads the CUDA-core kernel."""
+    want = ("tensor_core_f32" if dtype == torch.float32
+            else "tensor_core" if dh >= 64 else "cuda_core")
     assert ops.swa_route(dtype, dh) == want
 
 
