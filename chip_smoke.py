@@ -26,8 +26,10 @@ failed check raises, so the exit code is non-zero and the last line is
 never printed.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
+import ctypes
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -59,6 +61,7 @@ from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks_torch"))
 import fig8_convergence as fig8  # noqa: E402
+import greedy_pick  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
 # the tensor cores, bf16 and TF32 on the tensor cores (dense).
@@ -95,18 +98,26 @@ def cuda_ms(fn, iters):
 def device_ms(fn, iters):
     """Mean device milliseconds per call of ``fn`` over ``iters`` calls, as
     torch.profiler records the kernels they launch (their summed device
-    time); None where it records none (not measured)."""
+    time); tried twice where it records none or fewer kernels than calls
+    (dropped events), then None (not measured) with a warning on
+    stderr."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(float(getattr(e, "device_time_total",
-                           getattr(e, "cuda_time_total", 0.0)))
-             for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA)
-    return us / 1e3 / iters if us else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = sum(float(getattr(e, "device_time_total",
+                               getattr(e, "cuda_time_total", 0.0)))
+                 for e in events)
+        if us and sum(e.count for e in events) >= iters:  # none dropped
+            return us / 1e3 / iters
+    print("chip_smoke: the profiler recorded no device time or dropped "
+          "kernels (not measured)", file=sys.stderr)
+    return None
 
 
 def bmm_pair(Xs, theta):
@@ -305,10 +316,15 @@ def engine_phase():
     return {"trials": trials, "seconds": secs, "trials_per_s": trials / secs}
 
 
-def greedy_inputs(B, n, r, *, seed=0, need=False, ties=False, infs=False):
+def greedy_inputs(B, n, r, *, seed=0, need=False, ties=False, infs=False,
+                  case="plain"):
     """greedy_assign inputs for a CS matrix: W, the stable argsort of the
     estimates (random, all equal, or with +inf entries), epick = max(est,
-    1e-30), and optional need rows; made from a seed with numpy."""
+    1e-30), and optional need rows; made from a seed with numpy.  ``case``
+    reaches the kernel's dense fold: "nan_epick" / "zero_epick" put NaN / 0
+    in a fifth of epick (direct calls), "huge_w" scales W by 1e38 so that
+    W / epick overflows, "dense_row" fills row 0 of W (past the kernel's
+    sparse cap, GREEDY_SPARSE_CAP, where n exceeds it)."""
     gen = np.random.default_rng(seed + B * n + r)
     C = cyclic_to_matrix(n, r)
     W, A = _greedy_matrices(tuple(map(tuple, C.tolist())), 0.5)
@@ -325,7 +341,18 @@ def greedy_inputs(B, n, r, *, seed=0, need=False, ties=False, infs=False):
         nd = torch.as_tensor(gen.random((B, n)) < 0.3, device=DEV)
         Ab = torch.as_tensor(A > 0, device=DEV)
         need_row = (nd[:, None, :] & Ab[None]).sum(-1).float()
-    return torch.as_tensor(W, device=DEV), order, epick, need_row
+    W = torch.as_tensor(W, device=DEV)
+    some = torch.as_tensor(gen.random((B, n)) < 0.2, device=DEV)
+    if case == "nan_epick":
+        epick = torch.where(some, float("nan"), epick)
+    elif case == "zero_epick":
+        epick = torch.where(some, 0.0, epick)
+    elif case == "huge_w":
+        W = W * 1e38
+    elif case == "dense_row":
+        W = W.clone()                  # W may share the cached numpy array
+        W[0] = 0.25
+    return W, order, epick, need_row
 
 
 def greedy_bound(W, B, n, with_need):
@@ -339,46 +366,108 @@ def greedy_bound(W, B, n, with_need):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+#: the most nonzeros a row of W may hold for the greedy_assign kernel's
+#: sparse fold, read from its source
+GREEDY_SPARSE_CAP = int(re.search(
+    r"constexpr int kCap = (\d+);",
+    (build.CSRC / "greedy_assign.cu").read_text())[1])
+
+#: (need, ties, infs, case) of each greedy check; the last five reach the
+#: kernel's dense fold
+GREEDY_CASES = {"need": (True, False, False, "plain"),
+                "ties": (False, True, False, "plain"),
+                "infs": (False, False, True, "plain"),
+                "nan_epick": (False, False, False, "nan_epick"),
+                "zero_epick": (False, False, False, "zero_epick"),
+                "huge_w": (False, False, False, "huge_w"),
+                "huge_w_need": (True, False, False, "huge_w"),
+                "dense_row": (False, False, False, "dense_row")}
+
+
+def greedy_dense_count():
+    """The greedy_assign kernel's own count of the trials that entered its
+    dense pick loop, over every launch so far (waits for the device)."""
+    count = ctypes.c_ulonglong()
+    err = build.library("greedy_assign").greedy_assign_dense_trials(
+        ctypes.byref(count))
+    check(err == 0, f"greedy_assign_dense_trials: CUDA error {err}")
+    return count.value
+
+
 def greedy_phase():
     """greedy_assign against its plain version, torch.equal required, at
-    the DGD ADAPT shape, the Fig. 8 chunk, a large, a ragged and the
-    largest-n batch; each with and without need rows, with all-equal
-    estimates (maximal ties) and with +inf estimates."""
+    the DGD ADAPT shape, the Fig. 8 chunk, a large, a ragged, the two sides
+    of one row a lane (n 32 / 33) and the largest-n batch; each with and
+    without need rows, with all-equal estimates (maximal ties), +inf
+    estimates, and the cases of the dense fold (NaN or zero estimates,
+    overflowing coverage, a row past the sparse cap), two calls equal.
+    Counts, by the kernel's counter, the trials of each case's call that
+    took the dense fold: none on finite coverage at n <= 32, every one past
+    n = 32 or the cap, some where the coverage turns non-finite.  Times
+    each shape (greedy_pick.pick_times: device ms, the n = 1 launch at the
+    same B as the floor, per pick (t(n) - t(1)) / (n - 1)) and its
+    all-dense input."""
     shapes = [(1, 15, 3), (2000, 12, 3), (20000, 16, 4), (333, 12, 3),
-              (4096, ops.GREEDY_MAX_N, 8)]
+              (333, 32, 5), (333, 33, 5), (4096, ops.GREEDY_MAX_N, 8)]
     rows = []
     for B, n, r in shapes:
-        for case in ("need", "ties", "infs"):
+        dense_trials = {}
+        for case, (need, ties, infs, kind) in [
+                ("plain", (False, False, False, "plain")),
+                *GREEDY_CASES.items()]:
             W, order, epick, need_row = greedy_inputs(
-                B, n, r, need=case == "need", ties=case == "ties",
-                infs=case == "infs")
+                B, n, r, need=need, ties=ties, infs=infs, case=kind)
+            before = greedy_dense_count()
             got = ops.greedy_assign(W, order, epick, need_row)
+            dense_trials[case] = greedy_dense_count() - before
+            again = ops.greedy_assign(W, order, epick, need_row)
             want = ref.greedy_assign_ref(W, order, epick, need_row)
             torch.cuda.synchronize()
             check(torch.equal(got, want),
                   f"greedy_assign != plain at {(B, n, r)} ({case})")
+            check(torch.equal(got, again),
+                  f"greedy_assign not deterministic at {(B, n, r)} ({case})")
+            if n > 32 or (kind == "dense_row" and n > GREEDY_SPARSE_CAP):
+                expect = dense_trials[case] == B
+            elif kind in ("plain", "dense_row"):
+                expect = dense_trials[case] == 0
+            else:
+                expect = n == 1 or dense_trials[case] > 0
+            check(expect, f"greedy_assign at {(B, n, r)} ({case}): "
+                          f"{dense_trials[case]} of {B} trials dense")
         W, order, epick, _ = greedy_inputs(B, n, r)
         got = ops.greedy_assign(W, order, epick)
         want = ref.greedy_assign_ref(W, order, epick)
         torch.cuda.synchronize()
-        check(torch.equal(got, want), f"greedy_assign != plain at "
-                                      f"{(B, n, r)}")
         err = (got - want).abs().max().item()
         plain_iters = 2 if n > 32 else 20
         kernel = lambda: ops.greedy_assign(W, order, epick)  # noqa: E731
+        W1, order1, epick1, _ = greedy_inputs(B, 1, 1)
+        Wd, orderd, epickd, _ = greedy_inputs(B, n, r, case="huge_w")
         row = dict(shape=[B, n, r], max_abs_err=float(err),
-                   ms=cuda_ms(kernel, 200), device_ms=device_ms(kernel, 200),
+                   ms=cuda_ms(kernel, 200),
+                   **greedy_pick.pick_times(
+                       lambda fn: device_ms(fn, 200), kernel,
+                       lambda: ops.greedy_assign(W1, order1, epick1),
+                       lambda: ops.greedy_assign(Wd, orderd, epickd), n),
                    plain_ms=cuda_ms(
                        lambda: ref.greedy_assign_ref(W, order, epick),
                        plain_iters),
-                   library_ms=None)
+                   library_ms=None, dense_trials=dense_trials, trials=B)
         row["bound_ms"], row["bound_by"] = greedy_bound(W, B, n, False)
         rows.append(row)
-        print(f"kernel greedy_assign B={B} n={n} r={r}: equal (need, ties, "
-              f"+inf, plain) ms={row['ms']:.5f} device_ms="
-              f"{ms_text(row['device_ms'])} plain_ms={row['plain_ms']:.5f}"
-              f" bound_ms={row['bound_ms']:.6f} library_ms=none (no single "
-              f"PyTorch call computes the pick loop)")
+        pick = ("not measured" if row["pick_us"] is None
+                else f"{row['pick_us']:.5f}")
+        print(f"kernel greedy_assign B={B} n={n} r={r}: equal (plain, need, "
+              f"ties, +inf, NaN / zero epick, overflow, dense row; two "
+              f"calls) ms={row['ms']:.5f} device_ms="
+              f"{ms_text(row['device_ms'])} n1_device_ms="
+              f"{ms_text(row['n1_device_ms'])} pick_us={pick} "
+              f"dense_device_ms={ms_text(row['dense_device_ms'])} "
+              f"plain_ms={row['plain_ms']:.5f} bound_ms="
+              f"{row['bound_ms']:.6f} dense_trials={dense_trials} of {B} "
+              f"(the kernel's count) library_ms=none (no single PyTorch "
+              f"call computes the pick loop)")
     return rows
 
 
@@ -970,6 +1059,7 @@ def main():
             "dgd_markov": dgd_launches["markov"]["greedy_assign"]},
         "max_abs_err": g_row["max_abs_err"],
         "ms": g_row["ms"], "device_ms": g_row["device_ms"],
+        "n1_device_ms": g_row["n1_device_ms"], "pick_us": g_row["pick_us"],
         "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],
         "library_ms": None, "card": card, "shapes": greedy_rows}, {

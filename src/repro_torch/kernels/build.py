@@ -38,6 +38,8 @@ SOURCES = {
     "greedy_assign": ("greedy_assign.cu", {
         "greedy_assign_launch": ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                                  + [ctypes.c_void_p], ctypes.c_int),
+        "greedy_assign_dense_trials": ([ctypes.POINTER(ctypes.c_ulonglong)],
+                                       ctypes.c_int),
         "greedy_assign_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
     "swa_attention": ("swa_attention.cu", {

@@ -3,8 +3,10 @@ version (rel 1e-5 in float32, 3e-2 in bfloat16, the tolerances of
 tests/test_kernels.py) on the route ops.gram_plan names (one-pass, or
 two-pass past its limit), bit for bit from call to call, the
 greedy_assign kernel against its plain version bit for bit (the two
-share one summation order and rounding, ties
-included), the swa_attention kernels against their plain version (max abs
+share one summation order and rounding, ties included; NaN and zero
+estimates, overflowing coverage, rows denser than the sparse fold's cap
+and n past 32 take its dense fold, as the kernel's own count of dense
+trials shows), the swa_attention kernels against their plain version (max abs
 2e-4 in float32, tests/test_kernels.py's; elementwise atol 1e-3 + rtol
 1e-2 in bfloat16, which scales with outputs of a wide window) with the
 route each call takes (float32 on its TF32 tensor-core kernel, bfloat16
@@ -19,7 +21,9 @@ package, so it also runs where only PyTorch is installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_card.py
 """
+import ctypes
 import dataclasses
+import re
 
 import numpy as np
 import pytest
@@ -220,10 +224,14 @@ def test_samples_on_card_match_cpu(cuda, make):
 
 
 def greedy_inputs(B, n, r, device, *, seed=0, need=False, ties=False,
-                  infs=False):
+                  infs=False, case="plain"):
     """Kernel-shaped greedy inputs for a CS matrix, made with numpy: W, the
     stable argsort of random (or all-equal) estimates with some +inf
-    entries, epick = max(est, 1e-30), and optional need rows."""
+    entries, epick = max(est, 1e-30), and optional need rows.  ``case``
+    reaches the kernel's dense fold: "nan_epick" and "zero_epick" put NaN
+    or 0 in a fifth of epick (direct calls), "huge_w" scales W by 1e38 so
+    that W / epick overflows, "dense_row" fills row 0 of W (more nonzeros
+    than the kernel's sparse cap, GREEDY_SPARSE_CAP, where n exceeds it)."""
     gen = np.random.default_rng(seed + B * n + r)
     C = cyclic_to_matrix(n, r)
     W, A = _greedy_matrices(tuple(map(tuple, C.tolist())), 0.5)
@@ -239,27 +247,70 @@ def greedy_inputs(B, n, r, device, *, seed=0, need=False, ties=False,
         nd = torch.as_tensor(gen.random((B, n)) < 0.3, device=device)
         A = torch.as_tensor(A > 0, device=device)
         need_row = (nd[:, None, :] & A[None]).sum(-1).float()
-    return (torch.as_tensor(W, device=device), order.to(torch.int32), epick,
-            need_row)
+    W = torch.as_tensor(W, device=device)
+    some = torch.as_tensor(gen.random((B, n)) < 0.2, device=device)
+    if case == "nan_epick":
+        epick = torch.where(some, float("nan"), epick)
+    elif case == "zero_epick":
+        epick = torch.where(some, 0.0, epick)
+    elif case == "huge_w":
+        W = W * 1e38
+    elif case == "dense_row":
+        W = W.clone()                  # W may share the cached numpy array
+        W[0] = 0.25
+    return W, order.to(torch.int32), epick, need_row
+
+
+GREEDY_CASES = ["plain", "need", "ties", "infs", "nan_epick", "zero_epick",
+                "huge_w", "huge_w_need", "dense_row"]
+
+#: the most nonzeros a row of W may hold for the greedy_assign kernel's
+#: sparse fold, read from its source
+GREEDY_SPARSE_CAP = int(re.search(
+    r"constexpr int kCap = (\d+);",
+    (build.CSRC / "greedy_assign.cu").read_text())[1])
+
+
+def greedy_dense_count():
+    """The greedy_assign kernel's own count of the trials that entered its
+    dense pick loop, over every launch so far (waits for the device)."""
+    count = ctypes.c_ulonglong()
+    lib = build.library("greedy_assign")
+    assert lib.greedy_assign_dense_trials(ctypes.byref(count)) == 0
+    return count.value
 
 
 @pytest.mark.parametrize("B,n,r", [(1, 15, 3), (2000, 12, 3), (333, 12, 3),
                                    (20000, 16, 4), (64, 128, 8), (5, 1, 1),
-                                   (70, 33, 5)])
-@pytest.mark.parametrize("case", ["plain", "need", "ties", "infs"])
+                                   (70, 32, 5), (70, 33, 5), (70, 40, 5)])
+@pytest.mark.parametrize("case", GREEDY_CASES)
 def test_greedy_kernel_equals_plain(cuda, B, n, r, case):
     W, order, epick, need_row = greedy_inputs(
-        B, n, r, cuda, need=case == "need", ties=case == "ties",
-        infs=case == "infs")
+        B, n, r, cuda, need=case.endswith("need"), ties=case == "ties",
+        infs=case == "infs", case=case.removesuffix("_need"))
     before = ops.LAUNCHES["greedy_assign"]
+    dense_before = greedy_dense_count()
     got = ops.greedy_assign(W, order, epick, need_row)
+    dense = greedy_dense_count() - dense_before
+    again = ops.greedy_assign(W, order, epick, need_row)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["greedy_assign"] == before + 1
+    assert ops.LAUNCHES["greedy_assign"] == before + 2
     want = ref.greedy_assign_ref(W, order, epick, need_row)
     assert got.dtype == torch.int32 and got.shape == (B, n)
     assert torch.equal(got, want)
-    assert torch.equal(torch.sort(got.long(), dim=-1).values,
-                       torch.arange(n, device=cuda).expand(B, n))
+    assert torch.equal(again, got)
+    if case in ("plain", "need", "ties", "infs", "dense_row"):
+        # finite scores: every row picked once (with +inf scores an untaken
+        # row loses to a taken one's FLT_MAX, as in the plain version)
+        assert torch.equal(torch.sort(got.long(), dim=-1).values,
+                           torch.arange(n, device=cuda).expand(B, n))
+    # the trials the kernel folded densely, by its own count
+    if n > 32 or (case == "dense_row" and n > GREEDY_SPARSE_CAP):
+        assert dense == B
+    elif case in ("plain", "need", "ties", "infs", "dense_row"):
+        assert dense == 0
+    elif n > 1:
+        assert dense > 0
 
 
 def test_greedy_kernel_rejects_what_it_cannot_take(cuda):
