@@ -14,6 +14,7 @@ cell (0.98, 3).
 
 Run:  PYTHONPATH=src python benchmarks_torch/fig8_convergence.py
           [--trials 8000] [--device cuda|cpu]
+or through the harness, ``python -m benchmarks_torch.run --only fig8``.
 """
 from __future__ import annotations
 
@@ -23,7 +24,9 @@ import time
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
+from benchmarks_torch.common import emit  # noqa: E402
 from repro_torch.core import (MarkovRegimeProcess, adaptive_spec,  # noqa: E402
                               cyclic_to_matrix, ec2_cluster, lb_spec,
                               scenario1, staircase_to_matrix, sweep_rounds,
@@ -46,10 +49,6 @@ def specs():
     cs = cyclic_to_matrix(N, R)
     return [to_spec("cs", cs), to_spec("ss", staircase_to_matrix(N, R)),
             adaptive_spec("adapt", cs), lb_spec(R)]
-
-
-def emit(name: str, us_per_call: float, derived: str) -> None:
-    print(f"{name},{us_per_call:.1f},{derived}")
 
 
 def run(trials: int = 20000, device=None):

@@ -1,8 +1,9 @@
 """The greedy_assign kernel's pick loop on the card, at the shapes of its
 paths: (1, 15, 3) a DGD ADAPT call, (2000, 12, 3) a Fig. 8 chunk-round,
-(20000, 16, 4), (333, 12, 3) a ragged block and (4096, 128, 8), the largest
-n.  For each shape (B trials, n rows, CS matrix of r slots a row): whether
-the output equals the plain version's, the wrapper's mean ms (CUDA
+(20000, 16, 4), (333, 12, 3) a ragged block and (4096, 128, 8), the warp
+route's largest n (with ``--wide`` also the wide route's shapes past it,
+``WIDE_SHAPES``).  For each shape (B trials, n rows, CS matrix of r slots
+a row): whether the output equals the plain version's, the wrapper's mean ms (CUDA
 events), the kernel's device ms (the profiler's), the device ms of the
 n = 1 launch at the same B (the floor of launch and prologue), the cost of
 one pick (t(n) - t(1)) / (n - 1) in microseconds, and the device ms on
@@ -13,7 +14,7 @@ turns on one card.
 
 Run on a machine with a card, from the repository root:
 
-    python3 benchmarks_torch/greedy_pick.py [--src DIR] [--iters 200]
+    python3 benchmarks_torch/greedy_pick.py [--src DIR] [--iters 200] [--wide]
 
 Prints the card's name and power limit, then one JSON object per shape.
 """
@@ -28,6 +29,10 @@ import numpy as np
 #: (B, n, r)
 SHAPES = [(1, 15, 3), (2000, 12, 3), (20000, 16, 4), (333, 12, 3),
           (4096, 128, 8)]
+#: (B, n, r) past n = 128, the wide route's (``--wide``; trees from the
+#: wide route on): its first n, the smoke's adaptive leg's n = 200, and
+#: n = 257, whose W is past any block's shared memory
+WIDE_SHAPES = [(256, 129, 3), (256, 200, 4), (64, 257, 4)]
 
 
 def pick_times(device_ms, kernel, floor, dense, n):
@@ -47,6 +52,8 @@ def main():
     ap.add_argument("--src", default=str(Path(__file__).resolve().parents[1]
                                          / "src"))
     ap.add_argument("--iters", type=int, default=200)
+    ap.add_argument("--wide", action="store_true",
+                    help="also time the wide route's shapes (n > 128)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.src).resolve()))
     import torch
@@ -110,7 +117,7 @@ def main():
         return (torch.as_tensor(W * np.float32(scale), device="cuda"),
                 order.to(torch.int32), epick)
 
-    for B, n, r in SHAPES:
+    for B, n, r in SHAPES + (WIDE_SHAPES if args.wide else []):
         W, order, epick = inputs(B, n, r)
         Wd, orderd, epickd = inputs(B, n, r, scale=1e38)
         W1, order1, epick1 = inputs(B, 1, 1)

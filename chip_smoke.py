@@ -3,12 +3,18 @@ kernel sources (gram_matvec_onepass, gram_matvec's two-pass kernel for
 columns no cluster holds, greedy_assign, swa_attention on the CUDA cores,
 swa_attention_wgmma on the tensor cores for bfloat16 and swa_attention_f32
 on the tensor cores for float32) from the checkout, holds each
-kernel against its plain PyTorch version, drives the single-round Monte-Carlo
+kernel against its plain PyTorch version (greedy_assign on both of its
+routes: one warp a trial with W in shared memory up to n = 128, one block a
+trial with W read through L2 past it), drives the single-round Monte-Carlo
 engine at a 10^6-trial sweep, the rounds engine over the full Fig. 8 grid
 (adaptive scheduling through the greedy_assign kernel, CUDA trajectories
-against CPU ones on a shared trace), runs the paper's DGD regression loop
+against CPU ones on a shared trace, at n = 12 and, on the wide route, at
+n = 200), runs the paper's DGD regression loop
 end to end on the iid and the Markov cluster (the one-pass gram_matvec kernel
-for every uncoded scheme, greedy_assign for the ADAPT row), and serves gemma3-4b at
+for every uncoded scheme, greedy_assign for the ADAPT row), regenerates the
+paper's Figs. 3-7 and 9, Table I and the engine benchmark through
+``python -m benchmarks_torch.run --quick`` on the card (their guards held;
+Theorem 1's mean held to the direct order statistic), and serves gemma3-4b at
 full width and depth through ``repro_torch.launch.serve`` (prefill of two
 2048-token prompts and greedy decode; the bf16 prefill attention of every
 sliding-window layer through the tensor-core swa_attention kernel), with
@@ -47,11 +53,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
 from repro_torch.core import (DelayTrace, RoundConfig,  # noqa: E402
                               TraceProcess, adaptive_spec, completion_samples,
-                              cyclic_to_matrix, lb_spec,
-                              pc_spec, pcmm_spec,
+                              cyclic_to_matrix, lb_spec, lower_bound_mean_mc,
+                              mean_completion_time, pc_spec, pcmm_spec,
                               random_assignment_to_matrix, scenario1,
-                              staircase_to_matrix, sweep, to_spec,
-                              trajectory_samples)
+                              staircase_to_matrix, sweep, theorem1_mean_mc,
+                              to_spec, trajectory_samples)
 from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -62,6 +68,7 @@ from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks_torch"))
 import fig8_convergence as fig8  # noqa: E402
 import greedy_pick  # noqa: E402
+from benchmarks_torch import run as bench_run  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
 # the tensor cores, bf16 and TF32 on the tensor cores (dense).
@@ -80,10 +87,10 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke check failed: {msg}")
 
 
-def cuda_ms(fn, iters):
+def cuda_ms(fn, iters, warmup=3):
     """Mean device milliseconds of ``fn`` over ``iters`` launches (CUDA
-    events, after a warm-up)."""
-    for _ in range(3):
+    events, after ``warmup`` calls)."""
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -394,27 +401,41 @@ def greedy_dense_count():
     return count.value
 
 
+#: the greedy_assign shapes past the warp route (n > 128, the wide route):
+#: its first n, the adaptive leg's n = 200 and n = 257, whose W (264 196
+#: bytes) is past any block's shared memory
+GREEDY_WIDE_SHAPES = [(256, 129, 3), (256, 200, 4), (64, 257, 4)]
+
+
 def greedy_phase():
     """greedy_assign against its plain version, torch.equal required, at
     the DGD ADAPT shape, the Fig. 8 chunk, a large, a ragged, the two sides
-    of one row a lane (n 32 / 33) and the largest-n batch; each with and
-    without need rows, with all-equal estimates (maximal ties), +inf
+    of one row a lane (n 32 / 33) and the warp route's largest n; each with
+    and without need rows, with all-equal estimates (maximal ties), +inf
     estimates, and the cases of the dense fold (NaN or zero estimates,
-    overflowing coverage, a row past the sparse cap), two calls equal.
-    Counts, by the kernel's counter, the trials of each case's call that
-    took the dense fold: none on finite coverage at n <= 32, every one past
-    n = 32 or the cap, some where the coverage turns non-finite.  Times
-    each shape (greedy_pick.pick_times: device ms, the n = 1 launch at the
-    same B as the floor, per pick (t(n) - t(1)) / (n - 1)) and its
-    all-dense input."""
+    overflowing coverage, a row past the sparse cap), two calls equal; then
+    the wide route's shapes (GREEDY_WIDE_SHAPES) with and without need rows.
+    Each call's route is ops.greedy_route's.  Counts, by the kernel's
+    counter, the trials of each case's call that took the dense fold: none
+    on finite coverage at n <= 32, every one past n = 32 or the cap, some
+    where the coverage turns non-finite.  Times each shape
+    (greedy_pick.pick_times: device ms, the n = 1 launch at the same B as
+    the floor, per pick (t(n) - t(1)) / (n - 1)) and its all-dense
+    input."""
     shapes = [(1, 15, 3), (2000, 12, 3), (20000, 16, 4), (333, 12, 3),
-              (333, 32, 5), (333, 33, 5), (4096, ops.GREEDY_MAX_N, 8)]
+              (333, 32, 5), (333, 33, 5), (4096, ops.GREEDY_WARP_MAX_N, 8),
+              *GREEDY_WIDE_SHAPES]
     rows = []
     for B, n, r in shapes:
+        route = ops.greedy_route(n)
+        check(route == ("warp_smem" if n <= 128 else "wide"),
+              f"greedy_route({n}) = {route}")
+        wide = route == "wide"
+        cases = {"need": GREEDY_CASES["need"]} if wide else GREEDY_CASES
         dense_trials = {}
         for case, (need, ties, infs, kind) in [
                 ("plain", (False, False, False, "plain")),
-                *GREEDY_CASES.items()]:
+                *cases.items()]:
             W, order, epick, need_row = greedy_inputs(
                 B, n, r, need=need, ties=ties, infs=infs, case=kind)
             before = greedy_dense_count()
@@ -440,27 +461,31 @@ def greedy_phase():
         want = ref.greedy_assign_ref(W, order, epick)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        plain_iters = 2 if n > 32 else 20
+        # the plain version at the wide shapes takes ~0.6-2.4 s a call (n^2
+        # launches), already warm from the checks above: one call timed
+        plain_iters = 1 if wide else 2 if n > 32 else 20
         kernel = lambda: ops.greedy_assign(W, order, epick)  # noqa: E731
         W1, order1, epick1, _ = greedy_inputs(B, 1, 1)
         Wd, orderd, epickd, _ = greedy_inputs(B, n, r, case="huge_w")
-        row = dict(shape=[B, n, r], max_abs_err=float(err),
-                   ms=cuda_ms(kernel, 200),
+        row = dict(shape=[B, n, r], route=route, smem=ops.greedy_smem(n),
+                   max_abs_err=float(err), ms=cuda_ms(kernel, 200),
                    **greedy_pick.pick_times(
                        lambda fn: device_ms(fn, 200), kernel,
                        lambda: ops.greedy_assign(W1, order1, epick1),
                        lambda: ops.greedy_assign(Wd, orderd, epickd), n),
                    plain_ms=cuda_ms(
                        lambda: ref.greedy_assign_ref(W, order, epick),
-                       plain_iters),
+                       plain_iters, warmup=0 if wide else 3),
                    library_ms=None, dense_trials=dense_trials, trials=B)
         row["bound_ms"], row["bound_by"] = greedy_bound(W, B, n, False)
         rows.append(row)
         pick = ("not measured" if row["pick_us"] is None
                 else f"{row['pick_us']:.5f}")
-        print(f"kernel greedy_assign B={B} n={n} r={r}: equal (plain, need, "
-              f"ties, +inf, NaN / zero epick, overflow, dense row; two "
-              f"calls) ms={row['ms']:.5f} device_ms="
+        shown = ("plain, need" if wide else "plain, need, ties, +inf, NaN "
+                 "/ zero epick, overflow, dense row")
+        print(f"kernel greedy_assign B={B} n={n} r={r} route={route} smem="
+              f"{row['smem']}: equal ({shown}; two calls) ms={row['ms']:.5f} "
+              f"device_ms="
               f"{ms_text(row['device_ms'])} n1_device_ms="
               f"{ms_text(row['n1_device_ms'])} pick_us={pick} "
               f"dense_device_ms={ms_text(row['dense_device_ms'])} "
@@ -521,6 +546,105 @@ def rounds_phase():
     return {"seconds": secs, "trial_rounds_per_s": trial_rounds / secs,
             "greedy_launches": launches["greedy_assign"],
             "ms_per_round": {f"p{p}_s{s:g}": v for (p, s), v in out.items()}}
+
+
+def adaptive_wide_leg(n=200, r=4, rounds=3, trials=256):
+    """Adaptive scheduling past the warp route: trajectory_samples with an
+    adaptive CS spec at n = 200, r = 4 on one shared trace drawn with numpy,
+    on the card (greedy_assign's wide route; the launch counts set to 0
+    just before, read just after: one launch a round) and on the CPU (the
+    plain version), bit-equal.  Returns the launches and the card's
+    seconds."""
+    gen = np.random.default_rng(21)
+    T1 = (1e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
+        np.float32)
+    T2 = (5e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
+        np.float32)
+    proc = TraceProcess(DelayTrace(T1, T2))
+    spec = adaptive_spec("adapt", cyclic_to_matrix(n, r))
+    k = 3 * n // 4
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    a = trajectory_samples(spec, proc, n, rounds=rounds, k=k, trials=trials,
+                           devices="cuda")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = ops.LAUNCHES["greedy_assign"]
+    b = trajectory_samples(spec, proc, n, rounds=rounds, k=k, trials=trials,
+                           devices="cpu")
+    check(launches == rounds, f"adaptive n={n}: greedy_assign launches "
+                              f"{launches} != {rounds} (one a round)")
+    check(torch.equal(a.cpu(), b), f"adaptive n={n}: CUDA trajectories "
+                                   f"differ from CPU")
+    check(bool(torch.isfinite(a).all()), f"adaptive n={n}: non-finite")
+    print(f"rounds adaptive n={n} r={r} ({rounds} rounds x {trials} trials, "
+          f"shared trace, route={ops.greedy_route(n)}): CUDA trajectories "
+          f"equal CPU bit for bit; greedy_assign launches={launches}; "
+          f"card seconds={secs:.4f}")
+    return {"launches": launches, "seconds": secs}
+
+
+#: the benchmark jobs the figures phase runs (fig8 runs in rounds_phase)
+FIGURE_JOBS = ("fig3", "fig4", "fig5", "fig6", "fig7", "fig9", "table1",
+               "mc_engine")
+
+
+def figures_phase():
+    """The paper's figures, Table I and the engine benchmark at --quick on
+    the card through ``python -m benchmarks_torch.run``'s main (every row
+    printed; the harness exits non-zero on fig9's guards and on a non-finite
+    metric), with the launch counts set to 0 just before and read just
+    after: Table I's uncoded step is one one-pass gram_matvec launch, and no
+    figure is adaptive (no greedy_assign launch).  Table I's three updates
+    must hold their bounds (``ok``).  The ``*/claims`` rows are printed as
+    they stand (the reference asserts none of them).  Then Theorem 1's mean
+    (eqs. 7-8, joint survivals counted on the card) against the direct
+    order statistic at (n, r, k) = (6, 3, 4) CS on scenario 1, relative 3 %
+    (tests/test_theory.py's bound), and the lower bound (eq. 46) at or
+    below the CS mean."""
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = bench_run.main(["--quick", "--device", "cuda", "--only",
+                           ",".join(FIGURE_JOBS)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ops.LAUNCHES)
+    check(sorted(done) == sorted(FIGURE_JOBS), f"figures ran {sorted(done)}")
+    check(launches["gram_matvec"] == 1
+          and launches["gram_matvec_onepass"] == 1
+          and launches["greedy_assign"] == 0,
+          f"figures: launches {launches} (want Table I's one one-pass "
+          f"gram_matvec launch, no greedy_assign)")
+    for row in done["table1"]["rows"]:
+        check(row["derived"].get("ok") == "True",
+              f"table1: {row['name']} {row['derived_raw']}")
+    claims = {row["name"]: row["derived_raw"]
+              for job in done.values() for row in job["rows"]
+              if row["name"].endswith("/claims")}
+    for name, job in done.items():
+        print(f"figures {name}: seconds={job['seconds']:.3f} rows="
+              f"{len(job['rows'])}")
+    n, r, k = 6, 3, 4
+    C, model = cyclic_to_matrix(n, r), scenario1()
+    t_thm = theorem1_mean_mc(C, model, k, tmax=4e-3, trials=6000,
+                             devices="cuda")
+    t_mc = mean_completion_time(C, model, k, trials=6000, devices="cuda")
+    t_lb = lower_bound_mean_mc(model, n, k, r=r, trials=6000,
+                               devices="cuda")
+    rel = abs(t_thm - t_mc) / t_mc
+    check(rel < 0.03, f"Theorem 1 mean {t_thm} vs direct {t_mc}: rel "
+                      f"{rel:.3e} >= 0.03")
+    check(t_lb <= t_mc, f"lower bound {t_lb} above the CS mean {t_mc}")
+    print(f"figures theorem1 (n={n} r={r} k={k} CS scenario1, 6000 trials on "
+          f"the card): eqs. 7-8 mean {t_thm * 1e3:.6f} ms, direct "
+          f"{t_mc * 1e3:.6f} ms, rel {rel:.3e} (< 0.03); lower bound "
+          f"{t_lb * 1e3:.6f} ms")
+    return {"seconds": secs,
+            "job_seconds": {name: job["seconds"]
+                            for name, job in done.items()},
+            "claims": claims, "launches": launches,
+            "theorem1": {"thm_ms": t_thm * 1e3, "direct_ms": t_mc * 1e3,
+                         "rel": rel, "lb_ms": t_lb * 1e3}}
 
 
 def dgd_leg(cfg, iters, cluster):
@@ -999,7 +1123,9 @@ def main():
     greedy_rows = greedy_phase()
     engine = engine_phase()
     rounds = rounds_phase()
+    adaptive_wide = adaptive_wide_leg()
     dgd_launches = dgd_phase()
+    figures = figures_phase()
     swa_rows = swa_phase()
     served = serve_phase()
     consistency = consistency_phase()
@@ -1007,6 +1133,7 @@ def main():
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
     g_row = greedy_rows[1]             # the Fig. 8 chunk (2000, 12, 3)
+    wide_rows = [r for r in greedy_rows if r["route"] == "wide"]
     gemma = [2, 2048, 8, 4, 256, 1024]    # the gemma3-4b prefill shape
     t_row = next(r for r in swa_rows if r["shape"] == gemma
                  and r["dtype"] == "bfloat16")
@@ -1022,8 +1149,9 @@ def main():
         "replaces": "src/repro/kernels/gram_matvec.py:67",
         "launches": dgd_launches["markov"]["gram_matvec_onepass"],
         "launches_by_path": {
-            f"dgd_{leg}": dgd_launches[leg]["gram_matvec_onepass"]
-            for leg in ("iid", "markov", "tall")},
+            **{f"dgd_{leg}": dgd_launches[leg]["gram_matvec_onepass"]
+               for leg in ("iid", "markov", "tall")},
+            "table1": figures["launches"]["gram_matvec_onepass"]},
         "max_abs_err": main_row["max_abs_err"],
         "ms": main_row["ms"], "device_ms": main_row["device_ms"],
         "plain_ms": main_row["plain_ms"],
@@ -1056,13 +1184,18 @@ def main():
         "launches_by_path": {
             "fig8": rounds["greedy_launches"],
             "dgd_iid": dgd_launches["iid"]["greedy_assign"],
-            "dgd_markov": dgd_launches["markov"]["greedy_assign"]},
+            "dgd_markov": dgd_launches["markov"]["greedy_assign"],
+            "adaptive_n200": adaptive_wide["launches"]},
         "max_abs_err": g_row["max_abs_err"],
         "ms": g_row["ms"], "device_ms": g_row["device_ms"],
         "n1_device_ms": g_row["n1_device_ms"], "pick_us": g_row["pick_us"],
         "plain_ms": g_row["plain_ms"],
         "bound_ms": g_row["bound_ms"], "bound_by": g_row["bound_by"],
-        "library_ms": None, "card": card, "shapes": greedy_rows}, {
+        "library_ms": None, "card": card, "shapes": greedy_rows,
+        "wide_shapes": {str(r["shape"]): {key: r[key] for key in (
+            "route", "smem", "max_abs_err", "ms", "device_ms",
+            "n1_device_ms", "pick_us", "dense_device_ms", "plain_ms",
+            "bound_ms", "bound_by")} for r in wide_rows}}, {
         "name": "swa_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/swa_attention.cu",
         "replaces": "src/repro/kernels/swa_attention.py:73",
@@ -1115,7 +1248,8 @@ def main():
         "library_ms": t_row["library_ms"],
         "cuda_core_ms": t_row["cuda_core_ms"], "card": card,
         "shapes": [r for r in swa_rows if r["swa_route"] == "tensor_core"]}],
-        "engine": engine, "rounds": rounds,
+        "engine": engine, "rounds": rounds, "adaptive_wide": adaptive_wide,
+        "figures": figures,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency}))
     print(json.dumps({"ok": True, "device": {

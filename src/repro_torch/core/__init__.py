@@ -1,7 +1,7 @@
 """The port's core: delay models and round-aware processes, trace replay,
 TO matrices and the adaptive scheduler, completion times, the single-round
-and rounds Monte-Carlo engines, coded baselines and the aggregator
-(counterparts of ``repro.core``)."""
+and rounds Monte-Carlo engines, Theorem 1 and the lower bound, coded
+baselines and the aggregator (counterparts of ``repro.core``)."""
 from .aggregator import StragglerAggregator
 from .cluster import (AR1Process, DelayProcess, IIDProcess,
                       MarkovRegimeProcess, as_process, ec2_cluster,
@@ -12,9 +12,11 @@ from .coded import (pc_decode, pc_encode, pc_threshold, pc_worker_compute,
                     simulate_pcmm_completion)
 from .completion import (apply_row_layout, completion_time,
                          first_k_distinct_mask, lower_bound_time,
-                         message_arrival_times, message_slot_layout,
-                         row_layout_is_identity, slot_arrival_times,
-                         task_arrival_times, winner_mask_gather)
+                         mean_completion_time, message_arrival_times,
+                         message_slot_layout, row_layout_is_identity,
+                         simulate_completion, simulate_lower_bound,
+                         slot_arrival_times, task_arrival_times,
+                         winner_mask_gather)
 from .delays import (BimodalStragglerDelays, DelayModel, EmpiricalDelays,
                      ShiftedExponentialDelays, TruncatedGaussianDelays,
                      ec2_like, scenario1, scenario2)
@@ -32,6 +34,13 @@ from .scheduling import (GREEDY_IMPLS, MASKED, SCHEDULES, AdaptiveScheduler,
                          mask_matrix_loads, random_assignment_to_matrix,
                          staircase_to_matrix, to_matrix, validate_to_matrix)
 from .spec import DEADLINE_POLICIES, RoundConfig, validate_deadline
+from .theory import (delay_model_pdfs, joint_survival_mc,
+                     lower_bound_mean_mc, lower_bound_tail_mc,
+                     multimessage_coded_mean, multimessage_coded_tail,
+                     multimessage_marginal_cdfs, operating_point_mean_lb,
+                     sum_survival_grid, theorem1_mean_mc,
+                     theorem1_tail_from_H, theorem1_tail_mc,
+                     theorem1_tail_r1_independent, truncated_gaussian_pdf)
 from .trace import (TRACE_FORMAT_VERSION, DelayTrace, TraceProcess,
                     load_trace, save_trace, validate_trace_file)
 
@@ -60,4 +69,11 @@ __all__ = [
     "mask_matrix_loads", "random_assignment_to_matrix",
     "staircase_to_matrix", "to_matrix", "validate_to_matrix",
     "DEADLINE_POLICIES", "RoundConfig", "validate_deadline",
+    "mean_completion_time", "simulate_completion", "simulate_lower_bound",
+    "theorem1_tail_from_H", "joint_survival_mc", "theorem1_tail_mc",
+    "theorem1_mean_mc", "lower_bound_tail_mc", "lower_bound_mean_mc",
+    "sum_survival_grid", "theorem1_tail_r1_independent",
+    "multimessage_marginal_cdfs", "multimessage_coded_tail",
+    "multimessage_coded_mean", "truncated_gaussian_pdf", "delay_model_pdfs",
+    "operating_point_mean_lb",
 ]

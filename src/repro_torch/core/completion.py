@@ -29,7 +29,8 @@ __all__ = [
     "slot_arrival_times", "message_arrival_times", "message_slot_layout",
     "row_layout_is_identity", "apply_row_layout", "task_arrival_times",
     "completion_time", "lower_bound_time", "first_k_distinct_mask",
-    "winner_mask_gather",
+    "winner_mask_gather", "simulate_completion", "simulate_lower_bound",
+    "mean_completion_time",
 ]
 
 
@@ -180,3 +181,42 @@ def _winner_weights(C, s: torch.Tensor, tau: torch.Tensor, k: int,
         -1, Ct.reshape(-1), ones.reshape(ones.shape[:-2] + (-1,)))
     cnt_at_slot = torch.clamp(per_task_count[..., Ct], min=1.0)
     return ones / cnt_at_slot, t_done
+
+
+# ---------------- Monte-Carlo drivers ----------------------------------------
+# Thin wrappers over the sweep engine (see montecarlo.py), on ``devices``
+# (the card by default; ``"cpu"`` to run on the CPU).
+
+def simulate_completion(C, model, k: int, *, trials: int = 10000,
+                        seed: int = 0, chunk: Optional[int] = None,
+                        devices=None) -> torch.Tensor:
+    """Sample ``trials`` rounds of the schedule ``C`` under ``model`` and
+    return the completion-time samples, shape (trials,).  ``C`` may be
+    ragged (trailing ``MASKED`` sentinels)."""
+    n = np.asarray(C).shape[0]
+    return montecarlo.completion_samples(
+        montecarlo.to_spec("to", C), model, n, trials=trials, seed=seed,
+        chunk=chunk, k=k, devices=devices)
+
+
+def simulate_lower_bound(model, n: int, r: Optional[int] = None,
+                         k: int = 1, *, trials: int = 10000,
+                         seed: int = 0, chunk: Optional[int] = None,
+                         loads=None, devices=None) -> torch.Tensor:
+    """Monte-Carlo eq. (44): samples of the oracle k-th order statistic.
+    ``loads`` generalizes the bound to ragged per-worker loads (the k-th
+    order statistic over all ``sum(loads)`` active slot arrivals)."""
+    return montecarlo.completion_samples(
+        montecarlo.lb_spec(r, loads=loads), model, n, trials=trials,
+        seed=seed, chunk=chunk, k=k, devices=devices)
+
+
+def mean_completion_time(C, model, k: int, *, trials: int = 10000,
+                         seed: int = 0, chunk: Optional[int] = None,
+                         devices=None) -> float:
+    """Paper eq. (5): average completion time of schedule C."""
+    n = np.asarray(C).shape[0]
+    res = montecarlo.sweep([montecarlo.to_spec("to", C)], model, n,
+                           trials=trials, seed=seed, chunk=chunk, ks=k,
+                           devices=devices)
+    return res.at_k("to", k)

@@ -40,6 +40,7 @@ SOURCES = {
                                  + [ctypes.c_void_p], ctypes.c_int),
         "greedy_assign_dense_trials": ([ctypes.POINTER(ctypes.c_ulonglong)],
                                        ctypes.c_int),
+        "greedy_assign_smem": ([ctypes.c_int], ctypes.c_longlong),
         "greedy_assign_error_string": ([ctypes.c_int], ctypes.c_char_p),
     }),
     "swa_attention": ("swa_attention.cu", {

@@ -77,9 +77,50 @@
 // true division: the explicit _rn intrinsics keep nvcc from contracting
 // them into FMAs or a reciprocal multiply.
 //
-// Largest n: kMaxN = 128 (n * (n | 1) * 4 bytes of W in shared memory,
-// above the 48 KB default, so the launch raises the block's dynamic shared
-// memory limit).
+// Largest n of this route: kMaxN = 128 (n * (n | 1) * 4 bytes of W in
+// shared memory, above the 48 KB default, so the launch raises the block's
+// dynamic shared memory limit; from n = 242 W alone would pass the 227 KB
+// a block may opt into).
+//
+// The wide route (n > kMaxN, up to kWideMaxN = 8192).  One block owns one
+// trial, with min(16, ceil(n / 32)) warps; W stays in global memory and is
+// read through L2 (one matrix shared by every trial: 1 MB at n = 512).  The
+// trial's state lives in shared memory: cov, epick, order, worker_of_row
+// (4 bytes a task each) and the taken and needed flags (1 byte each), 18
+// bytes a task, plus one 32 x 33 tile of W a warp.  kWideMaxN keeps the
+// whole of it (215 296 bytes at 8192) under the 227 KB opt-in limit.
+//
+//   Fold.  Warp w scores rows 32g + lane for g = w, w + warps, ...: for each
+//   32-column block of its 32 rows it loads the tile with coalesced loads
+//   (lane l reads column j0 + l of each row), stores it to its own shared
+//   tile and lane l folds its row over the tile's columns, ascending, with
+//   __fmul_rn / __fadd_rn from +0: one lane folds a whole row over j in
+//   order, so the association is the plain version's.  The next tile's
+//   loads are issued before the current tile is folded, and a whole tile's
+//   fold is unrolled, so that its shared loads run ahead of the chain of
+//   adds.  There is no sparse fold here: every trial is dense (and counted
+//   so).
+//
+//   Argmin.  Each lane keeps the least (key << 32 | row) of its rows, and
+//   with reissue priorities also the least over its untaken needed rows
+//   (the keys as above); shuffles reduce them over the warp, the warps
+//   write them to shared memory, and after one __syncthreads every thread
+//   reduces the warps' values itself.  The least key and then the least
+//   row is the plain version's argmin with ties to the lowest row; the
+//   needed rows' value is taken where its key is neither 0 (a NaN) nor at
+//   or above FLT_MAX's, as in the warp route.
+//
+//   Update.  Thread j, j + blockDim.x, ... adds __fdiv_rn(W[p, j], epick[t])
+//   to cov[j] (skipping +-0 dividends under a finite nonzero estimate, as
+//   above), thread 0 marks row p taken for worker order[t], and a
+//   __syncthreads makes the new cov visible to the next pick's fold.
+//
+//   What bounds it on an H100: not the chain of adds (unrolling the fold
+//   gained 7-10 %) but on-chip traffic: every block moves all of W through
+//   L1, its tiles and the lanes' registers each pick, B * n * n^2 * 4 bytes
+//   a call (8.2 GB at B = 256, n = 200, ~2.4 ms).  Several trials sharing
+//   one W tile would divide that; this route is kept simple, since no
+//   configuration of the repository has n > 16.
 
 #include <cuda_runtime.h>
 #include <cstddef>
@@ -87,7 +128,10 @@
 namespace {
 
 constexpr int kWarps = 8;              // trials per block
-constexpr int kMaxN = 128;             // largest n the kernel takes
+constexpr int kMaxN = 128;             // largest n of the warp route
+constexpr int kWideMaxN = 8192;        // largest n of the wide route
+constexpr int kWideWarps = 16;         // most warps of a wide block
+constexpr int kTileStride = 33;        // row stride of a warp's W tile
 constexpr int kCap = 16;               // most nonzeros a row's list keeps
 constexpr unsigned kFull = 0xffffffffu;
 constexpr unsigned kKeyFltMax = 0xff7fffffu;  // key(FLT_MAX)
@@ -387,11 +431,17 @@ greedy_assign_kernel(const float* __restrict__ W, const int* __restrict__ order,
   }
 }
 
+// dynamic shared memory of a warp-route block: W at row stride n | 1 and,
+// at one row a lane, the rows' nonzero lists
+size_t warp_smem(int n) {
+  const size_t lists = rows_per_lane(n) == 1 ? 2 * kCap * n + n : 0;
+  return (static_cast<size_t>(n) * (n | 1) + lists) * sizeof(float);
+}
+
 template <int R>
 int launch(const float* W, const int* order, const float* epick,
            const float* need_row, int* out, int B, int n, cudaStream_t stream) {
-  const size_t lists = R == 1 ? 2 * kCap * n + n : 0;
-  const size_t smem = (static_cast<size_t>(n) * (n | 1) + lists) * sizeof(float);
+  const size_t smem = warp_smem(n);
   static size_t smem_allowed = 48 * 1024;  // the default dynamic limit
   if (smem > smem_allowed) {
     cudaError_t err = cudaFuncSetAttribute(greedy_assign_kernel<R>,
@@ -406,25 +456,186 @@ int launch(const float* W, const int* order, const float* epick,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the wide route: one block a trial, W read through L2 ----------------
+
+__host__ __device__ constexpr int wide_warps(int n) {
+  return (n + 31) / 32 < kWideWarps ? (n + 31) / 32 : kWideWarps;
+}
+
+// dynamic shared memory of a wide block: the warps' reduction slots, their
+// W tiles, then cov, epick, order, worker_of_row and the two flag bytes
+__host__ __device__ constexpr size_t wide_smem(int n) {
+  return 2 * kWideWarps * sizeof(unsigned long long) +
+         static_cast<size_t>(wide_warps(n)) * 32 * kTileStride * sizeof(float) +
+         static_cast<size_t>(n) * (4 * sizeof(float) + 2);
+}
+
+// lane's column of rows p0 .. p0 + 31 at columns j0 .. j0 + 31 (zero past n)
+__device__ __forceinline__ void load_tile(float (&v)[32], const float* W,
+                                          int n, int p0, int j0, int lane) {
+  const int j = j0 + lane;
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+    v[i] = p0 + i < n && j < n ? W[static_cast<size_t>(p0 + i) * n + j] : 0.f;
+}
+
+__device__ __forceinline__ unsigned long long min_u64(unsigned long long a,
+                                                      unsigned long long b) {
+  return a < b ? a : b;
+}
+
+template <bool NEED>
+__global__ void __launch_bounds__(32 * kWideWarps)
+greedy_wide_kernel(const float* __restrict__ W, const int* __restrict__ order,
+                   const float* __restrict__ epick,
+                   const float* __restrict__ need_row, int* __restrict__ out,
+                   int n) {
+  extern __shared__ __align__(16) unsigned char wsm[];
+  const int nw = blockDim.x >> 5;
+  auto* red = reinterpret_cast<unsigned long long*>(wsm);  // 2 * kWideWarps
+  float* tiles = reinterpret_cast<float*>(red + 2 * kWideWarps);
+  float* cov = tiles + nw * 32 * kTileStride;
+  float* ep = cov + n;
+  int* ord = reinterpret_cast<int*>(ep + n);
+  int* wout = ord + n;
+  auto* taken = reinterpret_cast<unsigned char*>(wout + n);
+  unsigned char* needed = taken + n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const size_t base = static_cast<size_t>(blockIdx.x) * n;
+  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+    cov[j] = 0.f;
+    ep[j] = epick[base + j];
+    ord[j] = order[base + j];
+    wout[j] = 0;
+    taken[j] = 0;
+    needed[j] = NEED && need_row[base + j] > 0.f;
+  }
+  if (threadIdx.x == 0) atomicAdd(&dense_trials, 1ull);
+  __syncthreads();
+
+  float* tile = tiles + warp * 32 * kTileStride;
+  const int groups = (n + 31) >> 5;
+  constexpr unsigned long long kNone = ~0ull;
+  for (int t = 0; t < n; ++t) {
+    unsigned long long best = kNone, best_need = kNone;  // key << 32 | row
+    for (int g = warp; g < groups; g += nw) {
+      const int p0 = 32 * g, row = p0 + lane;
+      float v[32];
+      load_tile(v, W, n, p0, 0, lane);
+      float acc = 0.f;
+      for (int j0 = 0; j0 < n; j0 += 32) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) tile[i * kTileStride + lane] = v[i];
+        __syncwarp();
+        if (j0 + 32 < n) load_tile(v, W, n, p0, j0 + 32, lane);
+        const float* wr = tile + lane * kTileStride;
+        const float* cj = cov + j0;
+        if (j0 + 32 <= n) {               // a whole tile: unrolled, so the
+#pragma unroll                            // loads run ahead of the adds
+          for (int jj = 0; jj < 32; ++jj)  // row's fold, j ascending
+            acc = __fadd_rn(acc, __fmul_rn(cj[jj], wr[jj]));
+        } else {
+          for (int jj = 0; jj < n - j0; ++jj)
+            acc = __fadd_rn(acc, __fmul_rn(cj[jj], wr[jj]));
+        }
+        __syncwarp();                     // tile read before it is rewritten
+      }
+      if (row < n) {
+        const bool tk = taken[row];
+        const unsigned long long kr =
+            static_cast<unsigned long long>(tk ? kKeyFltMax : key_of(acc))
+                << 32 | static_cast<unsigned>(row);
+        best = min_u64(best, kr);
+        if (NEED && needed[row] && !tk) best_need = min_u64(best_need, kr);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off; off >>= 1) {
+      best = min_u64(best, __shfl_xor_sync(kFull, best, off));
+      if (NEED)
+        best_need = min_u64(best_need, __shfl_xor_sync(kFull, best_need, off));
+    }
+    if (lane == 0) {
+      red[warp] = best;
+      red[kWideWarps + warp] = best_need;
+    }
+    __syncthreads();
+    best = kNone;
+    best_need = kNone;
+    for (int w = 0; w < nw; ++w) {
+      best = min_u64(best, red[w]);
+      if (NEED) best_need = min_u64(best_need, red[kWideWarps + w]);
+    }
+    const unsigned m = static_cast<unsigned>(best_need >> 32);
+    const bool restrict_to_needed = NEED && m != 0u && m < kKeyFltMax;
+    const int p = static_cast<int>(
+        (restrict_to_needed ? best_need : best) & 0xffffffffull);
+    if (threadIdx.x == 0) {
+      taken[p] = 1;
+      wout[p] = ord[t];
+    }
+    if (t + 1 < n) {
+      const float e = ep[t];
+      const bool e_plain = isfinite(e) && e != 0.f;
+      const float* wp = W + static_cast<size_t>(p) * n;
+      for (int j = threadIdx.x; j < n; j += blockDim.x) {
+        const float w = wp[j];
+        if (w != 0.f || !e_plain) cov[j] = __fadd_rn(cov[j], __fdiv_rn(w, e));
+      }
+    }
+    __syncthreads();   // cov, taken and red settled before the next pick
+  }
+  for (int j = threadIdx.x; j < n; j += blockDim.x) out[base + j] = wout[j];
+}
+
+template <bool NEED>
+int launch_wide(const float* W, const int* order, const float* epick,
+                const float* need_row, int* out, int B, int n,
+                cudaStream_t stream) {
+  const size_t smem = wide_smem(n);
+  static size_t smem_allowed = 48 * 1024;  // the default dynamic limit
+  if (smem > smem_allowed) {
+    cudaError_t err = cudaFuncSetAttribute(greedy_wide_kernel<NEED>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    smem_allowed = smem;
+  }
+  greedy_wide_kernel<NEED><<<B, 32 * wide_warps(n), smem, stream>>>(
+      W, order, epick, need_row, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C interface (loaded with ctypes).  need_row may be NULL (no reissue
-// priorities).  Returns the cudaError_t of the launch (0 on success).
+// priorities).  n <= kMaxN takes the warp route, n <= kWideMaxN the wide
+// route.  Returns the cudaError_t of the launch (0 on success).
 extern "C" int greedy_assign_launch(const void* W, const void* order, const void* epick,
                                     const void* need_row, void* out, int B, int n,
                                     void* stream) {
-  if (n < 1 || n > kMaxN || B < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n < 1 || n > kWideMaxN || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const auto* w = static_cast<const float*>(W);
   const auto* o = static_cast<const int*>(order);
   const auto* e = static_cast<const float*>(epick);
   const auto* nd = static_cast<const float*>(need_row);
   auto* y = static_cast<int*>(out);
   auto* st = static_cast<cudaStream_t>(stream);
+  if (n > kMaxN)
+    return nd ? launch_wide<true>(w, o, e, nd, y, B, n, st)
+              : launch_wide<false>(w, o, e, nd, y, B, n, st);
   switch (rows_per_lane(n)) {
     case 1: return launch<1>(w, o, e, nd, y, B, n, st);
     case 2: return launch<2>(w, o, e, nd, y, B, n, st);
     default: return launch<4>(w, o, e, nd, y, B, n, st);
   }
+}
+
+// Dynamic shared memory of one block at n on its route, in bytes (0 past
+// kWideMaxN).
+extern "C" long long greedy_assign_smem(int n) {
+  if (n < 1 || n > kWideMaxN) return 0;
+  return static_cast<long long>(n <= kMaxN ? warp_smem(n) : wide_smem(n));
 }
 
 // The number of trials that have entered the dense pick loop, over every

@@ -20,8 +20,9 @@ from . import build, ref
 
 __all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
            "gram_onepass_max_d", "gram_tall_plan", "TallPlan",
-           "greedy_assign", "swa_attention", "swa_route", "swa_f32_plan",
-           "swa_f32_makespan", "SwaF32Plan", "GREEDY_MAX_N", "SWA_HEAD_DIMS",
+           "greedy_assign", "greedy_route", "greedy_smem", "swa_attention",
+           "swa_route", "swa_f32_plan", "swa_f32_makespan", "SwaF32Plan",
+           "GREEDY_MAX_N", "GREEDY_WARP_MAX_N", "SWA_HEAD_DIMS",
            "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``;
@@ -34,8 +35,19 @@ LAUNCHES = {"gram_matvec": 0, "gram_matvec_onepass": 0, "greedy_assign": 0,
             "swa_attention": 0, "swa_attention_wgmma": 0,
             "swa_attention_f32": 0}
 
-#: the largest n the greedy_assign kernel takes (kMaxN in its source)
-GREEDY_MAX_N = 128
+#: the greedy_assign kernel's layout, mirrored from csrc/greedy_assign.cu
+#: (kMaxN, kWideMaxN, kCap, kWideWarps and kTileStride there): the largest n
+#: of its warp route (W in shared memory), the largest n it takes at all
+#: (the wide route keeps a trial's state, 18 bytes a task, and one W tile a
+#: warp in shared memory: 215 296 bytes at 8192, under the 227 KB a block
+#: may opt into on an H100), the nonzeros a row's list keeps, the most warps
+#: of a wide block and the row stride of a warp's W tile.
+#: tests/test_torch_greedy_route.py reads these values from the source.
+GREEDY_WARP_MAX_N = 128
+GREEDY_MAX_N = 8192
+GREEDY_CAP = 16
+GREEDY_WIDE_WARPS = 16
+GREEDY_TILE_STRIDE = 33
 
 #: the head dims the swa_attention kernels are compiled for
 SWA_HEAD_DIMS = (16, 32, 64, 128, 256)
@@ -329,15 +341,43 @@ def batched_gram_matvec(Xs: torch.Tensor,
     return y
 
 
+def greedy_route(n: int) -> str:
+    """Which route of the greedy_assign kernel a CUDA call at n takes:
+    ``"warp_smem"`` (n <= ``GREEDY_WARP_MAX_N``: one warp a trial, W in
+    shared memory) or ``"wide"`` (up to ``GREEDY_MAX_N``: one block a trial,
+    W read through L2)."""
+    if not 1 <= n <= GREEDY_MAX_N:
+        raise ValueError(f"greedy_assign takes 1 <= n <= {GREEDY_MAX_N}; "
+                         f"got n={n}")
+    return "warp_smem" if n <= GREEDY_WARP_MAX_N else "wide"
+
+
+def greedy_smem(n: int) -> int:
+    """Bytes of dynamic shared memory of one greedy_assign block at n on its
+    route (the kernel's own count, ``greedy_assign_smem`` in its source).
+    warp_smem: W at row stride n | 1, plus each row's nonzero list (value,
+    column) and length where a lane holds one row (n <= 32).  wide: the
+    warps' two 8-byte reduction slots (for the most warps), one 32-row W
+    tile a warp, and cov, epick, order, worker_of_row and two flag bytes a
+    task."""
+    if greedy_route(n) == "warp_smem":
+        lists = 2 * GREEDY_CAP * n + n if n <= 32 else 0
+        return (n * (n | 1) + lists) * 4
+    warps = min(GREEDY_WIDE_WARPS, -(-n // 32))
+    return (2 * GREEDY_WIDE_WARPS * 8 + warps * 32 * GREEDY_TILE_STRIDE * 4
+            + n * 18)
+
+
 def greedy_assign(W: torch.Tensor, order: torch.Tensor, epick: torch.Tensor,
                   need_row: torch.Tensor | None = None) -> torch.Tensor:
     """Batched greedy row assignment (see ``ref.greedy_assign_ref``):
     ``W`` (n, n) coverage weights, ``order``/``epick``/``need_row`` (B, n)
     per-trial pick data -> ``worker_of_row`` (B, n) int32.  On the card
-    this is the ``greedy_assign`` CUDA kernel (``csrc/greedy_assign.cu``,
-    n <= ``GREEDY_MAX_N``); CPU tensors take the plain version.  Inputs are
-    cast to the kernel's types (float32 weights, int32 pickers) as the JAX
-    wrapper casts them."""
+    this is the ``greedy_assign`` CUDA kernel (``csrc/greedy_assign.cu``) on
+    the route ``greedy_route(n)`` names, for n <= ``GREEDY_MAX_N`` and
+    B * n < 2**31; CPU tensors take the plain version.  Inputs are cast to
+    the kernel's types (float32 weights, int32 pickers) as the JAX wrapper
+    casts them."""
     tensors = [W, order, epick] + ([] if need_row is None else [need_row])
     if all(t.device.type == "cpu" for t in tensors):
         return ref.greedy_assign_ref(W, order, epick, need_row)

@@ -6,7 +6,8 @@ greedy_assign kernel against its plain version bit for bit (the two
 share one summation order and rounding, ties included; NaN and zero
 estimates, overflowing coverage, rows denser than the sparse fold's cap
 and n past 32 take its dense fold, as the kernel's own count of dense
-trials shows), the swa_attention kernels against their plain version (max abs
+trials shows; past n = 128 its wide route, with adaptive rounds at n = 200
+on the card equal to the CPU's), the swa_attention kernels against their plain version (max abs
 2e-4 in float32, tests/test_kernels.py's; elementwise atol 1e-3 + rtol
 1e-2 in bfloat16, which scales with outputs of a wide window) with the
 route each call takes (float32 on its TF32 tensor-core kernel, bfloat16
@@ -32,8 +33,8 @@ import torch
 from repro_torch.core import (DelayTrace, TraceProcess, adaptive_spec,
                               completion_samples, cyclic_to_matrix,
                               greedy_row_assignment_batch, lb_spec, pc_spec,
-                              scenario1, staircase_to_matrix, to_spec,
-                              trajectory_samples)
+                              scenario1, staircase_to_matrix, sweep_rounds,
+                              to_spec, trajectory_samples)
 from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.kernels import build, ops, ref
@@ -280,11 +281,16 @@ def greedy_dense_count():
     return count.value
 
 
+# past n = 128 the wide route (one block a trial, W through L2): its first
+# n, n off a multiple of 32 with fewer warps than the most, and W of n = 257,
+# past any shared-memory budget
 @pytest.mark.parametrize("B,n,r", [(1, 15, 3), (2000, 12, 3), (333, 12, 3),
                                    (20000, 16, 4), (64, 128, 8), (5, 1, 1),
-                                   (70, 32, 5), (70, 33, 5), (70, 40, 5)])
+                                   (70, 32, 5), (70, 33, 5), (70, 40, 5),
+                                   (64, 129, 3), (256, 200, 4), (64, 257, 4)])
 @pytest.mark.parametrize("case", GREEDY_CASES)
 def test_greedy_kernel_equals_plain(cuda, B, n, r, case):
+    assert ops.greedy_route(n) == ("warp_smem" if n <= 128 else "wide")
     W, order, epick, need_row = greedy_inputs(
         B, n, r, cuda, need=case.endswith("need"), ties=case == "ties",
         infs=case == "infs", case=case.removesuffix("_need"))
@@ -313,6 +319,22 @@ def test_greedy_kernel_equals_plain(cuda, B, n, r, case):
         assert dense > 0
 
 
+@pytest.mark.parametrize("case", ["plain", "need", "huge_w_need"])
+def test_greedy_wide_route_with_more_row_groups_than_warps(cuda, case):
+    """n = 545: 18 groups of 32 rows over the wide block's 16 warps, so two
+    warps score two groups each; equal to the plain version, every trial
+    counted dense."""
+    B, n = 3, 545
+    W, order, epick, need_row = greedy_inputs(
+        B, n, 5, cuda, need=case.endswith("need"),
+        case=case.removesuffix("_need"))
+    dense_before = greedy_dense_count()
+    got = ops.greedy_assign(W, order, epick, need_row)
+    assert greedy_dense_count() - dense_before == B
+    want = ref.greedy_assign_ref(W, order, epick, need_row)
+    assert torch.equal(got, want)
+
+
 def test_greedy_kernel_rejects_what_it_cannot_take(cuda):
     W, order, epick, _ = greedy_inputs(4, 8, 3, cuda)
     with pytest.raises(ValueError):
@@ -320,9 +342,49 @@ def test_greedy_kernel_rejects_what_it_cannot_take(cuda):
     with pytest.raises(ValueError):
         ops.greedy_assign(W[:4], order, epick)
     with pytest.raises(ValueError):
-        big = torch.zeros((2, 129), device=cuda)
-        ops.greedy_assign(torch.zeros((129, 129), device=cuda),
+        n = ops.GREEDY_MAX_N + 1
+        big = torch.zeros((2, n), device=cuda)
+        ops.greedy_assign(torch.zeros((n, n), device=cuda),
                           big.to(torch.int32), big)
+
+
+def test_greedy_smem_is_the_kernels_own(cuda):
+    """ops.greedy_smem's count equals the kernel's own (greedy_assign_smem)
+    on both routes and at their edges; past GREEDY_MAX_N the kernel
+    refuses (0)."""
+    lib = build.library("greedy_assign")
+    for n in (1, 12, 32, 33, 64, 65, 128, 129, 200, 238, 257, 512, 1000,
+              ops.GREEDY_MAX_N):
+        assert lib.greedy_assign_smem(n) == ops.greedy_smem(n), n
+    assert lib.greedy_assign_smem(ops.GREEDY_MAX_N + 1) == 0
+
+
+def test_adaptive_rounds_past_the_warp_route_on_card(cuda):
+    """Adaptive scheduling at n = 200 (the wide route): trajectories on a
+    shared trace are the same bits on the card as on the CPU, and
+    sweep_rounds with an adaptive spec runs on the card, one greedy_assign
+    launch a round and chunk."""
+    gen = np.random.default_rng(11)
+    n, r, rounds, trials = 200, 4, 3, 48
+    T1 = (1e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
+        np.float32)
+    T2 = (5e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
+        np.float32)
+    proc = TraceProcess(DelayTrace(T1, T2))
+    spec = adaptive_spec("adapt", cyclic_to_matrix(n, r))
+    ops.reset_launch_counts()
+    a = trajectory_samples(spec, proc, n, rounds=rounds, k=150,
+                           trials=trials, devices=cuda)
+    assert ops.LAUNCHES["greedy_assign"] == rounds
+    b = trajectory_samples(spec, proc, n, rounds=rounds, k=150,
+                           trials=trials, devices="cpu")
+    assert torch.equal(a.cpu(), b)
+    ops.reset_launch_counts()
+    res = sweep_rounds([spec, to_spec("cs", cyclic_to_matrix(n, r))],
+                       scenario1(), n, rounds=rounds, k=150, trials=256,
+                       chunk=128, devices=cuda)
+    assert ops.LAUNCHES["greedy_assign"] == rounds * 2
+    assert np.isfinite(res.mean_round("adapt"))
 
 
 def test_batch_impls_agree_on_card(cuda):

@@ -1,6 +1,7 @@
 """The port runs on the card by default and never on the CPU unasked; it
-imports neither JAX nor the JAX package; ``convert`` carries the JAX side's
-state across; ``chip_smoke.py`` refuses to report without a card."""
+imports neither JAX nor the JAX package nor the JAX side's benchmarks;
+``convert`` carries the JAX side's state across; ``chip_smoke.py`` refuses
+to report without a card."""
 import ast
 import dataclasses
 import os
@@ -21,8 +22,10 @@ from repro_torch.configs import RegressionConfig, get_config
 from repro_torch.core import (AdaptiveScheduler, StragglerAggregator,
                               adaptive_spec, completion_samples,
                               cyclic_to_matrix, greedy_row_assignment,
-                              lb_spec, scenario1, sweep, sweep_rounds,
-                              trajectory_samples)
+                              lb_spec, lower_bound_mean_mc,
+                              mean_completion_time, scenario1,
+                              simulate_lower_bound, sweep, sweep_rounds,
+                              theorem1_mean_mc, trajectory_samples)
 from repro_torch.core import spec as tspec
 from repro_torch.data import regression_dataset
 from repro_torch.launch import serve
@@ -60,6 +63,14 @@ ENTRY_POINTS = {
                                         8),
     "serve_run": lambda: serve.run(get_config("gemma3-4b").smoke(), batch=1,
                                    prompt_len=4, gen=2),
+    "mean_completion_time": lambda: mean_completion_time(
+        cyclic_to_matrix(4, 2), scenario1(), 2, trials=4),
+    "simulate_lower_bound": lambda: simulate_lower_bound(scenario1(), 4, 2,
+                                                         trials=4),
+    "theorem1_mean_mc": lambda: theorem1_mean_mc(
+        cyclic_to_matrix(4, 2), scenario1(), 2, tmax=1e-3, trials=4),
+    "lower_bound_mean_mc": lambda: lower_bound_mean_mc(scenario1(), 4, 2,
+                                                       r=2, trials=4),
 }
 
 
@@ -98,7 +109,8 @@ def test_port_imports_neither_jax_nor_repro(path):
             continue
         for name in names:
             top = name.split(".")[0]
-            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+            assert top not in ("jax", "jaxlib", "repro", "benchmarks"), (
+                path, name)
 
 
 MODELS = [jd.scenario1(), jd.scenario2(5, seed=3), jd.ec2_like(5),

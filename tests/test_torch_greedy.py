@@ -128,6 +128,45 @@ def test_random_inputs_part_only_at_exact_ties(name, need):
             cov = cov + W[p_ref] / epick[b, t]
 
 
+@pytest.mark.parametrize("need", [False, True])
+def test_batch_past_the_warp_route_parts_only_at_exact_ties(need):
+    """At n = 130 (past the kernel's warp route; on the card the wide route,
+    held to the plain version bit for bit in tests/test_torch_card.py) the
+    port's ``greedy_row_assignment_batch`` on the CPU and the JAX package's
+    scan give the same picks except where a pick is an exact tie in real
+    arithmetic."""
+    n, B = 130, 6
+    C = js.cyclic_to_matrix(n, 3)
+    gen = np.random.default_rng(130 + need)
+    est = gen.uniform(0.01, 1.0, (B, n)).astype(np.float32)
+    nd = gen.random((B, n)) < 0.3 if need else None
+    got = np_of(ts.greedy_row_assignment_batch(
+        C, torch.as_tensor(est),
+        need=None if nd is None else torch.as_tensor(nd)))
+    want = np_of(js.greedy_row_assignment_batch(
+        C, jnp.asarray(est), need=None if nd is None else jnp.asarray(nd),
+        impl="scan"))
+    W, A = js._greedy_matrices(_tup(C), 0.5)
+    order = np.argsort(est, axis=-1, kind="stable")
+    epick = np.maximum(np.take_along_axis(est, order, -1), np.float32(1e-30))
+    need_row = None if nd is None else nd.astype(np.float32) @ A.T
+    for b in np.nonzero((got != want).any(-1))[0]:
+        cov = np.zeros(n, np.float32)
+        taken = np.zeros(n, bool)
+        row_of = {int(w): p for p, w in enumerate(want[b])}
+        for t in range(n):
+            p_ref = row_of[int(order[b, t])]
+            p_port = int(np.nonzero(got[b] == order[b, t])[0][0])
+            if p_ref != p_port:
+                ties = _exact_argmins(W, cov, taken,
+                                      None if need_row is None
+                                      else need_row[b])
+                assert {p_ref, p_port} <= ties, (b, t, p_ref, p_port)
+                break
+            taken[p_ref] = True
+            cov = cov + W[p_ref] / epick[b, t]
+
+
 @pytest.mark.parametrize("name", sorted(MATRICES))
 @pytest.mark.parametrize("gamma", [0.5, 0.3, 1.0])
 def test_greedy_matrices_bit_equal(name, gamma):

@@ -15,7 +15,10 @@ finite, (b) it does not when a coverage entry is inf or NaN, (c) the key
 orders as the kernel's ``before()`` and ``torch.argmin`` do, (d) the
 whole emulated pick loop, reissue rule and non-finite inputs included,
 gives the plain version's output, with the trials it folds densely where
-the card tests expect the kernel's own count to find them.
+the card tests expect the kernel's own count to find them, (e) past
+n = 128 the wide route's argmin, one min over each row's packed (key << 32
+| row), picks the same row, and its whole loop gives the plain version's
+output.
 """
 import re
 from pathlib import Path
@@ -314,3 +317,74 @@ def test_sparse_only_would_part_from_plain():
         taken |= hit
         cov = cov + W[p] / epick[:, t:t + 1]
     assert not torch.equal(wout, ref.greedy_assign_ref(W, order, epick))
+
+
+# ---- the wide route (n > 128): one block a trial, a packed argmin ----------
+
+def pick_packed(key, need_row, taken):
+    """The wide route's argmin: each row's (key << 32 | row) as an unsigned
+    64-bit integer; the least over every row, and with reissue priorities
+    the least over the untaken needed rows, taken where its key is neither
+    0 (a NaN) nor at or above FLT_MAX's (an empty set's all-ones value is
+    past both).  The kernel reduces per lane, per warp and over the warps;
+    min is associative and commutative, so one min over the row stands for
+    any split."""
+    k = key.numpy().astype(np.uint64)
+    n = k.shape[-1]
+    packed = (k << np.uint64(32)) | np.arange(n, dtype=np.uint64)
+    best = packed.min(axis=-1)
+    if need_row is not None:
+        pref = ((need_row > 0) & ~taken).numpy()
+        best_need = np.where(pref, packed,
+                             np.uint64(0xffffffffffffffff)).min(axis=-1)
+        m = best_need >> np.uint64(32)
+        best = np.where((m != 0) & (m < KEY_FLT_MAX), best_need, best)
+    return torch.as_tensor((best & np.uint64(0xffffffff)).astype(np.int64))
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("with_need", [False, True])
+def test_packed_min_is_the_warp_routes_pick(seed, with_need):
+    """The wide route's packed argmin picks the warp route's row (and so
+    torch.argmin's and the plain version's) on rows with NaNs, signed
+    zeros, infinities, FLT_MAX, many ties, taken rows and needed rows."""
+    gen = np.random.default_rng(seed)
+    pool = np.array([np.nan, 0.0, -0.0, np.inf, -np.inf, BIG, 1.0, -1.0,
+                     0.5], dtype=np.float32)
+    x = torch.as_tensor(pool[gen.integers(0, len(pool), (600, 11))])
+    x[::5] = torch.as_tensor(gen.standard_normal((120, 11)),
+                             dtype=torch.float32)
+    taken = torch.as_tensor(gen.random((600, 11)) < 0.3)
+    need_row = (torch.as_tensor(gen.integers(0, 3, (600, 11)),
+                                dtype=torch.float32) if with_need else None)
+    key = torch.where(taken, KEY_FLT_MAX, key_of(x))
+    assert torch.equal(pick_packed(key, need_row, taken),
+                       pick(key, need_row, taken))
+
+
+def emulate_wide(W, order, epick, need_row=None):
+    """The wide route's pick loop in torch: the dense fold of every row,
+    the packed argmin, the update skipped after the last pick."""
+    B, n = order.shape
+    rows = torch.arange(n)
+    cov = torch.zeros((B, n), dtype=torch.float32)
+    taken = torch.zeros((B, n), dtype=torch.bool)
+    wout = torch.zeros((B, n), dtype=torch.int32)
+    for t in range(n):
+        key = torch.where(taken, KEY_FLT_MAX, key_of(dense_fold(W, cov)))
+        p = pick_packed(key, need_row, taken)
+        hit = rows == p[:, None]
+        wout = torch.where(hit, order[:, t:t + 1], wout)
+        taken |= hit
+        if t + 1 < n:
+            cov = cov + W[p] / epick[:, t:t + 1]
+    return wout
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_emulated_wide_route_equals_plain(case):
+    """The wide route's loop at n = 130 gives the plain version's output on
+    every case the card tests send it."""
+    W, order, epick, need_row = case_inputs(130, 6, case, seed=130)
+    assert torch.equal(emulate_wide(W, order, epick, need_row),
+                       ref.greedy_assign_ref(W, order, epick, need_row))
