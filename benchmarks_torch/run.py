@@ -14,6 +14,16 @@ Prints ``name,us_per_call,derived`` CSV rows:
   fig9   intra-round message budget m in {1, 2, r} for CS/SS/PCMM and the
          per-message overhead panel (exits non-zero if multi-message stops
          beating single-message or the optimal budget degenerates)
+  fig10  adaptive load re-balancing vs row re-permutation (exits non-zero
+         unless re-balancing beats static CS/SS and permutation-only
+         adaptation)
+  fig11  trace record -> replay -> calibrate (exits non-zero if replay
+         diverges or the calibrated margin's sign flips; writes the trace
+         into --out)
+  fig12  fault injection and graceful degradation: the scenario zoo under a
+         round deadline (exits non-zero if adaptation stops paying under
+         preemption, a scenario deadlocks, or fault-trace replay diverges;
+         writes the trace into --out)
   mc_engine  fused sweep-engine throughput vs the seed-style per-scheme path
   table1 one DGD iteration per scheme incl. real PC/PCMM decode (the rows'
          ``ok`` hold each update error to its bound)
@@ -21,7 +31,7 @@ Prints ``name,us_per_call,derived`` CSV rows:
 Each job also writes ``BENCH_<name>.json`` (the rows with parsed derived
 metrics) into ``--out``.  Every job's rows are screened for NaN/inf metric
 values: a non-finite number aborts the harness with a non-zero exit.  The
-reference's other jobs (fig10-fig13, grid, planner, roofline) wait for later
+reference's other jobs (fig13, grid, planner, roofline) wait for later
 slices of the port: asking for one exits non-zero and names its
 ``ROADMAP.md`` item.
 
@@ -40,9 +50,6 @@ import time
 #: the reference's jobs that wait for a later slice, and the ROADMAP.md
 #: item each waits for
 LATER = {
-    "fig10": "queue 1 item 2 (the fault-tolerance slice)",
-    "fig11": "queue 1 item 2 (the fault-tolerance slice)",
-    "fig12": "queue 1 item 2 (the fault-tolerance slice)",
     "grid": "queue 1 item 4 (core/grid.py and core/planner.py)",
     "planner": "queue 1 item 4 (core/grid.py and core/planner.py)",
     "fig13": "queue 1 item 6 (live/)",
@@ -82,7 +89,8 @@ def main(argv=None) -> dict:
 
     from . import (common, fig3_delays, fig4_vs_load, fig5_ec2,
                    fig6_vs_workers, fig7_vs_target, fig8_convergence,
-                   fig9_multimessage, mc_engine, table1_e2e)
+                   fig9_multimessage, fig10_load_rebalance,
+                   fig11_trace_replay, fig12_faults, mc_engine, table1_e2e)
 
     jobs = {
         "fig3": lambda: fig3_delays.run(trials, dev),
@@ -92,6 +100,11 @@ def main(argv=None) -> dict:
         "fig7": lambda: fig7_vs_target.run(trials, dev),
         "fig8": lambda: fig8_convergence.run(trials, dev),
         "fig9": lambda: fig9_multimessage.run(trials, dev),
+        "fig10": lambda: fig10_load_rebalance.run(trials, dev),
+        "fig11": lambda: fig11_trace_replay.run(
+            trials, dev, out=args.out or "bench_out_torch"),
+        "fig12": lambda: fig12_faults.run(
+            trials, dev, out=args.out or "bench_out_torch"),
         "mc_engine": lambda: mc_engine.run(trials, dev),
         "table1": lambda: table1_e2e.run(dev),
     }

@@ -9,12 +9,18 @@ trial with W read through L2 past it), drives the single-round Monte-Carlo
 engine at a 10^6-trial sweep, the rounds engine over the full Fig. 8 grid
 (adaptive scheduling through the greedy_assign kernel, CUDA trajectories
 against CPU ones on a shared trace, at n = 12 and, on the wide route, at
-n = 200), runs the paper's DGD regression loop
+n = 200, once more there under the reissue deadline policy, whose need rows
+reach the kernel), runs the paper's DGD regression loop
 end to end on the iid and the Markov cluster (the one-pass gram_matvec kernel
 for every uncoded scheme, greedy_assign for the ADAPT row), regenerates the
 paper's Figs. 3-7 and 9, Table I and the engine benchmark through
 ``python -m benchmarks_torch.run --quick`` on the card (their guards held;
-Theorem 1's mean held to the direct order statistic), and serves gemma3-4b at
+Theorem 1's mean held to the direct order statistic), runs the
+fault-tolerance slice (Figs. 10-12 at --quick with every status row PASS;
+a faults grid at the Fig. 8 scale, CS / SS / adapt / rebal / LB under spot
+preemption with a round deadline, close_partial then reissue, with its wall
+seconds, launches per chunk-round and the card's busy share; CUDA against
+CPU on recorded fault traces), and serves gemma3-4b at
 full width and depth through ``repro_torch.launch.serve`` (prefill of two
 2048-token prompts and greedy decode; the bf16 prefill attention of every
 sliding-window layer through the tensor-core swa_attention kernel), with
@@ -54,10 +60,11 @@ from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
 from repro_torch.core import (DelayTrace, RoundConfig,  # noqa: E402
                               TraceProcess, adaptive_spec, completion_samples,
                               cyclic_to_matrix, lb_spec, lower_bound_mean_mc,
-                              mean_completion_time, pc_spec, pcmm_spec,
-                              random_assignment_to_matrix, scenario1,
-                              staircase_to_matrix, sweep, theorem1_mean_mc,
-                              to_spec, trajectory_samples)
+                              make_scenario, mean_completion_time, pc_spec,
+                              pcmm_spec, random_assignment_to_matrix,
+                              scenario1, staircase_to_matrix, sweep,
+                              sweep_rounds, theorem1_mean_mc, to_spec,
+                              trajectory_samples)
 from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -548,13 +555,15 @@ def rounds_phase():
             "ms_per_round": {f"p{p}_s{s:g}": v for (p, s), v in out.items()}}
 
 
-def adaptive_wide_leg(n=200, r=4, rounds=3, trials=256):
+def adaptive_wide_leg(n=200, r=4, rounds=3, trials=256, deadline=None):
     """Adaptive scheduling past the warp route: trajectory_samples with an
     adaptive CS spec at n = 200, r = 4 on one shared trace drawn with numpy,
     on the card (greedy_assign's wide route; the launch counts set to 0
     just before, read just after: one launch a round) and on the CPU (the
-    plain version), bit-equal.  Returns the launches and the card's
-    seconds."""
+    plain version), bit-equal.  With ``deadline`` the rounds close under
+    the reissue policy, so every round after the first sends the wide route
+    need rows (the tasks the round before did not deliver).  Returns the
+    launches (with need rows too) and the card's seconds."""
     gen = np.random.default_rng(21)
     T1 = (1e-4 * (0.5 + gen.random((rounds, trials, n, r)))).astype(
         np.float32)
@@ -563,25 +572,285 @@ def adaptive_wide_leg(n=200, r=4, rounds=3, trials=256):
     proc = TraceProcess(DelayTrace(T1, T2))
     spec = adaptive_spec("adapt", cyclic_to_matrix(n, r))
     k = 3 * n // 4
+    kw = ({} if deadline is None
+          else dict(deadline=deadline, deadline_policy="reissue"))
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     a = trajectory_samples(spec, proc, n, rounds=rounds, k=k, trials=trials,
-                           devices="cuda")
+                           devices="cuda", **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = ops.LAUNCHES["greedy_assign"]
+    need = ops.LAUNCHES["greedy_assign_need"]
     b = trajectory_samples(spec, proc, n, rounds=rounds, k=k, trials=trials,
-                           devices="cpu")
+                           devices="cpu", **kw)
     check(launches == rounds, f"adaptive n={n}: greedy_assign launches "
                               f"{launches} != {rounds} (one a round)")
+    check(need == (0 if deadline is None else rounds),
+          f"adaptive n={n}: {need} greedy_assign launches with need rows")
     check(torch.equal(a.cpu(), b), f"adaptive n={n}: CUDA trajectories "
                                    f"differ from CPU")
     check(bool(torch.isfinite(a).all()), f"adaptive n={n}: non-finite")
+    shown = ("" if deadline is None else
+             f" reissue deadline={deadline * 1e3:.6f} ms (closed at it: "
+             f"{float((a >= deadline).float().mean()):.3f} of rounds);")
     print(f"rounds adaptive n={n} r={r} ({rounds} rounds x {trials} trials, "
-          f"shared trace, route={ops.greedy_route(n)}): CUDA trajectories "
-          f"equal CPU bit for bit; greedy_assign launches={launches}; "
-          f"card seconds={secs:.4f}")
-    return {"launches": launches, "seconds": secs}
+          f"shared trace, route={ops.greedy_route(n)}):{shown} CUDA "
+          f"trajectories equal CPU bit for bit; greedy_assign launches="
+          f"{launches} (with need rows {need}); card seconds={secs:.4f}")
+    return {"launches": launches, "need_launches": need, "seconds": secs,
+            "trajectories": a}
+
+
+#: the fault-tolerance figures the faults phase runs
+FAULT_FIGURES = ("fig10", "fig11", "fig12")
+#: the faults grid: the Fig. 8 cell at its scale (trials in chunks), with
+#: re-balancing on a CS grid of this cap and Fig. 12's deadline slack
+FAULT_TRIALS, FAULT_CHUNK, FAULT_CAP, FAULT_SLACK = 8000, 2000, 6, 1.5
+
+
+def fault_specs():
+    """CS / SS / adapt / rebal (cap FAULT_CAP, r slots a worker to start)
+    / LB at the Fig. 8 cell's n and r."""
+    n, r = fig8.N, fig8.R
+    cs = cyclic_to_matrix(n, r)
+    return [to_spec("cs", cs), to_spec("ss", staircase_to_matrix(n, r)),
+            adaptive_spec("adapt", cs),
+            adaptive_spec("rebal", cyclic_to_matrix(n, FAULT_CAP),
+                          loads=(r,) * n, rebalance=True),
+            lb_spec(r)]
+
+
+def tie_exact_tables(seed, rounds, n, r, trials, lo=8, hi=14):
+    """Delay tables on which no summation order can change a greedy pick
+    (tests/torch_parity.py's family): T1 a power of two 2**-e, e in [lo,
+    hi), constant per (trial, worker) over rounds and slots; T2 arbitrary
+    positive.  With feedback_beta = coverage_gamma = 0.5 every estimate and
+    greedy score is exact in float32."""
+    gen = np.random.default_rng(seed)
+    e = gen.integers(lo, hi, size=(1, trials, n, 1))
+    T1 = np.broadcast_to(2.0 ** -e, (rounds, trials, n, r))
+    T2 = 5e-4 * (0.5 + gen.random((rounds, trials, n, r)))
+    return T1.astype(np.float32), T2.astype(np.float32)
+
+
+def profiled(fn):
+    """One call of ``fn`` under torch.profiler: (wall s, summed device
+    time of the CUDA kernels s or None, kernel launches or None)."""
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    us = sum(float(getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0.0)))
+             for e in kernels)
+    count = int(sum(e.count for e in kernels))
+    return wall, (us / 1e6 if us else None), (count or None)
+
+
+def faults_phase():
+    """The fault-tolerance slice on the card.
+
+    1. Figs. 10-12 at --quick through ``python -m benchmarks_torch.run``'s
+       main, the launch counts set to 0 just before and read just after:
+       every status row PASS (their guards raise otherwise), greedy_assign
+       launched (adapt and rebal specs).
+    2. The faults grid at the Fig. 8 scale: n = 12, r = 3, k = 9, 24
+       rounds, FAULT_TRIALS trials in FAULT_CHUNK-trial chunks, CS / SS /
+       adapt / rebal / LB with censored feedback, under
+       ``make_scenario("preemption", ...)`` with a deadline of FAULT_SLACK x
+       the clean static mean round, first ``close_partial`` then
+       ``reissue``: finite times and degradation metrics, realized-k
+       histograms summing to one, per-round LB at or below CS/SS, the
+       greedy_assign launches (two adaptive specs a chunk-round; with need
+       rows exactly under reissue).  Wall seconds of each leg; then
+       profiled one-chunk windows: launches per chunk-round and the card's
+       busy share (device kernel time over wall time) of the whole grid
+       under each policy, and the rebalance loop's launches (rebal alone
+       minus adapt alone) and the reissue path's (reissue minus
+       close_partial) per chunk-round.
+    3. Card against CPU on shared recorded traces with faults: a
+       preemption trace of the grid's cluster, static specs bit-equal under
+       reissue; a preemption trace over a tie-exact base, adapt and rebal
+       bit-equal under close_partial and reissue."""
+    n, k, rounds = fig8.N, fig8.K, fig8.ROUNDS
+    out_dir = str(Path(__file__).resolve().parent / "bench_out_torch")
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    done = bench_run.main(["--quick", "--device", "cuda", "--only",
+                           ",".join(FAULT_FIGURES), "--out", out_dir])
+    torch.cuda.synchronize()
+    fig_secs = time.perf_counter() - t0
+    fig_launches = dict(ops.LAUNCHES)
+    check(sorted(done) == sorted(FAULT_FIGURES), f"faults ran {sorted(done)}")
+    status = {row["name"]: row["derived"]["status"]
+              for job in done.values() for row in job["rows"]
+              if "status" in row["derived"]}
+    check(len(status) == 10 and set(status.values()) == {"PASS"},
+          f"fault figures status rows {status}")
+    check(fig_launches["greedy_assign"] > 0
+          and fig_launches["greedy_assign_need"] == 0,
+          f"fault figures: launches {fig_launches}")
+    for name, job in done.items():
+        print(f"faults {name}: seconds={job['seconds']:.3f} rows="
+              f"{len(job['rows'])} status rows PASS")
+
+    specs = fault_specs()
+    base = fig8.cell_process(0.98, 3.0)
+    kw = dict(rounds=rounds, k=k, seed=0, censored_feedback=True,
+              devices="cuda")
+    clean = sweep_rounds(specs, base, n, trials=FAULT_TRIALS,
+                         chunk=FAULT_CHUNK, **kw)
+    deadline = FAULT_SLACK * min(clean.mean_round("cs"),
+                                 clean.mean_round("ss"))
+    proc = make_scenario("preemption", base, n)
+    chunk_rounds = rounds * (FAULT_TRIALS // FAULT_CHUNK)
+    grid = {"deadline_ms": deadline * 1e3, "trials": FAULT_TRIALS,
+            "chunk": FAULT_CHUNK, "rounds": rounds}
+    for policy in ("close_partial", "reissue"):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        res = sweep_rounds(specs, proc, n, trials=FAULT_TRIALS,
+                           chunk=FAULT_CHUNK, deadline=deadline,
+                           deadline_policy=policy, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(ops.LAUNCHES)
+        for sp in specs:
+            nm = sp.name
+            check(bool(np.isfinite(res.per_round[nm]).all()),
+                  f"faults grid {policy}: non-finite {nm}")
+            for key in ("realized_k", "missed", "stale"):
+                check(bool(np.isfinite(res.degradation[nm][key]).all()),
+                      f"faults grid {policy}: non-finite {nm} {key}")
+            check(bool((res.realized_k(nm) <= k).all()),
+                  f"faults grid {policy}: {nm} realized above k")
+            check(np.allclose(res.khist(nm).sum(-1), 1.0, atol=1e-5),
+                  f"faults grid {policy}: {nm} khist rows")
+        for nm in ("cs", "ss"):
+            check(bool((res.per_round["lb"] <= res.per_round[nm]).all()),
+                  f"faults grid {policy}: per-round LB above {nm}")
+        want = 2 * chunk_rounds
+        check(launches["greedy_assign"] == want
+              and launches["greedy_assign_need"]
+              == (want if policy == "reissue" else 0),
+              f"faults grid {policy}: launches {launches} (want {want} "
+              f"greedy_assign, with need rows only under reissue)")
+        cost = {sp.name: res.mean_round(sp.name) * 1e3
+                / float(np.mean(res.realized_k(sp.name))) for sp in specs}
+        grid[policy] = {
+            "seconds": secs,
+            "trial_rounds_per_s": FAULT_TRIALS * rounds / secs,
+            "greedy_launches": launches["greedy_assign"],
+            "greedy_need_launches": launches["greedy_assign_need"],
+            "ms_round": {sp.name: res.mean_round(sp.name) * 1e3
+                         for sp in specs},
+            "ms_per_realized_task": cost,
+            "realized_k": {sp.name: float(np.mean(res.realized_k(sp.name)))
+                           for sp in specs},
+            "missed": {sp.name: float(np.mean(res.missed_fraction(sp.name)))
+                       for sp in specs},
+            "stale": {sp.name: float(np.mean(res.stale_fraction(sp.name)))
+                      for sp in specs}}
+        print(f"faults grid preemption {policy} (n={n} k={k} {rounds} "
+              f"rounds, {FAULT_TRIALS} trials in {FAULT_CHUNK}-trial "
+              f"chunks, deadline={deadline * 1e3:.6f} ms): seconds="
+              f"{secs:.4f} greedy_assign launches="
+              f"{launches['greedy_assign']} (with need rows "
+              f"{launches['greedy_assign_need']}); ms/realized task "
+              + " ".join(f"{nm}={v:.6f}" for nm, v in cost.items())
+              + "; realized k " + " ".join(
+                  f"{nm}={v:.4f}" for nm, v in
+                  grid[policy]["realized_k"].items()))
+
+    # profiled one-chunk windows (the kernels are built and warm)
+    one = dict(trials=FAULT_CHUNK, chunk=FAULT_CHUNK, deadline=deadline,
+               **kw)
+    windows = {
+        "grid_close_partial": lambda: sweep_rounds(
+            specs, proc, n, deadline_policy="close_partial", **one),
+        "grid_reissue": lambda: sweep_rounds(
+            specs, proc, n, deadline_policy="reissue", **one),
+        "adapt_alone": lambda: sweep_rounds(
+            [specs[2]], proc, n, deadline_policy="close_partial", **one),
+        "rebal_alone": lambda: sweep_rounds(
+            [specs[3]], proc, n, deadline_policy="close_partial", **one)}
+    prof = {}
+    for name, fn in windows.items():
+        wall, dev_s, count = profiled(fn)
+        prof[name] = {"wall_s": wall, "device_kernel_s": dev_s,
+                      "launches": count,
+                      "launches_per_chunk_round": (None if count is None
+                                                   else count / rounds),
+                      "busy_share": None if dev_s is None else dev_s / wall}
+
+    def per_cr(a, b):
+        x, y = prof[a]["launches"], prof[b]["launches"]
+        return None if x is None or y is None else (x - y) / rounds
+    grid["profile"] = prof
+    grid["rebalance_loop_launches_per_chunk_round"] = per_cr("rebal_alone",
+                                                             "adapt_alone")
+    grid["reissue_path_launches_per_chunk_round"] = per_cr(
+        "grid_reissue", "grid_close_partial")
+    for name, w in prof.items():
+        busy = ("not measured" if w["busy_share"] is None
+                else f"{w['busy_share']:.4f}")
+        lcr = ("not measured" if w["launches_per_chunk_round"] is None
+               else f"{w['launches_per_chunk_round']:.1f}")
+        print(f"faults profile {name} (one {FAULT_CHUNK}-trial chunk x "
+              f"{rounds} rounds, profiled): wall_s={w['wall_s']:.4f} "
+              f"launches_per_chunk_round={lcr} busy_share={busy}")
+    print(f"faults profile: rebalance loop launches per chunk-round="
+          f"{grid['rebalance_loop_launches_per_chunk_round']} reissue path "
+          f"launches per chunk-round="
+          f"{grid['reissue_path_launches_per_chunk_round']}")
+
+    # card against CPU on shared recorded fault traces
+    tr = 1000
+    rec = sweep_rounds(specs[:2] + specs[4:], proc, n, trials=tr, chunk=500,
+                       deadline=deadline, deadline_policy="reissue",
+                       record_trace=True, **kw).trace
+    check(rec.has_faults, "recorded preemption trace has no +inf cell")
+    ckw = dict(rounds=rounds, k=k, trials=tr, censored_feedback=True,
+               deadline=deadline)
+    for sp in (specs[0], specs[1], specs[4]):
+        a = trajectory_samples(sp, rec, n, chunk=250, devices="cuda",
+                               deadline_policy="reissue", **ckw)
+        b = trajectory_samples(sp, rec, n, devices="cpu",
+                               deadline_policy="reissue", **ckw)
+        check(torch.equal(a.cpu(), b),
+              f"{sp.name}: CUDA trajectories on the fault trace differ "
+              f"from CPU")
+    T1, T2 = tie_exact_tables(5, rounds, n, FAULT_CAP, tr)
+    te = make_scenario("preemption", TraceProcess(DelayTrace(T1, T2)), n)
+    te_trace = sweep_rounds([specs[0], specs[3]], te, n, trials=tr,
+                            chunk=500, deadline=deadline,
+                            deadline_policy="close_partial",
+                            record_trace=True, **kw).trace
+    check(te_trace.has_faults, "tie-exact preemption trace has no +inf")
+    ckw.update(feedback_beta=0.5, coverage_gamma=0.5)
+    for sp in (specs[2], specs[3]):
+        for policy in ("close_partial", "reissue"):
+            a = trajectory_samples(sp, te_trace, n, chunk=250,
+                                   devices="cuda", deadline_policy=policy,
+                                   **ckw)
+            b = trajectory_samples(sp, te_trace, n, devices="cpu",
+                                   deadline_policy=policy, **ckw)
+            check(torch.equal(a.cpu(), b),
+                  f"{sp.name} ({policy}): CUDA trajectories on the "
+                  f"tie-exact fault trace differ from CPU")
+    print(f"faults card vs CPU ({rounds} rounds x {tr} trials): cs/ss/lb "
+          f"equal bit for bit on the recorded preemption trace (reissue); "
+          f"adapt/rebal equal bit for bit on the tie-exact preemption trace "
+          f"(close_partial and reissue)")
+    return {"figures_seconds": fig_secs, "figures_launches": fig_launches,
+            "figure_job_seconds": {nm: job["seconds"]
+                                   for nm, job in done.items()},
+            "status": status, "grid": grid}
 
 
 #: the benchmark jobs the figures phase runs (fig8 runs in rounds_phase)
@@ -1124,8 +1393,14 @@ def main():
     engine = engine_phase()
     rounds = rounds_phase()
     adaptive_wide = adaptive_wide_leg()
+    # again under reissue, the deadline at the card's median round close
+    wide_deadline = float(adaptive_wide.pop("trajectories").median())
+    wide_reissue = adaptive_wide_leg(deadline=wide_deadline)
+    del wide_reissue["trajectories"]
+    wide_reissue["deadline_ms"] = wide_deadline * 1e3
     dgd_launches = dgd_phase()
     figures = figures_phase()
+    faults = faults_phase()
     swa_rows = swa_phase()
     served = serve_phase()
     consistency = consistency_phase()
@@ -1185,7 +1460,17 @@ def main():
             "fig8": rounds["greedy_launches"],
             "dgd_iid": dgd_launches["iid"]["greedy_assign"],
             "dgd_markov": dgd_launches["markov"]["greedy_assign"],
-            "adaptive_n200": adaptive_wide["launches"]},
+            "adaptive_n200": adaptive_wide["launches"],
+            "adaptive_n200_reissue": wide_reissue["launches"],
+            "fig10_12": faults["figures_launches"]["greedy_assign"],
+            "faults_grid_close_partial":
+                faults["grid"]["close_partial"]["greedy_launches"],
+            "faults_grid_reissue":
+                faults["grid"]["reissue"]["greedy_launches"]},
+        "need_row_launches_by_path": {
+            "faults_grid_reissue":
+                faults["grid"]["reissue"]["greedy_need_launches"],
+            "adaptive_n200_reissue": wide_reissue["need_launches"]},
         "max_abs_err": g_row["max_abs_err"],
         "ms": g_row["ms"], "device_ms": g_row["device_ms"],
         "n1_device_ms": g_row["n1_device_ms"], "pick_us": g_row["pick_us"],
@@ -1249,7 +1534,8 @@ def main():
         "cuda_core_ms": t_row["cuda_core_ms"], "card": card,
         "shapes": [r for r in swa_rows if r["swa_route"] == "tensor_core"]}],
         "engine": engine, "rounds": rounds, "adaptive_wide": adaptive_wide,
-        "figures": figures,
+        "adaptive_wide_reissue": wide_reissue, "figures": figures,
+        "faults": faults,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency}))
     print(json.dumps({"ok": True, "device": {

@@ -1,11 +1,17 @@
-"""The port's core: delay models and round-aware processes, trace replay,
-TO matrices and the adaptive scheduler, completion times, the single-round
-and rounds Monte-Carlo engines, Theorem 1 and the lower bound, coded
-baselines and the aggregator (counterparts of ``repro.core``)."""
+"""The port's core: delay models, round-aware processes and the fault
+scenarios, trace replay and calibration, TO matrices, the adaptive
+scheduler and load re-balancing, completion times, the single-round and
+rounds Monte-Carlo engines (round deadlines, trace recording), Theorem 1
+and the lower bound, coded baselines and the aggregator (counterparts of
+``repro.core``)."""
 from .aggregator import StragglerAggregator
-from .cluster import (AR1Process, DelayProcess, IIDProcess,
-                      MarkovRegimeProcess, as_process, ec2_cluster,
-                      heterogeneous_scales)
+from .cluster import (FAULT_SCENARIOS, AR1Process, DelayProcess,
+                      DiurnalLoadProcess, FaultProcess, IIDProcess,
+                      MarkovRegimeProcess, MessageLossProcess,
+                      NetworkPartitionProcess, RackFailureProcess,
+                      SpotPreemptionProcess, as_process, ec2_cluster,
+                      heterogeneous_scales, make_scenario,
+                      message_comm_delays)
 from .coded import (pc_decode, pc_encode, pc_threshold, pc_worker_compute,
                     pcmm_decode, pcmm_encode, pcmm_threshold,
                     pcmm_worker_compute, simulate_pc_completion,
@@ -29,7 +35,8 @@ from .montecarlo import (RoundsResult, SchemeSpec, SweepResult,
                          tau_spec, to_spec, trajectory_samples)
 from .scheduling import (GREEDY_IMPLS, MASKED, SCHEDULES, AdaptiveScheduler,
                          Schedule, block_to_matrix, censored_feedback_update,
-                         cyclic_to_matrix, greedy_row_assignment,
+                         cyclic_to_matrix, greedy_load_rebalance,
+                         greedy_load_rebalance_batch, greedy_row_assignment,
                          greedy_row_assignment_batch, loads_of_matrix,
                          mask_matrix_loads, random_assignment_to_matrix,
                          staircase_to_matrix, to_matrix, validate_to_matrix)
@@ -41,13 +48,19 @@ from .theory import (delay_model_pdfs, joint_survival_mc,
                      sum_survival_grid, theorem1_mean_mc,
                      theorem1_tail_from_H, theorem1_tail_mc,
                      theorem1_tail_r1_independent, truncated_gaussian_pdf)
-from .trace import (TRACE_FORMAT_VERSION, DelayTrace, TraceProcess,
-                    load_trace, save_trace, validate_trace_file)
+from .trace import (TRACE_FORMAT_VERSION, CalibrationReport, DelayTrace,
+                    TraceProcess, calibrate_trace, load_trace, save_trace,
+                    validate_trace_file)
 
 __all__ = [
     "StragglerAggregator", "DelayProcess", "IIDProcess", "as_process",
     "MarkovRegimeProcess", "AR1Process", "ec2_cluster",
-    "heterogeneous_scales", "TRACE_FORMAT_VERSION", "DelayTrace",
+    "heterogeneous_scales", "message_comm_delays", "FaultProcess",
+    "SpotPreemptionProcess", "NetworkPartitionProcess", "RackFailureProcess",
+    "MessageLossProcess", "DiurnalLoadProcess", "FAULT_SCENARIOS",
+    "make_scenario", "CalibrationReport", "calibrate_trace",
+    "greedy_load_rebalance", "greedy_load_rebalance_batch",
+    "TRACE_FORMAT_VERSION", "DelayTrace",
     "TraceProcess", "load_trace", "save_trace", "validate_trace_file",
     "RoundsResult", "adaptive_spec", "sweep_rounds", "trajectory_samples",
     "GREEDY_IMPLS", "AdaptiveScheduler", "censored_feedback_update",

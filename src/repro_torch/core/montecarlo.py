@@ -39,13 +39,22 @@ per-trial delay estimates carry from round to round in a Python loop
 inside each chunk.  ``adaptive_spec`` schemes re-assign their base
 matrix's rows every round from that feedback through
 ``scheduling.greedy_row_assignment_batch`` (the ``greedy_assign`` kernel
-on the card), with idealized or censored feedback.  Round ``t`` draws
-under ``rng.round_seed(seed, t + 1)`` and the process starts under
+on the card), with idealized or censored feedback; with ``rebalance=True``
+they also re-allocate whole slots between workers every round
+(``scheduling.greedy_load_rebalance_batch``).  Round ``t`` draws under
+``rng.round_seed(seed, t + 1)`` and the process starts under
 ``rng.round_seed(seed, 0)``, keyed by the global trial id, so trajectories
 are chunk-invariant.  Per-round partials are float32 per chunk, combined in
-float64 on the host in global chunk order.  Deadlines, load re-balancing,
-trace recording, resumable sweeps and multi-device sharding wait for later
-slices.
+float64 on the host in global chunk order.
+
+Fault tolerance: a round ``deadline`` closes rounds under the ``wait``,
+``close_partial`` or ``reissue`` policy and adds degradation metrics
+(realized k, missed rounds, stale gradient mass, the realized-k histogram);
+under ``reissue`` the tasks a round did not deliver become the next round's
+re-gather priority, the ``need`` rows of the ``greedy_assign`` kernel.
+``record_trace=True`` captures the delay tables a run draws as a
+``DelayTrace`` and scores the run by replaying them.  Resumable sweeps and
+multi-device sharding wait for later slices.
 """
 from __future__ import annotations
 
@@ -68,9 +77,6 @@ __all__ = [
     "RoundsResult", "sweep_rounds", "trajectory_samples",
 ]
 
-_LATER = ("arrives with the port's fault-tolerance slice (re-balancing, "
-          "deadlines, faults, trace recording)")
-
 INF = math.inf
 
 
@@ -85,14 +91,18 @@ class SchemeSpec:
     r: Optional[int] = None         # computation load for "lb"/"pc"/"pcmm"
     messages: Optional[int] = None  # per-round messages per worker
                                     # (None = the kind's default semantics)
-    loads: Optional[tuple] = None   # per-worker loads (None = uniform/dense)
+    loads: Optional[tuple] = None   # per-worker loads (None = uniform/dense;
+                                    # for rebalance: the initial budget)
+    rebalance: bool = False         # adaptive only: re-allocate whole slots
+                                    # between workers each round
     comm_eps: float = 0.0           # per-message protocol overhead: a
                                     # worker's l-th message lands (l+1)*eps
                                     # late (serialized uplink)
 
     @property
     def load(self) -> int:
-        """Width of this scheme's slot grid (the maximum per-worker load)."""
+        """Width of this scheme's slot grid (the maximum per-worker load;
+        for rebalance specs, the per-worker load cap)."""
         if self.kind in ("to", "tau", "adaptive"):
             return len(self.C[0])
         return int(self.r)
@@ -162,10 +172,16 @@ def adaptive_spec(name: str, C, messages: Optional[int] = None, *,
     """An adaptive scheme: base TO matrix ``C`` whose rows are re-assigned
     to workers each round from observed per-worker delay feedback (only
     valid in ``sweep_rounds``).  ``loads`` makes the base ragged (rows
-    carry their loads through the re-permutation).  ``rebalance`` waits for
-    a later slice of the port."""
+    carry their loads through the re-permutation); with ``rebalance=True``
+    the base must be dense — its width is the per-worker load cap,
+    ``loads`` the initial budget — and per-worker loads are re-balanced
+    each round from the same feedback."""
     if rebalance:
-        raise NotImplementedError(f"adaptive load re-balancing {_LATER}")
+        # the budget stays a budget: it is not folded into row masks
+        lt = (None if loads is None
+              else tuple(int(v) for v in np.asarray(loads, np.int64)))
+        return SchemeSpec(name=name, kind="adaptive", C=_freeze_matrix(C),
+                          messages=messages, loads=lt, rebalance=True)
     Cf, lt = _freeze_ragged(C, loads)
     return SchemeSpec(name=name, kind="adaptive", C=Cf, messages=messages,
                       loads=lt)
@@ -254,6 +270,32 @@ def _slot_map_of(spec: SchemeSpec) -> Optional[np.ndarray]:
         nontrivial |= mi != l
         rows.append(row)
     return np.stack(rows) if nontrivial else None
+
+
+def _rebalance_remap(spec: SchemeSpec) -> Optional[np.ndarray]:
+    """The load-indexed closing-slot table of a rebalance spec with a
+    message budget (``_rebalance_remap_table``), or None (not a rebalance
+    spec, or every slot its own message)."""
+    if not spec.rebalance:
+        return None
+    return _rebalance_remap_table(spec.load, spec.n_messages)
+
+
+def _rebalance_remap_table(cap: int, messages: int) -> Optional[np.ndarray]:
+    """``(cap, cap)`` table whose row ``l - 1`` maps slot ``j < l`` to the
+    closing slot of ``j``'s message when ``l`` active slots go out in
+    ``min(messages, l)`` messages; slots at or past ``l`` keep the identity
+    (they are +inf before the gather).  Re-balanced loads change every
+    round, so the rounds engine and the aggregator index this table by the
+    realized load.  None when ``messages >= cap``."""
+    if messages >= cap:
+        return None
+    tab = np.empty((cap, cap), np.int64)
+    for l in range(1, cap + 1):
+        row = np.arange(cap)
+        row[:l] = message_slot_map(l, min(messages, l))
+        tab[l - 1] = row
+    return tab
 
 
 def _message_index_grid(spec: SchemeSpec, n: int) -> np.ndarray:
@@ -491,13 +533,29 @@ def params_on(params: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
                 else _float_on(v, device)) for k, v in params.items()}
 
 
-def _build_bucket_eval(sig):
+def _build_bucket_eval(sig, deadline: Optional[float] = None):
     """Evaluator for one shape bucket: slot arrivals ``s`` (chunk, n, r_max)
-    + ``params`` (``params_on``) -> {group: (chunk, S_g, L_g)}."""
-    _, n, r_max, ks, S_to, M_to, S_tau, M_tau, F_lb, F_pcmm, P_pc = sig
+    + ``params`` (``params_on``) -> {group: (chunk, S_g, L_g)}.
 
-    def eval_fn(s: torch.Tensor, params) -> Dict[str, torch.Tensor]:
+    With ``deadline`` it returns ``(out, counts)``, ``counts[group] =
+    (by_deadline, deliverable)`` each (chunk, S_g) float32, the JAX
+    package's ``_build_eval`` arrival counts: TO specs count the tasks that
+    arrive by the deadline and those that arrive at all (finite); LB counts
+    slot arrivals capped at n; PC / PCMM decode all-or-nothing, n or 0."""
+    _, n, r_max, ks, S_to, M_to, S_tau, M_tau, F_lb, F_pcmm, P_pc = sig
+    DL = None if deadline is None else float(np.float32(deadline))
+
+    def _flat_counts(win):
+        return ((win <= DL).sum(-1).clamp(max=n).to(torch.float32),
+                torch.isfinite(win).sum(-1).clamp(max=n).to(torch.float32))
+
+    def _coded_counts(v0):
+        return (torch.where(v0 <= DL, float(n), 0.0),
+                torch.where(torch.isfinite(v0), float(n), 0.0))
+
+    def eval_fn(s: torch.Tensor, params):
         out: Dict[str, torch.Tensor] = {}
+        cnts: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
         if F_lb or F_pcmm:
             sf = s.reshape(s.shape[0], -1)
             s_pad = torch.cat([sf, sf.new_full((sf.shape[0], 1), INF)], -1)
@@ -506,6 +564,9 @@ def _build_bucket_eval(sig):
                 params["to_plan"], s, params["to_off"])
             out["to"] = (torch.sort(tau, dim=-1).values if ks is None
                          else _smallest(tau, ks)[..., -1:])
+            if DL is not None:
+                cnts["to"] = ((tau <= DL).sum(-1).to(torch.float32),
+                              torch.isfinite(tau).sum(-1).to(torch.float32))
         if S_tau:
             out["tau"] = task_arrival_times_gather(
                 params["tau_plan"], s, params["tau_off"])
@@ -513,10 +574,16 @@ def _build_bucket_eval(sig):
             win = s_pad[:, params["lb_idx"]] + params["lb_off"]
             fs = _smallest(win, n if ks is None else ks)
             out["lb"] = fs if ks is None else fs[..., -1:]
+            if DL is not None:
+                # oracle: the first results received are distinct, so the
+                # realized count is the slot-arrival count capped at n
+                cnts["lb"] = _flat_counts(win)
         if F_pcmm:
             th = _pcmm_threshold(n)
             win = s_pad[:, params["pcmm_idx"]] + params["pcmm_off"]
             out["pcmm"] = _smallest(win, th)[..., -1:]
+            if DL is not None:
+                cnts["pcmm"] = _coded_counts(out["pcmm"][..., -1])
         if P_pc:
             # per-worker one-shot times at each pc spec's closing slot,
             # ranked by a full sort so the decode threshold is a runtime
@@ -527,7 +594,9 @@ def _build_bucket_eval(sig):
             idx = params["pc_th"].reshape(1, P_pc, 1).expand(
                 srt.shape[0], P_pc, 1)
             out["pc"] = torch.take_along_dim(srt, idx, dim=-1)
-        return out
+            if DL is not None:
+                cnts["pc"] = _coded_counts(out["pc"][..., -1])
+        return out if DL is None else (out, cnts)
 
     return eval_fn
 
@@ -620,11 +689,30 @@ def _check_specs(specs: Sequence[SchemeSpec], n: int) -> Tuple[SchemeSpec, ...]:
                 raise ValueError(
                     f"{sp.name}: loads must be ({n},) with 1 <= load <= "
                     f"{sp.load}, got {sp.loads}")
-        if sp.kind in ("to", "tau", "adaptive"):
+        if sp.kind in ("to", "tau", "adaptive") and not sp.rebalance:
             C = sp.matrix()
             if sp.loads is not None or (C < 0).any():
                 scheduling.validate_to_matrix(C, n, loads=sp.loads)
-        if sp.comm_eps and sp.kind == "adaptive":
+        if sp.rebalance:
+            if sp.kind != "adaptive":
+                raise ValueError(f"{sp.name}: rebalance is only defined for "
+                                 f"adaptive specs")
+            C = sp.matrix()
+            if (C < 0).any():
+                raise ValueError(f"{sp.name}: rebalance needs a dense base "
+                                 f"matrix (its width is the load cap)")
+            if sp.loads is None:
+                raise ValueError(f"{sp.name}: rebalance needs an initial "
+                                 f"loads budget below the grid width")
+            if sorted(C[:, 0].tolist()) != list(range(n)):
+                raise ValueError(
+                    f"{sp.name}: rebalance needs a slot-0 diagonal (every "
+                    f"row's first task distinct, e.g. CS/SS) so any load "
+                    f"vector keeps all tasks covered")
+            if sp.comm_eps:
+                raise ValueError(f"{sp.name}: rebalance does not support "
+                                 f"comm_eps yet")
+        elif sp.comm_eps and sp.kind == "adaptive":
             raise ValueError(f"{sp.name}: comm_eps is not supported for "
                              f"adaptive specs yet")
     return specs
@@ -756,9 +844,20 @@ class SweepResult:
         return float(v[0])
 
 
+def _reject_single_round_trace(record_trace: bool, fn: str) -> None:
+    """The single-round entry points take ``record_trace`` for signature
+    uniformity with the rounds axis and refuse ``True``."""
+    if record_trace:
+        raise ValueError(f"record_trace is only available on the rounds "
+                         f"axis (sweep_rounds / trajectory_samples); "
+                         f"{fn} evaluates a single round and has no "
+                         f"per-round delay tables to record")
+
+
 def sweep(specs: Sequence[SchemeSpec], model, n: int, *, trials: int = 20000,
           seed: int = 0, chunk: Optional[int] = None,
-          ks: Optional[int] = None, devices=None) -> SweepResult:
+          ks: Optional[int] = None, record_trace: bool = False,
+          devices=None) -> SweepResult:
     """Evaluate every scheme against ONE shared set of delay draws.
 
     ``model`` is a ``DelayModel``; ``n`` the number of tasks (= workers);
@@ -766,7 +865,9 @@ def sweep(specs: Sequence[SchemeSpec], model, n: int, *, trials: int = 20000,
     per-trial samples are chunk-invariant, means agree to float32
     round-off); ``ks=None`` gives every k in 1..n from one sort, an int only
     that order statistic.  ``devices``: the one device to run on (``None``
-    = the CUDA card; ``"cpu"`` to run on the CPU)."""
+    = the CUDA card; ``"cpu"`` to run on the CPU).  ``record_trace=True``
+    raises: a single round has no per-round tables to record."""
+    _reject_single_round_trace(record_trace, "sweep")
     means, stderr = _run(specs, model, n, trials=trials, seed=seed,
                          chunk=chunk, ks=ks, want_samples=False,
                          devices=devices)
@@ -777,10 +878,12 @@ def sweep(specs: Sequence[SchemeSpec], model, n: int, *, trials: int = 20000,
 
 def completion_samples(spec: SchemeSpec, model, n: int, *, trials: int = 10000,
                        seed: int = 0, chunk: Optional[int] = None,
-                       k: Optional[int] = None, devices=None) -> torch.Tensor:
+                       k: Optional[int] = None, record_trace: bool = False,
+                       devices=None) -> torch.Tensor:
     """Per-trial completion-time samples for one scheme: ``(trials,)`` when
     ``k`` is given (or for coded schemes), else ``(trials, n)`` with column
     ``k-1`` holding the k-th order statistic."""
+    _reject_single_round_trace(record_trace, "completion_samples")
     out = _run([spec], model, n, trials=trials, seed=seed, chunk=chunk,
                ks=k, want_samples=True, devices=devices)[spec.name]
     return out[:, 0] if out.shape[-1] == 1 else out
@@ -790,9 +893,11 @@ def task_arrival_samples(C, model, *, trials: int = 10000, seed: int = 0,
                          chunk: Optional[int] = None,
                          messages: Optional[int] = None,
                          loads=None, comm_eps: float = 0.0,
+                         record_trace: bool = False,
                          devices=None) -> torch.Tensor:
     """Raw per-task arrival-time samples ``tau`` of shape (trials, n) for a
     TO matrix (tasks with no active copy come out +inf)."""
+    _reject_single_round_trace(record_trace, "task_arrival_samples")
     n = np.asarray(C).shape[0]
     spec = tau_spec("tau", C, messages=messages, loads=loads,
                     comm_eps=comm_eps)
@@ -805,45 +910,140 @@ def task_arrival_samples(C, model, *, trials: int = 10000, seed: int = 0,
 def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
                      r_max: int, ks: int, rounds: int, beta: float,
                      gamma: float, censored: bool,
-                     greedy_impl: Optional[str], device: torch.device):
-    """Multi-round evaluator for one chunk: ``(seed, tids)`` -> {name:
-    (rounds, chunk)} per-round completion times (the JAX package's
-    ``_build_rounds_fn`` without deadlines and re-balancing).
+                     greedy_impl: Optional[str], device: torch.device,
+                     deadline: Optional[float] = None,
+                     policy: str = "wait"):
+    """Multi-round evaluator for one chunk: ``(seed, tids)`` -> ``(times,
+    aux)``, ``times[name]`` the (rounds, chunk) per-round completion times
+    and ``aux[name]`` the degradation streams (empty without a deadline);
+    the JAX package's ``_build_rounds_fn``.
 
-    A Python loop over rounds carries (a) the delay process's state and (b)
-    the adaptive schemes' per-trial delay estimates.  Every scheme scores
-    the same delay realization each round (common random numbers).  Static
-    schemes go through the bucketed single-round evaluator at ``ks``;
-    adaptive ones re-assign their base rows from the estimates of earlier
-    rounds, permute the worker axis and take the k-th task arrival.
+    A Python loop over rounds carries (a) the delay process's state, (b)
+    the adaptive schemes' per-trial delay estimates and, under ``reissue``,
+    (c) the per-trial backlog of every scheme and the per-task need of the
+    adaptive ones.  Every scheme scores the same delay realization each
+    round (common random numbers).  Static schemes go through the bucketed
+    single-round evaluator at ``ks``; adaptive ones re-assign their base
+    rows from the estimates of earlier rounds (and, for rebalance specs,
+    re-balance the per-worker loads and mask each row past its executor's
+    load), permute the worker axis and take the k-th task arrival.
 
     Feedback: uncensored, one estimate shared by the adaptive schemes, set
     to the round's mean compute delay per worker in round 0 and an EMA
     with weight ``beta`` on history after (+inf observations keep the old
     estimate); censored, one estimate per scheme, updated by
     ``scheduling.censored_feedback_update`` from the messages that beat
-    that scheme's own round close.  Slot sums are explicit left folds."""
+    that scheme's own (effective) round close.
+
+    ``deadline`` caps every round; ``aux[name]`` then holds ``realized``,
+    ``missed`` and ``stale`` (each (rounds, chunk)):
+
+    * ``wait``: times unchanged; ``realized`` = min(deliverable, k),
+      ``missed`` marks rounds that closed after the deadline, ``stale`` =
+      (k - realized) / k;
+    * ``close_partial``: the round closes at min(t_done, deadline) with
+      ``realized`` = min(arrived by the deadline, k) results, ``missed`` =
+      realized < k, ``stale`` = (k - realized) / k;
+    * ``reissue``: as ``close_partial``, but undelivered results pile up in
+      a per-trial backlog (``stale`` = backlog / k), and each adaptive
+      scheme's undelivered tasks are its next round's ``need``, so the
+      greedy assignment re-gathers them first.
+
+    ``stale`` multiplies by the float32 reciprocal of k, as XLA evaluates
+    the reference's division by a constant.  With ``deadline=None`` every
+    number is what it was before deadlines existed."""
     static_specs = tuple(sp for sp in specs if sp.kind != "adaptive")
     ad_specs = tuple(sp for sp in specs if sp.kind == "adaptive")
+    DL = None if deadline is None else float(np.float32(deadline))
+    reissue = deadline is not None and policy == "reissue"
+    kf, nf = float(ks), float(n)
+    rk = float(np.float32(1.0) / np.float32(ks))   # XLA's x / k -> x * (1/k)
     eval_fn = None
     if static_specs:
         sig, params, slots = _eval_layout(static_specs, n, r_max, ks)
-        eval_fn = _build_bucket_eval(sig)
+        eval_fn = _build_bucket_eval(sig, DL)
         pt = params_on(params, device)
     ad_mats = tuple(sp.matrix() for sp in ad_specs)
-    ad_plans = tuple(_index_on(_plan_of(sp, n, r_max), device)
+    # rebalance specs mask slots per round, so their plan keeps every slot
+    # of the dense base; static ragged specs bake their masks in
+    ad_plans = tuple(_index_on(task_gather_plan(sp.matrix(), n, r_max)
+                               if sp.rebalance else _plan_of(sp, n, r_max),
+                               device) for sp in ad_specs)
+    ad_mmaps = tuple(None if sp.rebalance else _slot_map_of(sp)
                      for sp in ad_specs)
-    ad_mmaps = tuple(_slot_map_of(sp) for sp in ad_specs)
     ad_mmaps_t = tuple(None if m is None else _index_on(m, device)
                        for m in ad_mmaps)
-    ad_lrow = tuple(None if sp.loads is None
+    ad_remap = tuple(None if (m := _rebalance_remap(sp)) is None
+                     else _index_on(m, device) for sp in ad_specs)
+    # the same tables over the whole slot grid: slots past the cap keep
+    # the identity (they are +inf), so a cap below r_max keeps the grid's
+    # width (the JAX package gathers the (cap, cap) table there, and its
+    # gather plan then reads clamped indices)
+    ad_remap_grid = tuple(
+        None if m is None else torch.cat(
+            [m, torch.arange(m.shape[0], r_max, device=device).expand(
+                m.shape[0], r_max - m.shape[0])], dim=1)
+        for m in ad_remap)
+    ad_lrow = tuple(None if sp.loads is None or sp.rebalance
                     else _index_on(np.asarray(sp.loads, np.int64), device)
                     for sp in ad_specs)
+    ad_l0 = tuple(np.asarray(sp.loads, np.int64) if sp.rebalance else None
+                  for sp in ad_specs)
 
-    def _worker_arrivals(i, w_of_row, s):
+    def _policy_close(v, by, dv):
+        """(v_eff, realized, missed) of one scheme's raw completion."""
+        if policy == "wait":
+            return v, dv.clamp(max=kf), (~(v <= DL)).to(torch.float32)
+        return (v.clamp(max=DL), by.clamp(max=kf),
+                (by < kf).to(torch.float32))
+
+    def _degrade(nm, v, by, dv, backs, new_backs):
+        """The deadline policy on one scheme: (v_eff, aux or None); under
+        reissue also the scheme's new backlog."""
+        if DL is None:
+            return v, None
+        v_eff, realized, missed = _policy_close(v, by, dv)
+        if reissue:
+            nb = (backs[nm] + kf - by.clamp(max=kf)).clamp(0.0, nf)
+            new_backs[nm] = nb
+            stale = nb * rk
+        else:
+            stale = (kf - realized) * rk
+        return v_eff, {"realized": realized, "missed": missed,
+                       "stale": stale}
+
+    def _assign_and_score(i, est, s, need):
+        """Greedy row re-assignment (and, for rebalance specs, the load
+        re-balance) from ``est``, then this scheme's completion on the
+        permuted, masked slot grid: (w_of_row, loads_w, v, tau)."""
+        sp = ad_specs[i]
+        w_of_row = scheduling.greedy_row_assignment_batch(
+            ad_mats[i], est, gamma=gamma, need=need,
+            impl=greedy_impl).to(torch.int64)
+        # row p's slots are executed by worker w_of_row[p]
+        s2 = torch.take_along_dim(s, w_of_row[..., None], dim=1)
+        loads_w = None
+        if sp.rebalance:
+            loads_w = scheduling.greedy_load_rebalance_batch(
+                est, ad_l0[i], r_max=ad_mats[i].shape[1],
+                min_load=1).to(torch.int64)
+            # row p inherits its executor's load: trailing slots -> +inf
+            l_row = torch.take_along_dim(loads_w, w_of_row, dim=-1)
+            act = (torch.arange(s2.shape[-1], device=s.device)[None, None, :]
+                   < l_row[..., None])
+            s2 = torch.where(act, s2, INF)
+            if ad_remap_grid[i] is not None:
+                # message budget: slot j rides its message's closing slot,
+                # which depends on the row's realized load
+                s2 = torch.take_along_dim(s2, ad_remap_grid[i][l_row - 1],
+                                          dim=-1)
+        tau = task_arrival_times_gather(ad_plans[i], s2)
+        return w_of_row, loads_w, _smallest(tau, ks)[..., -1], tau
+
+    def _worker_arrivals(i, w_of_row, loads_w, s):
         """Worker-major per-message arrivals feeding the censored feedback:
         worker w's own slots, grouped by the message layout of the row it
-        executes, +inf beyond that row's load."""
+        executes (or of its re-balanced load), +inf beyond its load."""
         r_sp = ad_mats[i].shape[1]
         s_w = s[..., :, :r_sp]
         mmap, mm_t = ad_mmaps[i], ad_mmaps_t[i]
@@ -855,7 +1055,14 @@ def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
         else:
             row_of_worker = torch.argsort(w_of_row, dim=-1)
             arr_w = torch.take_along_dim(s_w, mm_t[row_of_worker], dim=-1)
-        if ad_lrow[i] is not None:                 # static ragged rows
+        if loads_w is not None:                    # rebalance: per round
+            if ad_remap[i] is not None:
+                arr_w = torch.take_along_dim(arr_w, ad_remap[i][loads_w - 1],
+                                             dim=-1)
+            act = (torch.arange(r_sp, device=s.device)[None, None, :]
+                   < loads_w[..., None])
+            arr_w = torch.where(act, arr_w, INF)
+        elif ad_lrow[i] is not None:               # static ragged rows
             if row_of_worker is None:
                 row_of_worker = torch.argsort(w_of_row, dim=-1)
             l_of_w = ad_lrow[i][row_of_worker]
@@ -864,7 +1071,7 @@ def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
             arr_w = torch.where(act, arr_w, INF)
         return arr_w
 
-    def rounds_fn(seed: int, tids: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def rounds_fn(seed: int, tids: torch.Tensor):
         chunk = tids.shape[0]
         pstate = process.init_trials(rng.round_seed(seed, 0), tids, n)
         if censored:
@@ -872,31 +1079,60 @@ def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
                     for _ in ad_specs]
         else:
             est = torch.ones((chunk, n), device=device)
+        backs = ({sp.name: torch.zeros(chunk, device=device) for sp in specs}
+                 if reissue else {})
+        needs = ({sp.name: torch.zeros((chunk, n), device=device)
+                  for sp in ad_specs} if reissue else {})
         times: Dict[str, list] = {sp.name: [] for sp in specs}
+        aux: Dict[str, Dict[str, list]] = {}
+
+        def _keep(nm, v_eff, a):
+            times[nm].append(v_eff)
+            if a is not None:
+                for key, x in a.items():
+                    aux.setdefault(nm, {}).setdefault(key, []).append(x)
+
         for t in range(rounds):
             pstate, T1, T2 = process.step(pstate, rng.round_seed(seed, t + 1),
                                           tids, n, r_max)
             s = slot_arrival_times(T1, T2)                  # eq. (1)
+            new_backs, new_needs = {}, {}
             if eval_fn is not None:
                 out = eval_fn(s, pt)
+                cnts = None
+                if DL is not None:
+                    out, cnts = out
                 for name, (g, i) in slots.items():
-                    times[name].append(out[g][:, i, 0])
+                    by = dv = None
+                    if cnts is not None:
+                        by, dv = cnts[g][0][:, i], cnts[g][1][:, i]
+                    _keep(name, *_degrade(name, out[g][:, i, 0], by, dv,
+                                          backs, new_backs))
             new_ests = []
             for i, sp in enumerate(ad_specs):
                 e = ests[i] if censored else est
-                w_of_row = scheduling.greedy_row_assignment_batch(
-                    ad_mats[i], e, gamma=gamma,
-                    impl=greedy_impl).to(torch.int64)
-                # row p's slots are executed by worker w_of_row[p]
-                s2 = torch.take_along_dim(s, w_of_row[..., None], dim=1)
-                tau = task_arrival_times_gather(ad_plans[i], s2)
-                v = _smallest(tau, ks)[..., -1]
-                times[sp.name].append(v)
+                w_of_row, loads_w, v, tau = _assign_and_score(
+                    i, e, s, needs.get(sp.name))
+                by = dv = None
+                if DL is not None:
+                    by = (tau <= DL).sum(-1).to(torch.float32)
+                    dv = torch.isfinite(tau).sum(-1).to(torch.float32)
+                v_eff, a = _degrade(sp.name, v, by, dv, backs, new_backs)
+                _keep(sp.name, v_eff, a)
+                if reissue:
+                    # undelivered tasks: next round's re-gather priority,
+                    # while a backlog is owed
+                    delivered = (tau <= v_eff[..., None]) & torch.isfinite(tau)
+                    owed = (new_backs[sp.name] > 0)[..., None]
+                    new_needs[sp.name] = (~delivered & owed).to(torch.float32)
                 if censored:
                     r_sp = ad_mats[i].shape[1]
                     new_ests.append(scheduling.censored_feedback_update(
-                        e, T1[..., :r_sp], _worker_arrivals(i, w_of_row, s),
-                        v, beta=beta))
+                        e, T1[..., :r_sp],
+                        _worker_arrivals(i, w_of_row, loads_w, s), v_eff,
+                        beta=beta))
+            if reissue:
+                backs, needs = new_backs, new_needs
             if censored:
                 ests = new_ests
             elif ad_specs:
@@ -906,9 +1142,44 @@ def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
                 obs = scheduling._left_fold_sum(T1) * (1.0 / T1.shape[-1])
                 upd = obs if t == 0 else beta * est + (1.0 - beta) * obs
                 est = torch.where(torch.isfinite(obs), upd, est)
-        return {name: torch.stack(v) for name, v in times.items()}
+        return ({name: torch.stack(v) for name, v in times.items()},
+                {name: {key: torch.stack(v) for key, v in a.items()}
+                 for name, a in aux.items()})
 
     return rounds_fn
+
+
+def _capture_tables(process, n: int, r_max: int, rounds: int, seed: int,
+                    tids: torch.Tensor):
+    """The recording pass for one chunk: step the process alone under the
+    same per-round seeds as ``_build_rounds_fn`` and return its tables,
+    ``(T1, T2)`` each (rounds, chunk, n, r_max) float32 numpy."""
+    pstate = process.init_trials(rng.round_seed(seed, 0), tids, n)
+    T1s, T2s = [], []
+    for t in range(rounds):
+        pstate, T1, T2 = process.step(pstate, rng.round_seed(seed, t + 1),
+                                      tids, n, r_max)
+        T1s.append(T1.cpu().numpy())
+        T2s.append(T2.cpu().numpy())
+    return np.stack(T1s), np.stack(T2s)
+
+
+def _record_trace(process, n, r_max, *, rounds, trials, seed, chunk, dev,
+                  meta: dict):
+    """The delay tables a rounds run over ``process`` draws, as a
+    ``DelayTrace`` (the first pass of ``record_trace=True``): every trial
+    id's draws are those of the evaluation, so replaying the trace scores
+    the same rounds."""
+    from .trace import DelayTrace
+    parts1, parts2 = [], []
+    for lo in range(0, trials, chunk):
+        tids = torch.arange(lo, min(lo + chunk, trials), dtype=torch.int64,
+                            device=dev)
+        T1, T2 = _capture_tables(process, n, r_max, rounds, seed, tids)
+        parts1.append(T1)
+        parts2.append(T2)
+    return DelayTrace(np.concatenate(parts1, axis=1),
+                      np.concatenate(parts2, axis=1), meta=meta)
 
 
 def _check_rounds_args(specs, n, ks, rounds):
@@ -919,7 +1190,8 @@ def _check_rounds_args(specs, n, ks, rounds):
     if not 1 <= ks <= n:
         raise ValueError(f"need 1 <= k <= n={n}, got k={ks}")
     for sp in specs:
-        if sp.kind in ("to", "adaptive") and _covered_tasks(sp) < ks:
+        if (sp.kind in ("to", "adaptive") and not sp.rebalance
+                and _covered_tasks(sp) < ks):
             raise ValueError(
                 f"{sp.name}: ragged schedule covers only "
                 f"{_covered_tasks(sp)} distinct tasks < k={ks}; the "
@@ -929,18 +1201,32 @@ def _check_rounds_args(specs, n, ks, rounds):
     return specs
 
 
+def _chunk_aux(aux, ok: torch.Tensor, ks: int):
+    """One chunk's degradation partials: (rounds,) float32 sums over the
+    valid trials of realized / missed / stale, and the realized-k histogram
+    (rounds, k + 1)."""
+    out = {}
+    for nm, a in aux.items():
+        hist = torch.nn.functional.one_hot(
+            a["realized"].to(torch.int64), ks + 1).to(torch.float32)
+        hist = torch.where(ok[..., None], hist, 0.0)
+        out[nm] = {key: _tree_sum(torch.where(ok, a[key], 0.0).T)
+                   for key in ("realized", "missed", "stale")}
+        out[nm]["khist"] = _tree_sum(hist.transpose(0, 1))
+    return out
+
+
 def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
                 seed: int, chunk: Optional[int], beta: float, gamma: float,
                 censored: bool, want_samples: bool, record: bool = False,
                 deadline: Optional[float] = None,
                 deadline_policy: str = "wait", devices=None,
                 greedy_impl: Optional[str] = None):
+    """Samples: ``(samples, trace)``; sums: ``(per_round, stderr,
+    wallclock, wallclock_stderr, degradation, trace)``."""
     from .cluster import as_process
     from .spec import validate_deadline
-    if validate_deadline(deadline, deadline_policy) is not None:
-        raise NotImplementedError(f"round deadlines {_LATER}")
-    if record:
-        raise NotImplementedError(f"trace recording (record_trace) {_LATER}")
+    deadline = validate_deadline(deadline, deadline_policy)
     dev = _single_device(devices)
     process = as_process(process)
     process.check_rounds(rounds)
@@ -949,15 +1235,36 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
     rng.round_seed(seed, rounds)                 # validate the seed range
     r_max = max(sp.load for sp in specs)
     chunk = _normalize_chunk(trials, chunk)
+
+    if record:
+        # two passes: capture the tables, then score the run by replaying
+        # them, so a later replay of the returned trace reproduces it
+        from .trace import TraceProcess
+        trace = _record_trace(
+            process, n, r_max, rounds=rounds, trials=trials, seed=seed,
+            chunk=chunk, dev=dev,
+            meta={"source": "sweep_rounds", "seed": int(seed), "k": int(k),
+                  "process": type(process).__name__,
+                  "schemes": [sp.name for sp in specs]})
+        out = _run_rounds(specs, TraceProcess(trace), n, rounds=rounds, k=k,
+                          trials=trials, seed=seed, chunk=chunk, beta=beta,
+                          gamma=gamma, censored=censored,
+                          want_samples=want_samples, deadline=deadline,
+                          deadline_policy=deadline_policy, devices=dev,
+                          greedy_impl=greedy_impl)
+        return out[:-1] + (trace,)
+
     rounds_fn = _build_rounds_fn(specs, process, n, r_max, k, rounds, beta,
-                                 gamma, censored, greedy_impl, dev)
+                                 gamma, censored, greedy_impl, dev,
+                                 deadline, deadline_policy)
     offs = torch.arange(chunk, dtype=torch.int64, device=dev)
     samples: Dict[str, list] = {}
     parts: Dict[str, list] = {}
+    aux_parts: Dict[str, Dict[str, list]] = {}
     for start in range(0, trials, chunk):
         tids_raw = start + offs
         # a partial last chunk repeats the last real trial in masked lanes
-        ys = rounds_fn(seed, tids_raw.clamp(max=trials - 1))
+        ys, aux = rounds_fn(seed, tids_raw.clamp(max=trials - 1))
         if want_samples:
             for nm, v in ys.items():
                 samples.setdefault(nm, []).append(v)
@@ -968,10 +1275,13 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
             parts.setdefault(nm, []).append(torch.stack([
                 _tree_sum(torch.where(ok, x, 0.0).T)
                 for x in (v, v * v, cum, cum * cum)]))
+        for nm, a in _chunk_aux(aux, ok, k).items():
+            for key, x in a.items():
+                aux_parts.setdefault(nm, {}).setdefault(key, []).append(x)
 
     if want_samples:
-        return {nm: torch.cat(v, dim=1)[:, :trials].T
-                for nm, v in samples.items()}
+        return ({nm: torch.cat(v, dim=1)[:, :trials].T
+                 for nm, v in samples.items()}, None)
 
     def moments(p0, p1):
         mu = p0.sum(axis=0) / trials
@@ -984,7 +1294,13 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
         p = torch.stack(v).cpu().numpy().astype(np.float64)  # (nc, 4, R)
         per_round[nm], stderr[nm] = moments(p[:, 0], p[:, 1])
         wallclock[nm], wc_stderr[nm] = moments(p[:, 2], p[:, 3])
-    return per_round, stderr, wallclock, wc_stderr
+    degr = None
+    if deadline is not None:
+        degr = {nm: {("realized_k" if key == "realized" else key):
+                     torch.stack(v).cpu().numpy().astype(np.float64).sum(0)
+                     / trials for key, v in a.items()}
+                for nm, a in aux_parts.items()}
+    return per_round, stderr, wallclock, wc_stderr, degr, None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -994,7 +1310,16 @@ class RoundsResult:
     ``per_round[name]``  (rounds,) mean completion time of each round;
     ``wallclock[name]``  (rounds,) mean cumulative wall-clock after each
                          round; ``stderr`` / ``wallclock_stderr`` the
-                         matching Monte-Carlo standard errors."""
+                         matching Monte-Carlo standard errors;
+    ``trace``            the realized delay tables (a ``DelayTrace``) with
+                         ``record_trace=True``, else None;
+    ``degradation``      with a ``deadline``, per scheme: ``realized_k``
+                         (rounds,) mean distinct results credited a round,
+                         ``missed`` (rounds,) share of trials whose round
+                         missed the deadline, ``stale`` (rounds,) mean
+                         missing-gradient share (reissue: owed backlog /
+                         k), ``khist`` (rounds, k + 1) the realized-k
+                         distribution; None without a deadline."""
     per_round: Dict[str, np.ndarray]
     stderr: Dict[str, np.ndarray]
     wallclock: Dict[str, np.ndarray]
@@ -1003,6 +1328,10 @@ class RoundsResult:
     rounds: int
     n: int
     k: int
+    trace: Optional[object] = None
+    deadline: Optional[float] = None
+    deadline_policy: str = "wait"
+    degradation: Optional[Dict[str, Dict[str, np.ndarray]]] = None
 
     def _get(self, d: Dict[str, np.ndarray], name: str) -> np.ndarray:
         if name not in d:
@@ -1016,6 +1345,28 @@ class RoundsResult:
     def total(self, name: str) -> float:
         """Mean wall-clock of the whole run."""
         return float(self._get(self.wallclock, name)[-1])
+
+    def _degr(self, name: str, key: str) -> np.ndarray:
+        if self.degradation is None:
+            raise ValueError("no degradation metrics: run sweep_rounds "
+                             "with a deadline")
+        return self._get(self.degradation, name)[key]
+
+    def realized_k(self, name: str) -> np.ndarray:
+        """(rounds,) mean distinct results credited per round (<= k)."""
+        return self._degr(name, "realized_k")
+
+    def missed_fraction(self, name: str) -> np.ndarray:
+        """(rounds,) share of trials whose round missed the deadline."""
+        return self._degr(name, "missed")
+
+    def stale_fraction(self, name: str) -> np.ndarray:
+        """(rounds,) mean missing-gradient share per round."""
+        return self._degr(name, "stale")
+
+    def khist(self, name: str) -> np.ndarray:
+        """(rounds, k+1) realized-k distribution (rows sum to 1)."""
+        return self._degr(name, "khist")
 
 
 def sweep_rounds(specs: Sequence[SchemeSpec], process, n: int, *,
@@ -1034,14 +1385,20 @@ def sweep_rounds(specs: Sequence[SchemeSpec], process, n: int, *,
     matrix's rows each round from delay feedback (EMA weight
     ``feedback_beta``, coverage discount ``coverage_gamma``;
     ``censored_feedback`` restricts it to messages that beat the scheme's
-    own round close).  ``k`` is the single computation target; ``seed``
+    own round close) and, with ``rebalance=True``, re-balance whole slots
+    between workers.  ``k`` is the single computation target; ``seed``
     (below 2**32), ``trials`` and ``chunk`` as in ``sweep``; ``devices``
-    the one device (``None`` = the CUDA card).  ``greedy_impl``: ``None``/
-    ``"auto"``/``"kernel"`` (the ``greedy_assign`` kernel on the card, its
-    plain version on the CPU) or ``"scan"`` (the plain version anywhere).
-    ``deadline``/``deadline_policy`` and ``record_trace`` wait for a later
-    slice of the port."""
-    per_round, stderr, wallclock, wc_stderr = _run_rounds(
+    the one device (``None`` = the CUDA card).
+
+    ``record_trace``: also capture the realized per-(round, trial, worker,
+    slot) tables as the result's ``trace`` (two passes: capture, then score
+    by replaying them; memory O(rounds * trials * n * r_max) floats x2).
+    ``deadline`` caps every round and enables ``degradation``;
+    ``deadline_policy`` is ``"wait"``, ``"close_partial"`` or ``"reissue"``
+    (see ``_build_rounds_fn``).  ``greedy_impl``: ``None``/``"auto"``/
+    ``"kernel"`` (the ``greedy_assign`` kernel on the card, its plain
+    version on the CPU) or ``"scan"`` (the plain version anywhere)."""
+    per_round, stderr, wallclock, wc_stderr, degr, trace = _run_rounds(
         specs, process, n, rounds=rounds, k=k, trials=trials, seed=seed,
         chunk=chunk, beta=feedback_beta, gamma=coverage_gamma,
         censored=censored_feedback, want_samples=False,
@@ -1050,7 +1407,10 @@ def sweep_rounds(specs: Sequence[SchemeSpec], process, n: int, *,
         greedy_impl=greedy_impl)
     return RoundsResult(per_round=per_round, stderr=stderr,
                         wallclock=wallclock, wallclock_stderr=wc_stderr,
-                        trials=trials, rounds=rounds, n=n, k=k)
+                        trials=trials, rounds=rounds, n=n, k=k, trace=trace,
+                        deadline=(None if deadline is None
+                                  else float(deadline)),
+                        deadline_policy=deadline_policy, degradation=degr)
 
 
 def trajectory_samples(spec: SchemeSpec, process, n: int, *, rounds: int,
@@ -1062,13 +1422,17 @@ def trajectory_samples(spec: SchemeSpec, process, n: int, *, rounds: int,
                        record_trace: bool = False,
                        deadline: Optional[float] = None,
                        deadline_policy: str = "wait", devices=None,
-                       greedy_impl: Optional[str] = None) -> torch.Tensor:
+                       greedy_impl: Optional[str] = None):
     """Per-trial completion-time trajectories for one scheme, shape
-    ``(trials, rounds)`` (arguments as in ``sweep_rounds``)."""
-    return _run_rounds([spec], process, n, rounds=rounds, k=k,
-                       trials=trials, seed=seed, chunk=chunk,
-                       beta=feedback_beta, gamma=coverage_gamma,
-                       censored=censored_feedback, want_samples=True,
-                       record=record_trace, deadline=deadline,
-                       deadline_policy=deadline_policy, devices=devices,
-                       greedy_impl=greedy_impl)[spec.name]
+    ``(trials, rounds)`` (arguments as in ``sweep_rounds``); with a
+    deadline, the effective round closes under ``deadline_policy``.  With
+    ``record_trace=True`` returns ``(trajectories, DelayTrace)``."""
+    samples, trace = _run_rounds(
+        [spec], process, n, rounds=rounds, k=k, trials=trials, seed=seed,
+        chunk=chunk, beta=feedback_beta, gamma=coverage_gamma,
+        censored=censored_feedback, want_samples=True, record=record_trace,
+        deadline=deadline, deadline_policy=deadline_policy, devices=devices,
+        greedy_impl=greedy_impl)
+    if record_trace:
+        return samples[spec.name], trace
+    return samples[spec.name]

@@ -20,9 +20,13 @@ first, each taking the row that covers the least-covered tasks);
 ``greedy_row_assignment_batch`` is its batched torch form, whose pick loop
 is the ``greedy_assign`` kernel on the card and its plain version on the
 CPU; ``censored_feedback_update`` is the censored feedback rule shared by
-``AdaptiveScheduler`` and the rounds engine.  Load re-balancing
-(``greedy_load_rebalance``, ``AdaptiveScheduler(rebalance=True)``) waits
-for a later slice of the port.
+``AdaptiveScheduler`` and the rounds engine.
+
+Load re-balancing: ``greedy_load_rebalance`` re-allocates whole slots
+between workers from the same delay estimates under a fixed total budget
+(makespan descent); ``greedy_load_rebalance_batch`` is its batched torch
+form (a Python loop of single-slot moves on (B, n) tensors), used every
+round by the rounds engine and by ``AdaptiveScheduler(rebalance=True)``.
 """
 from __future__ import annotations
 
@@ -50,13 +54,11 @@ __all__ = [
     "GREEDY_IMPLS",
     "greedy_row_assignment",
     "greedy_row_assignment_batch",
+    "greedy_load_rebalance",
+    "greedy_load_rebalance_batch",
     "censored_feedback_update",
     "AdaptiveScheduler",
 ]
-
-_LATER = ("load re-balancing (greedy_load_rebalance) arrives with the "
-          "port's fault-tolerance slice (re-balancing, deadlines, faults, "
-          "trace recording)")
 
 MASKED = -1      # sentinel task index for the inactive trailing slots of a
                  # ragged row (worker load < grid width)
@@ -380,6 +382,92 @@ def greedy_row_assignment_batch(C: np.ndarray, est: torch.Tensor, *,
     return out.reshape(batch + (n,))
 
 
+def greedy_load_rebalance(speed_est, loads=None, *, total: int | None = None,
+                          r_max: int, min_load: int = 1,
+                          steps: int | None = None,
+                          device=None) -> np.ndarray:
+    """Re-allocate whole computation slots between workers from estimated
+    per-task delays under a fixed total budget (Egger et al.,
+    arXiv:2304.08589).  Starting from ``loads`` (or an as-even-as-possible
+    split of ``total``), one slot at a time moves from the worker with the
+    largest estimated finish ``est[w] * loads[w]`` to the worker whose
+    post-move finish ``est[w'] * (loads[w'] + 1)`` is smallest, while that
+    strictly lowers the donor's finish; ``min_load <= loads[w] <= r_max``
+    and ``sum(loads)`` stay fixed.  ``+inf`` estimates (never observed)
+    shed slots down to ``min_load``; all-``inf`` or equal estimates on a
+    uniform split leave it unchanged.
+
+    Returns the new per-worker loads (int64).  Runs
+    ``greedy_load_rebalance_batch`` on ``device`` (the card by default)."""
+    if loads is None:
+        if total is None or speed_est is None:
+            raise ValueError("need an initial loads vector, or a total "
+                             "budget plus a speed_est to size it from")
+        n = np.asarray(speed_est).shape[0]
+        base, extra = divmod(int(total), n)
+        lv = np.full(n, base, np.int64)
+        lv[:extra] += 1                    # as-even-as-possible split
+    else:
+        lv = np.asarray(loads, np.int64)
+    n = lv.shape[0]
+    if total is not None and int(lv.sum()) != int(total):
+        raise ValueError(f"loads sum {lv.sum()} != total budget {total}")
+    if not 1 <= min_load <= lv.min():
+        raise ValueError(f"need 1 <= min_load <= min(loads); got "
+                         f"min_load={min_load}, loads min {lv.min()}")
+    if lv.max() > r_max:
+        raise ValueError(f"max load {lv.max()} exceeds r_max={r_max}")
+    est = (np.ones(n, np.float32) if speed_est is None
+           else np.asarray(speed_est, np.float32))
+    if est.shape != (n,):
+        raise ValueError(f"speed_est must have shape ({n},), got {est.shape}")
+    out = greedy_load_rebalance_batch(
+        torch.as_tensor(est, device=resolve_device(device))[None], lv,
+        r_max=int(r_max), min_load=int(min_load), steps=steps)
+    return out[0].cpu().numpy().astype(np.int64)
+
+
+def greedy_load_rebalance_batch(est: torch.Tensor, loads, *, r_max: int,
+                                min_load: int = 1,
+                                steps: int | None = None) -> torch.Tensor:
+    """Batched twin of ``greedy_load_rebalance`` on ``est``'s device:
+    ``est`` (..., n) float32 (+inf = never observed), ``loads`` the initial
+    allocation (n,) -> per-worker loads (..., n) int32, each summing to
+    ``sum(loads)``.  ``steps`` single-slot moves (default ``n * r_max``,
+    enough to reach the fixed point; further moves are no-ops).
+
+    Each move, as in the JAX package: ``finish = est * l``; ``give`` is
+    ``finish``, or -inf where ``l <= min_load``; ``take`` is ``est * (l +
+    1)``, or +inf where ``l >= r_max``; the donor is the first argmax of
+    ``give``, the receiver the first argmin of ``take``, and the slot moves
+    only if ``give[d] > take[w]`` and ``d != w``.  Every step is an exact
+    float32 product, a comparison or an integer add, so the result equals
+    the JAX package's bit for bit."""
+    lv = np.asarray(loads, np.int64)
+    n = lv.shape[0]
+    if steps is None:
+        steps = int(n * r_max)
+    dev = est.device
+    batch = est.shape[:-1]
+    e = est.reshape(-1, n).to(torch.float32)
+    l = torch.as_tensor(lv, dtype=torch.int32, device=dev).expand(
+        e.shape[0], n).contiguous()
+    ninf = torch.tensor(-np.inf, dtype=torch.float32, device=dev)
+    pinf = torch.tensor(np.inf, dtype=torch.float32, device=dev)
+    for _ in range(steps):
+        lf = l.to(torch.float32)
+        give = torch.where(l > min_load, e * lf, ninf)
+        take = torch.where(l < r_max, e * (lf + 1.0), pinf)
+        # first index on ties, as JAX's argmax / argmin
+        give_d, d = torch.max(give, dim=-1, keepdim=True)  # slowest finish
+        take_w, w = torch.min(take, dim=-1, keepdim=True)  # cheapest slot
+        # `inf > inf` is False: an all-inf / no-feedback round keeps the
+        # split; a donor at min_load gives -inf, a full receiver takes +inf
+        ok = ((give_d > take_w) & (d != w)).to(torch.int32)
+        l = l.scatter_add(-1, w, ok).scatter_add(-1, d, -ok)
+    return l.reshape(batch + (n,))
+
+
 def _left_fold_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis as an explicit left fold (the same bits on
     every device and for any thread count)."""
@@ -434,20 +522,36 @@ class AdaptiveScheduler:
     rounds is presumed dead (estimate forced to +inf); with ``target_k``,
     ``matrix()`` raises when the surviving assignment covers fewer than
     ``target_k`` distinct tasks.  ``set_need`` marks tasks to re-gather
-    first next round.  The greedy assignment runs on ``device`` (the card
-    by default: the ``greedy_assign`` kernel).  ``rebalance`` waits for a
-    later slice of the port."""
+    first next round.
+
+    ``rebalance``: ``C`` is a dense base whose width is the per-worker load
+    cap and ``loads`` the initial budget; each round's loads are
+    re-balanced from the same (dead-censored) estimates by
+    ``greedy_load_rebalance`` (``loads()``), and ``matrix()`` masks the
+    effective schedule to them.  The greedy assignment and the re-balance
+    run on ``device`` (the card by default: the ``greedy_assign``
+    kernel)."""
 
     def __init__(self, C: np.ndarray, *, beta: float = 0.7,
                  gamma: float = 0.5, loads=None, rebalance: bool = False,
                  min_load: int = 1, dead_after: int | None = None,
                  target_k: int | None = None, device=None):
-        if rebalance:
-            raise NotImplementedError(_LATER)
         self.C = np.asarray(C)
-        self.rebalance = False
-        validate_to_matrix(self.C, loads=loads)
-        self.base_loads = loads_of_matrix(self.C)
+        self.rebalance = bool(rebalance)
+        if self.rebalance:
+            if (self.C == MASKED).any():
+                raise ValueError("rebalance needs a dense base matrix (its "
+                                 "width is the per-worker load cap); pass "
+                                 "the budget via loads=")
+            validate_to_matrix(self.C)
+            if loads is None:
+                raise ValueError("rebalance needs an initial loads budget "
+                                 "below the grid width (loads=)")
+            self.base_loads, _ = _check_loads(self.C.shape[0], loads,
+                                              self.C.shape[1])
+        else:
+            validate_to_matrix(self.C, loads=loads)
+            self.base_loads = loads_of_matrix(self.C)
         self.min_load = int(min_load)
         self.beta = float(beta)
         self.gamma = float(gamma)
@@ -463,6 +567,7 @@ class AdaptiveScheduler:
         self.silent = np.zeros(self.C.shape[0], np.int64)
         self._need: np.ndarray | None = None
         self._assignment: np.ndarray | None = None   # valid until observe()
+        self._loads: np.ndarray | None = None
 
     def dead_workers(self) -> np.ndarray:
         """Bool (n,): workers presumed dead (all False without
@@ -505,15 +610,27 @@ class AdaptiveScheduler:
 
     def loads(self) -> np.ndarray:
         """Per-worker loads for the coming round: the assigned rows' own
-        loads."""
-        return self.base_loads[self.row_of_worker()]
+        loads, re-balanced from feedback under ``rebalance`` (workers with
+        no estimate yet count as slowest, +inf)."""
+        if not self.rebalance:
+            return self.base_loads[self.row_of_worker()]
+        if self._loads is None:
+            est = self._effective_est()
+            if est is None:
+                est = np.full(self.C.shape[0], np.inf)
+            self._loads = greedy_load_rebalance(
+                est, self.base_loads, r_max=self.C.shape[1],
+                min_load=self.min_load, device=self.device)
+        return self._loads
 
     def matrix(self) -> np.ndarray:
         """The effective TO matrix for the coming round (row ``w`` is what
-        worker ``w`` executes).  With ``dead_after`` + ``target_k``, raises
-        when the rows held by surviving workers cover fewer than
-        ``target_k`` distinct tasks."""
+        worker ``w`` executes, ``MASKED`` beyond its load).  With
+        ``dead_after`` + ``target_k``, raises when the rows held by
+        surviving workers cover fewer than ``target_k`` distinct tasks."""
         M = self.C[self.row_of_worker()]
+        if self.rebalance:
+            M = mask_matrix_loads(M, self.loads())
         dead = self.dead_workers()
         if self.target_k is not None and dead.any():
             alive_rows = M[~dead]
@@ -550,6 +667,7 @@ class AdaptiveScheduler:
             delivered = (np.isfinite(arr) & (arr <= float(t_done))).any(-1)
             self.silent = np.where(delivered, 0, self.silent + 1)
             self._assignment = None
+            self._loads = None
             return
         if obs.ndim == 2:
             # +inf slot delays must not drag the row mean to inf: average
@@ -573,3 +691,4 @@ class AdaptiveScheduler:
             self.est = np.where(delivered, upd, self.est)
         self.silent = np.where(delivered, 0, self.silent + 1)
         self._assignment = None
+        self._loads = None

@@ -68,8 +68,7 @@ class RoundConfig:
     what a real master observes, ``rebalance`` re-allocates whole slots
     between workers, ``dead_after`` marks silent workers dead after that
     many rounds, ``feedback_beta`` / ``coverage_gamma`` tune the scheduler.
-    The port's aggregator and engine run ``adaptive``, ``censored_feedback``
-    and ``dead_after``; ``rebalance`` and deadlines wait for a later slice.
+    The port's aggregator and engine run all of them.
 
     ``seed`` seeds RA-matrix construction.
     """

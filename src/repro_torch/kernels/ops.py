@@ -28,11 +28,13 @@ __all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
 #: kernel name -> launches since the last ``reset_launch_counts``;
 #: "gram_matvec" counts the calls of both of its routes,
 #: "gram_matvec_onepass" those of the one-pass route alone;
+#: "greedy_assign_need" counts the greedy_assign launches that carry need
+#: rows (the reissue priority), a subset of "greedy_assign";
 #: "swa_attention" counts the launches of all three of its routes,
 #: "swa_attention_wgmma" those of the bfloat16 tensor-core route alone,
 #: "swa_attention_f32" those of the float32 tensor-core route alone
 LAUNCHES = {"gram_matvec": 0, "gram_matvec_onepass": 0, "greedy_assign": 0,
-            "swa_attention": 0, "swa_attention_wgmma": 0,
+            "greedy_assign_need": 0, "swa_attention": 0, "swa_attention_wgmma": 0,
             "swa_attention_f32": 0}
 
 #: the greedy_assign kernel's layout, mirrored from csrc/greedy_assign.cu
@@ -419,6 +421,8 @@ def greedy_assign(W: torch.Tensor, order: torch.Tensor, epick: torch.Tensor,
         raise RuntimeError(f"greedy_assign launch failed: CUDA error {err} "
                            f"({msg})")
     LAUNCHES["greedy_assign"] += 1
+    if need_row is not None:
+        LAUNCHES["greedy_assign_need"] += 1
     return out
 
 

@@ -105,14 +105,51 @@ def test_adaptive_round_masks_bit_exact(kw):
     assert t.realized_k_history == j.realized_k_history
 
 
-@pytest.mark.parametrize("kw", [
-    dict(n=6, k=4, kind="cs", r=3, adaptive=True, rebalance=True,
-         loads=(3, 1, 2, 3, 1, 2)),
-    dict(n=6, k=4, kind="cs", r=2, deadline=1e-3)])
-def test_unported_round_features_refused(kw):
-    with pytest.raises(NotImplementedError, match="fault-tolerance slice"):
-        StragglerAggregator(tspec.RoundConfig(**kw), scenario1(),
+FAULT_ROUNDS = [
+    dict(n=6, k=4, kind="cs", r=4, adaptive=True, rebalance=True,
+         loads=(2,) * 6, feedback_beta=0.5),
+    dict(n=6, k=4, kind="cs", r=4, adaptive=True, rebalance=True,
+         loads=(2,) * 6, messages=2, censored_feedback=True,
+         feedback_beta=0.5),
+    dict(n=6, k=4, kind="cs", r=2, deadline=8e-4),
+    dict(n=6, k=4, kind="ss", r=3, deadline=8e-4,
+         deadline_policy="close_partial"),
+    dict(n=6, k=4, kind="cs", r=3, deadline=7e-4, deadline_policy="reissue",
+         adaptive=True, feedback_beta=0.5),
+    dict(n=6, k=4, kind="ss", r=4, loads=(2, 3, 2, 3, 2, 2), deadline=8e-4,
+         deadline_policy="reissue", adaptive=True, rebalance=True,
+         censored_feedback=True, feedback_beta=0.5, dead_after=2)]
+
+
+@pytest.mark.parametrize("kw", FAULT_ROUNDS)
+def test_fault_round_masks_bit_exact(kw):
+    """Re-balancing and deadlines (wait / close_partial / reissue) over
+    shared tie-exact tables with faults (worker 2 dead in rounds 2-4, one
+    lost message in round 3): the same schedule, loads, weights, completion
+    times, realized counts and missed rounds every round as JAX's
+    aggregator."""
+    cfg = tspec.RoundConfig(**kw)
+    T1, T2 = tie_exact_tables(4, 8, cfg.n, cfg.width)
+    T1, T2 = T1.copy(), T2.copy()
+    T1[2:5, 2] = np.inf
+    T2[3, 1, 0] = np.inf
+    jc = jspec.RoundConfig(**kw)
+    j = jagg.StragglerAggregator(jc.to_round_spec(),
+                                 JaxTableProcess(T1=T1, T2=T2),
+                                 **jc.aggregator_kwargs())
+    t = StragglerAggregator(cfg, TorchTableProcess(T1=T1, T2=T2),
                             device="cpu")
+    for rnd in range(8):
+        assert_bit_equal(t.current_matrix(), j.current_matrix())
+        assert_bit_equal(t.current_loads(), j.current_loads())
+        w_j, t_j = j.round_mask(jax.random.PRNGKey(rnd))
+        w_t, t_t = t.round_mask(rnd)
+        assert_bit_equal(w_t, w_j)
+        assert_bit_equal(t_t, t_j)
+    assert t.realized_k_history == j.realized_k_history
+    assert t.rounds_missed == j.rounds_missed
+    if cfg.deadline is not None:
+        assert t.rounds_missed > 0             # the deadline bites
 
 
 @pytest.mark.parametrize("kw", [dict(n=8, k=6, kind="cs", r=3),

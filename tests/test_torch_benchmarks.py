@@ -1,6 +1,7 @@
 """The port's benchmark harness (``python -m benchmarks_torch.run``) on the
 CPU: it writes ``BENCH_<name>.json``, refuses non-finite metrics and the
-jobs of later slices, fig9's guards pass, table1's ``ok`` holds, and the
+jobs of later slices, fig9's and fig10-12's guards pass, table1's ``ok``
+holds, and the
 seed-style ``legacy`` path of ``mc_engine`` gives per-trial CS / SS order
 statistics bit-equal to the fused engine's on shared draws (mins and sorts
 are exact).  Row names and derived keys of the ported figures are held to the
@@ -18,7 +19,9 @@ import sys
 import pytest
 import torch
 
-from benchmarks_torch import common, fig6_vs_workers, mc_engine, run
+from benchmarks_torch import (common, fig6_vs_workers, fig10_load_rebalance,
+                              fig11_trace_replay, fig12_faults, mc_engine,
+                              run)
 from repro_torch.core import (completion_samples, cyclic_to_matrix,
                               scenario1, staircase_to_matrix, to_spec)
 
@@ -65,6 +68,23 @@ def test_harness_refuses_later_slices_by_roadmap_item(name):
     with pytest.raises(SystemExit, match=f"{name} waits for ROADMAP.md "
                                          f"queue 1 item"):
         run.main(["--device", "cpu", "--only", f"fig3,{name}", "--out", ""])
+
+
+@pytest.mark.parametrize("name", ["fig10", "fig11", "fig12"])
+def test_fault_figures_pass_on_the_cpu(name, tmp_path):
+    """The fault-tolerance figures (no longer refused) at 64 trials on the
+    CPU: every guard passes and the status rows read PASS."""
+    mod = {"fig10": fig10_load_rebalance, "fig11": fig11_trace_replay,
+           "fig12": fig12_faults}[name]
+    kw = {} if name == "fig10" else {"out": str(tmp_path)}
+    common.drain_rows()
+    mod.run(64, "cpu", **kw)
+    rows = common.drain_rows()
+    status = [r["derived"]["status"] for r in rows
+              if "status" in r["derived"]]
+    assert status and set(status) == {"PASS"}, rows
+    assert all(r["derived"]["trials"] == 64 for r in rows
+               if "trials" in r["derived"])
 
 
 def test_harness_refuses_unknown_names_as_the_reference_does():

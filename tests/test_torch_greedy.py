@@ -354,9 +354,13 @@ def test_scheduler_raises_alike():
         st.observe(np.ones((4, 2)), arrivals=np.ones((4, 2)))
     with pytest.raises(ValueError):
         st.set_need(np.ones(3, bool))
-    with pytest.raises(NotImplementedError, match="fault-tolerance slice"):
-        ts.AdaptiveScheduler(C, loads=[2, 1, 2, 1], rebalance=True,
-                             device="cpu")
+    # rebalance: a masked base, or no initial budget, is refused alike
+    for bad in (dict(C=js.cyclic_to_matrix(4, 2, loads=[2, 1, 2, 1]),
+                     loads=[2, 1, 2, 1]), dict(C=C)):
+        with pytest.raises(ValueError):
+            js.AdaptiveScheduler(rebalance=True, **bad)
+        with pytest.raises(ValueError):
+            ts.AdaptiveScheduler(rebalance=True, device="cpu", **bad)
 
 
 def test_degradation_guard_raises_alike():

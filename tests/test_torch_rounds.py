@@ -478,18 +478,55 @@ def test_rounds_validation_alike(bad):
         bad(tm, td.scenario1(), devices="cpu")
 
 
-@pytest.mark.parametrize("call", [
-    lambda: tm.sweep_rounds([tm.lb_spec(2)], td.scenario1(), N, rounds=2,
-                            k=2, trials=4, deadline=1e-3, devices="cpu"),
-    lambda: tm.trajectory_samples(tm.lb_spec(2), td.scenario1(), N,
-                                  rounds=2, k=2, trials=4, record_trace=True,
-                                  devices="cpu"),
-    lambda: tm.adaptive_spec("a", js.cyclic_to_matrix(N, 2), loads=[1] * N,
-                             rebalance=True),
-])
-def test_next_slice_features_refused(call):
-    with pytest.raises(NotImplementedError, match="fault-tolerance slice"):
-        call()
+def _deadline_case(shared):
+    """A deadline on a shared trace: per-round means and the degradation
+    means (integer-valued counts and a k = 4 stale share, exact in
+    float32) as the JAX sweep's."""
+    jtr, ttr = shared
+    kw = dict(rounds=ROUNDS, k=4, trials=TRIALS, chunk=64, deadline=1.5e-3,
+              deadline_policy="close_partial")
+    rj = jm.sweep_rounds([jm.lb_spec(2)], jt.TraceProcess(jtr), N, **kw)
+    rt = tm.sweep_rounds([tm.lb_spec(2)], tt.TraceProcess(ttr), N,
+                         devices="cpu", **kw)
+    assert rt.deadline == rj.deadline
+    assert rt.deadline_policy == rj.deadline_policy
+    np.testing.assert_allclose(rt.per_round["lb"], rj.per_round["lb"],
+                               rtol=1e-6)
+    for key in ("realized_k", "missed", "stale", "khist"):
+        np.testing.assert_allclose(rt.degradation["lb"][key],
+                                   rj.degradation["lb"][key], rtol=1e-12)
+    assert rt.missed_fraction("lb").max() > 0       # the deadline bites
+
+
+def _record_case(shared):
+    """record_trace=True returns the tables the run drew, and replaying
+    them reproduces the run's trajectories (the port alone: a parametric
+    process draws other numbers in JAX)."""
+    spec = tm.adaptive_spec("a", js.cyclic_to_matrix(N, 2))
+    kw = dict(rounds=2, k=2, trials=4, devices="cpu")
+    y, trace = tm.trajectory_samples(spec, td.scenario1(), N,
+                                     record_trace=True, **kw)
+    assert (trace.rounds, trace.trials, trace.n, trace.r) == (2, 4, N, 2)
+    assert trace.meta["source"] == "sweep_rounds"
+    assert_bit_equal(y, tm.trajectory_samples(spec, td.scenario1(), N,
+                                              **kw))
+    assert_bit_equal(y, tm.trajectory_samples(spec, trace, N, **kw))
+
+
+def _rebalance_spec_case(shared):
+    """adaptive_spec(rebalance=True) builds the reference's spec: dense
+    base, the budget kept as loads."""
+    C = js.cyclic_to_matrix(N, 2)
+    a = jm.adaptive_spec("a", C, loads=[1] * N, rebalance=True)
+    b = tm.adaptive_spec("a", C, loads=[1] * N, rebalance=True)
+    assert (b.kind, b.C, b.loads, b.rebalance, b.load) == (
+        a.kind, a.C, a.loads, a.rebalance, a.load)
+
+
+@pytest.mark.parametrize("case", [_deadline_case, _record_case,
+                                  _rebalance_spec_case])
+def test_fault_slice_features_match_jax(shared_trace, case):
+    case(shared_trace)
 
 
 def test_seed_range_and_greedy_impl_checked():
