@@ -1,0 +1,124 @@
+"""Streaming grid-sweep throughput on the port: ``stream_grid`` against the
+naive loop of ``sweep`` calls (one call a cell, each building its own
+evaluator); counterpart of ``benchmarks/grid_stream.py`` (same rows and
+guards).
+
+The grid is the full feasible (family x load x message budget x comm_eps)
+product at n = 16: 64 cells in 4 shape buckets (one per load).
+``stream_grid`` fuses the cells at each load into one multi-spec dispatch
+over shared delay draws and keeps two dispatches in flight, so the whole
+grid costs 4 evaluator builds and 4 sampling passes; the naive loop pays a
+build and a full sampling pass a cell.  The naive loop is timed on a
+stratified subset (the first and last cell of each load, ``clear_cache()``
+before each): a cell's cost there has nothing shared with other cells, so
+the subset's rate stands for the grid's.  Every timed block ends in a host
+read of its means.  ``device`` is where both run (the card by default).
+
+Rows:
+  grid/stream   the full grid streamed: cells/s, shape buckets,
+                ``compiles`` (evaluator builds: the port compiles nothing),
+                fused dispatches
+  grid/naive    the loop of sweeps on the subset: cells/s
+  grid/speedup  stream over naive cells/s, and ``bitexact``
+
+Exits non-zero if a streamed cell is not bit-equal to its per-cell sweep
+(same draws, same combine), or if the grid built more evaluators than it
+has shape buckets.
+"""
+from __future__ import annotations
+
+import os
+import time
+
+import numpy as np
+
+from repro_torch.core import (GridSpec, cache_stats, clear_cache, scenario1,
+                              stream_grid, sweep)
+
+from .common import emit
+
+
+def _grid(trials: int) -> GridSpec:
+    return GridSpec(n=16, families=("cs", "ss", "ra", "lb", "pc", "pcmm"),
+                    loads=(2, 4, 8, 16), messages=(None, 2),
+                    comm_eps=(0.0, 0.02), trials=trials, seed=0)
+
+
+def run(trials: int = 20000, device=None, out: str = "bench_out_torch"):
+    model = scenario1()
+    cells = _grid(trials).cells(model)
+
+    # ---- the full grid streamed (one evaluator build per shape bucket) ----
+    clear_cache()
+    s0 = cache_stats()
+    t0 = time.perf_counter()
+    res = stream_grid(cells, devices=device, pipeline=2)
+    t_stream = time.perf_counter() - t0
+    s1 = cache_stats()
+    compiles = s1["exec"]["misses"] - s0["exec"]["misses"]
+    builds = s1["traces"] - s0["traces"]
+    cps_stream = len(cells) / t_stream
+    emit("grid/stream", t_stream * 1e6,
+         f"cells={len(cells)};trials={trials};"
+         f"cells_per_sec={cps_stream:.2f};"
+         f"buckets={res.meta['buckets']};compiles={compiles};"
+         f"fused_dispatches={res.meta['fused_dispatches']}")
+    if builds > res.meta["buckets"]:
+        raise SystemExit(
+            f"grid_stream: {builds} evaluator builds for "
+            f"{res.meta['buckets']} shape buckets: the bucketed cache is "
+            f"not holding (one build per bucket is the contract)")
+
+    # ---- naive baseline: one sweep a cell, one build a cell ----
+    # stratified subset: the first and last cell of every load group cover
+    # every bucket and both ends of each fused spec stack
+    by_load = {}
+    for c in cells:
+        by_load.setdefault(c.r_max, []).append(c)
+    subset = [c for grp in by_load.values() for c in (grp[0], grp[-1])]
+    t0 = time.perf_counter()
+    naive = {}
+    for c in subset:
+        clear_cache()                  # the per-cell build of the old loop
+        naive[c.name] = sweep(c.specs, c.model, c.n, trials=c.trials,
+                              seed=c.seed, chunk=c.chunk, ks=c.ks,
+                              devices=device)
+    t_naive = time.perf_counter() - t0
+    cps_naive = len(subset) / t_naive
+    emit("grid/naive", t_naive * 1e6,
+         f"cells={len(subset)};subset_of={len(cells)};trials={trials};"
+         f"cells_per_sec={cps_naive:.2f}")
+
+    # ---- the streamed statistics equal the per-cell path's bits ----
+    exact = all(
+        np.array_equal(res.cell(c.name)["means"][sp.name],
+                       np.atleast_1d(naive[c.name].means[sp.name]))
+        and np.array_equal(res.cell(c.name)["stderr"][sp.name],
+                           np.atleast_1d(naive[c.name].stderr[sp.name]))
+        for c in subset for sp in c.specs)
+    speedup = cps_stream / cps_naive
+    emit("grid/speedup", 0.0,
+         f"stream_over_naive={speedup:.2f}x;"
+         f"bitexact={'PASS' if exact else 'FAIL'}")
+    if not exact:
+        raise SystemExit(
+            "grid_stream: streamed grid stats are NOT bit-exact with the "
+            "per-cell sweep path under CRN: fusion changed the draws or "
+            "the combine order")
+
+    if out:
+        os.makedirs(out, exist_ok=True)
+        res.meta["cache"] = cache_stats()
+        res.save(os.path.join(out, "GRID_result.json"))
+
+    return {"cells": len(cells), "cells_per_sec": cps_stream,
+            "naive_cells_per_sec": cps_naive, "speedup": speedup,
+            "buckets": res.meta["buckets"], "compiles": compiles,
+            "builds": builds, "seconds": t_stream,
+            "naive_seconds": t_naive, "naive_cells": len(subset),
+            "fused_dispatches": res.meta["fused_dispatches"],
+            "bitexact": exact}
+
+
+if __name__ == "__main__":
+    run()

@@ -24,6 +24,12 @@ Prints ``name,us_per_call,derived`` CSV rows:
          round deadline (exits non-zero if adaptation stops paying under
          preemption, a scenario deadlocks, or fault-trace replay diverges;
          writes the trace into --out)
+  grid   streaming grid sweep (64 cells, n=16) vs a loop of per-cell sweeps
+         (exits non-zero unless the streamed cells are bit-equal to the
+         per-cell path and the grid builds one evaluator per shape bucket;
+         writes GRID_result.json into --out)
+  planner  racing planner vs the exhaustive grid (exits non-zero unless
+         both name the same winner with consistent means)
   mc_engine  fused sweep-engine throughput vs the seed-style per-scheme path
   table1 one DGD iteration per scheme incl. real PC/PCMM decode (the rows'
          ``ok`` hold each update error to its bound)
@@ -50,8 +56,6 @@ import time
 #: the reference's jobs that wait for a later slice, and the ROADMAP.md
 #: item each waits for
 LATER = {
-    "grid": "queue 1 item 4 (core/grid.py and core/planner.py)",
-    "planner": "queue 1 item 4 (core/grid.py and core/planner.py)",
     "fig13": "queue 1 item 6 (live/)",
     "roofline": "queue 1 item 8 (the rest of the LM stack)",
 }
@@ -90,7 +94,8 @@ def main(argv=None) -> dict:
     from . import (common, fig3_delays, fig4_vs_load, fig5_ec2,
                    fig6_vs_workers, fig7_vs_target, fig8_convergence,
                    fig9_multimessage, fig10_load_rebalance,
-                   fig11_trace_replay, fig12_faults, mc_engine, table1_e2e)
+                   fig11_trace_replay, fig12_faults, grid_stream,
+                   mc_engine, planner, table1_e2e)
 
     jobs = {
         "fig3": lambda: fig3_delays.run(trials, dev),
@@ -105,6 +110,8 @@ def main(argv=None) -> dict:
             trials, dev, out=args.out or "bench_out_torch"),
         "fig12": lambda: fig12_faults.run(
             trials, dev, out=args.out or "bench_out_torch"),
+        "grid": lambda: grid_stream.run(trials, dev, out=args.out),
+        "planner": lambda: planner.run(trials, dev),
         "mc_engine": lambda: mc_engine.run(trials, dev),
         "table1": lambda: table1_e2e.run(dev),
     }

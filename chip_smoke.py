@@ -26,7 +26,16 @@ full width and depth through ``repro_torch.launch.serve`` (prefill of two
 sliding-window layer through the tensor-core swa_attention kernel), with
 the float32 kernel route (error-compensated TF32 on the tensor cores)
 checked against the ring-cache route and the CPU, and a bfloat16 model of
-narrow heads (dh 32, the CUDA-core kernel's route) against the CPU.
+narrow heads (dh 32, the CUDA-core kernel's route) against the CPU.  Last,
+the grid phase: the reference benchmark's 64-cell grid (n = 16, 20 000
+trials) streamed through ``stream_grid`` against a loop of per-cell sweeps
+(fused cells bit-equal to per-cell ones, one evaluator build per shape
+bucket, launches per fused dispatch), card against CPU means on a
+2-bucket sub-grid, a resumable sweep over three rungs against fresh
+sweeps, the racing planner against the grid's ``best_cell``, the Fig. 8
+cell with an adaptive spec through ``stream_grid`` (greedy_assign
+launches, card against CPU), and ``python -m benchmarks_torch.run --quick
+--only grid,planner``.
 
 Run from the repository root on a machine with a card:
 
@@ -57,14 +66,16 @@ if not torch.cuda.is_available():
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
-from repro_torch.core import (DelayTrace, RoundConfig,  # noqa: E402
-                              TraceProcess, adaptive_spec, completion_samples,
+from repro_torch.core import (DelayTrace, GridCell,  # noqa: E402
+                              GridSpec, RoundConfig, TraceProcess,
+                              adaptive_spec, cache_stats, completion_samples,
                               cyclic_to_matrix, lb_spec, lower_bound_mean_mc,
                               make_scenario, mean_completion_time, pc_spec,
                               pcmm_spec, random_assignment_to_matrix,
-                              scenario1, staircase_to_matrix, sweep,
-                              sweep_rounds, theorem1_mean_mc, to_spec,
-                              trajectory_samples)
+                              resumable_sweep, scenario1, staircase_to_matrix,
+                              stream_grid, sweep, sweep_rounds,
+                              theorem1_mean_mc, to_spec, trajectory_samples)
+from repro_torch.core import montecarlo  # noqa: E402
 from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -75,6 +86,8 @@ from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks_torch"))
 import fig8_convergence as fig8  # noqa: E402
 import greedy_pick  # noqa: E402
+from benchmarks_torch import grid_stream  # noqa: E402
+from benchmarks_torch import planner as planner_bench  # noqa: E402
 from benchmarks_torch import run as bench_run  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
@@ -853,6 +866,180 @@ def faults_phase():
             "status": status, "grid": grid}
 
 
+#: the grid phase: the reference benchmark's grid (benchmarks/grid_stream.py,
+#: n = 16, 64 cells in 4 buckets) at benchmarks/run.py's 20 000 trials
+GRID_TRIALS = 20000
+#: the racing planner's target (benchmarks/planner.py's K)
+GRID_K = 16
+
+
+def grid_phase():
+    """The grid engine and the racing planner on the card.
+
+    1. ``benchmarks_torch/grid_stream.py`` at full size (64 cells, n = 16,
+       20 000 trials, one chunk): the grid streamed (cold: the evaluator
+       cache cleared first) and the naive loop of per-cell sweeps on the
+       stratified subset; every subset cell fused equals its per-cell
+       sweep on the card bit for bit; one evaluator build per shape bucket.
+       Then the grid once more under torch.profiler (warm): launches per
+       fused dispatch and the card's busy share.
+    2. Card against CPU: a 2-bucket sub-grid (loads 2 and 4) at 2 000
+       trials, every mean within rel 1e-6 (the draws' last bits may
+       differ: card and CPU evaluate the truncated Gaussian's arithmetic
+       in their own libraries).
+    3. A resumable sweep over the load-16 bucket's specs, extended over
+       three rungs (313, 1 252, 5 008 trials in 313-trial chunks, the
+       planner's ladder), bit-equal to a fresh card sweep at each.
+    4. ``benchmarks_torch/planner.py`` at full size: ``plan`` (k = 16,
+       eta = 4) names the exhaustive grid's ``best_cell`` with fewer
+       trial-evaluations.
+    5. A rounds cell through ``stream_grid``: the Fig. 8 cell (n = 12,
+       r = 3, k = 9, 24 rounds, persistence 0.98, spread 3) with an
+       adaptive CS spec beside CS and LB, 2 000 trials in 500-trial chunks
+       on one shared trace drawn on the CPU: greedy_assign launched once a
+       chunk-round (the counts set to 0 just before, read just after), and
+       the cell's statistics bit-equal to the CPU's.
+    6. ``python -m benchmarks_torch.run --quick --only grid,planner``:
+       ``bitexact=PASS`` and ``agree=1``."""
+    t_phase = time.perf_counter()
+    out_dir = str(Path(__file__).resolve().parent / "bench_out_torch")
+    streamed = grid_stream.run(GRID_TRIALS, "cuda", out=out_dir)
+    check(streamed["bitexact"], "grid: fused cells differ from per-cell")
+    check(streamed["cells"] == 64 and streamed["buckets"] == 4
+          and streamed["builds"] == streamed["buckets"],
+          f"grid: {streamed['builds']} evaluator builds for "
+          f"{streamed['buckets']} buckets of {streamed['cells']} cells")
+    cells = grid_stream._grid(GRID_TRIALS).cells(scenario1())
+    wall, dev_s, count = profiled(lambda: stream_grid(cells, devices="cuda"))
+    per_dispatch = (None if count is None
+                    else count / streamed["fused_dispatches"])
+    busy = None if dev_s is None else dev_s / wall
+    print(f"grid stream (64 cells, n=16, {GRID_TRIALS} trials, one chunk): "
+          f"{streamed['cells_per_sec']:.4f} cells/s streamed in "
+          f"{streamed['seconds']:.4f} s ({streamed['fused_dispatches']} "
+          f"fused dispatches, {streamed['builds']} evaluator builds for "
+          f"{streamed['buckets']} buckets); naive "
+          f"{streamed['naive_cells_per_sec']:.4f} cells/s on "
+          f"{streamed['naive_cells']} cells in "
+          f"{streamed['naive_seconds']:.4f} s; speedup "
+          f"{streamed['speedup']:.4f}x; fused bit-equal to per-cell")
+    # the host's share of a fused dispatch that is not a launch: each
+    # load's layout (gather plans, windows and offsets of its 16 specs,
+    # built in Python) and its copy to the card, on the card's host
+    loads = {}
+    for c in cells:
+        loads.setdefault(c.r_max, []).append(
+            dataclasses.replace(c.specs[0], name=c.name))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r_max, fused in loads.items():
+        params = montecarlo._eval_layout(tuple(fused), 16, r_max, None)[1]
+        montecarlo.params_on(params, DEV)
+    torch.cuda.synchronize()
+    layout_s = (time.perf_counter() - t0) / len(loads)
+    print(f"grid profile (warm, profiled): wall_s={wall:.4f} launches per "
+          f"fused dispatch="
+          f"{'not measured' if per_dispatch is None else f'{per_dispatch:.1f}'}"
+          f" busy_share="
+          f"{'not measured' if busy is None else f'{busy:.4f}'}; host layout "
+          f"and copy a fused dispatch {layout_s:.6f} s (of "
+          f"{streamed['seconds'] / streamed['fused_dispatches']:.6f} s a "
+          f"streamed dispatch)")
+
+    sub = GridSpec(n=16, families=("cs", "ss", "ra", "lb", "pc", "pcmm"),
+                   loads=(2, 4), messages=(None, 2), comm_eps=(0.0, 0.02),
+                   trials=2000).cells(scenario1())
+    on_card = stream_grid(sub, devices="cuda")
+    on_cpu = stream_grid(sub, devices="cpu")
+    check(on_card.meta["buckets"] == 2, "grid sub-grid buckets")
+    worst = max(float(np.max(np.abs(on_card.cells[c.name]["means"][nm]
+                                    - v) / np.abs(v)))
+                for c in sub for nm, v in on_cpu.cells[c.name]["means"].items())
+    check(worst <= 1e-6, f"grid card vs CPU means rel {worst:.3e} > 1e-6")
+    print(f"grid card vs CPU ({len(sub)} cells, 2 buckets, 2000 trials): "
+          f"means max rel diff {worst:.3e} (<= 1e-6)")
+
+    specs = [dataclasses.replace(c.specs[0], name=c.name) for c in cells
+             if c.r_max == 16]
+    rs = resumable_sweep(specs, scenario1(), 16, chunk=313, devices="cuda")
+    for total in (313, 1252, 5008):
+        got = rs.extend_trials(total)
+        fresh = sweep(specs, scenario1(), 16, trials=total, chunk=313,
+                      devices="cuda")
+        for sp in specs:
+            check(np.array_equal(got.means[sp.name], fresh.means[sp.name])
+                  and np.array_equal(got.stderr[sp.name],
+                                     fresh.stderr[sp.name]),
+                  f"resumable {sp.name} at {total} differs from a fresh "
+                  f"card sweep")
+    print(f"grid resumable sweep ({len(specs)} specs at r=16, rungs 313 / "
+          f"1252 / 5008 in 313-trial chunks): bit-equal to fresh card "
+          f"sweeps")
+
+    raced = planner_bench.run(GRID_TRIALS, "cuda")
+    check(raced["agree"] and raced["winner"] == raced["best"],
+          f"planner {raced['winner']} vs exhaustive {raced['best']}")
+    check(raced["trials_spent"] < raced["exhaustive_trials"],
+          f"planner spent {raced['trials_spent']} trial-evaluations")
+    print(f"grid planner (k={GRID_K}, eta=4, {GRID_TRIALS} trials): winner "
+          f"{raced['winner']} = exhaustive best_cell; trial-evaluations "
+          f"{raced['trials_spent']} of {raced['exhaustive_trials']} "
+          f"(saved {raced['saved']:.4f}x); pruned {raced['pruned']}, raced "
+          f"{raced['raced']}, {raced['rungs']} rungs; plan seconds "
+          f"{raced['plan_seconds']:.4f}, exhaustive seconds "
+          f"{raced['exhaustive_seconds']:.4f}")
+
+    n, r, rounds, tr, chunk = fig8.N, fig8.R, fig8.ROUNDS, 2000, 500
+    T1, T2 = fig8.cell_process(0.98, 3.0).sample_rounds(
+        0, tr, n, r, rounds, device="cpu")
+    proc = TraceProcess(DelayTrace(T1.numpy(), T2.numpy()))
+    cs = cyclic_to_matrix(n, r)
+    cell = GridCell("fig8/adapt", (adaptive_spec("adapt", cs),
+                                   to_spec("cs", cs), lb_spec(r)),
+                    n, proc, trials=tr, chunk=chunk, rounds=rounds, k=fig8.K)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    card = stream_grid([cell], devices="cuda")
+    rounds_s = time.perf_counter() - t0
+    greedy = ops.LAUNCHES["greedy_assign"]
+    want = rounds * (tr // chunk)
+    check(greedy == want, f"grid rounds cell: greedy_assign launches "
+                          f"{greedy} != {want} (one a chunk-round)")
+    cpu = stream_grid([cell], devices="cpu")
+    for key in ("per_round", "stderr", "wallclock", "wallclock_stderr"):
+        for nm in ("adapt", "cs", "lb"):
+            check(np.array_equal(card.cell(cell.name)[key][nm],
+                                 cpu.cell(cell.name)[key][nm]),
+                  f"grid rounds cell {key} {nm}: card differs from CPU")
+    print(f"grid rounds cell (fig8 cell n={n} r={r} k={fig8.K}, {rounds} "
+          f"rounds x {tr} trials in {chunk}-trial chunks, shared trace): "
+          f"greedy_assign launches={greedy} (= rounds x chunks); card "
+          f"equal to CPU bit for bit; seconds={rounds_s:.4f}")
+
+    ops.reset_launch_counts()
+    done = bench_run.main(["--quick", "--device", "cuda", "--only",
+                           "grid,planner", "--out", out_dir])
+    quick = {row["name"]: row["derived"] for job in done.values()
+             for row in job["rows"]}
+    check(quick["grid/speedup"]["bitexact"] == "PASS"
+          and quick["planner/agreement"]["agree"] == 1,
+          f"run --quick --only grid,planner: {quick}")
+    print(f"grid run --quick --only grid,planner: bitexact=PASS agree=1; "
+          f"seconds grid={done['grid']['seconds']:.4f} "
+          f"planner={done['planner']['seconds']:.4f}")
+    secs = time.perf_counter() - t_phase
+    print(f"grid phase wall seconds={secs:.4f}")
+    return {"stream": streamed, "profile": {
+                "wall_s": wall, "device_kernel_s": dev_s, "launches": count,
+                "launches_per_fused_dispatch": per_dispatch,
+                "busy_share": busy, "host_layout_s_per_dispatch": layout_s},
+            "card_vs_cpu_rel": worst, "planner": raced,
+            "rounds_cell": {"greedy_launches": greedy, "seconds": rounds_s},
+            "quick_seconds": {nm: job["seconds"]
+                              for nm, job in done.items()},
+            "cache": cache_stats(), "seconds": secs}
+
+
 #: the benchmark jobs the figures phase runs (fig8 runs in rounds_phase)
 FIGURE_JOBS = ("fig3", "fig4", "fig5", "fig6", "fig7", "fig9", "table1",
                "mc_engine")
@@ -1404,6 +1591,7 @@ def main():
     swa_rows = swa_phase()
     served = serve_phase()
     consistency = consistency_phase()
+    grid = grid_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -1463,6 +1651,7 @@ def main():
             "adaptive_n200": adaptive_wide["launches"],
             "adaptive_n200_reissue": wide_reissue["launches"],
             "fig10_12": faults["figures_launches"]["greedy_assign"],
+            "grid_rounds_cell": grid["rounds_cell"]["greedy_launches"],
             "faults_grid_close_partial":
                 faults["grid"]["close_partial"]["greedy_launches"],
             "faults_grid_reissue":
@@ -1537,7 +1726,7 @@ def main():
         "adaptive_wide_reissue": wide_reissue, "figures": figures,
         "faults": faults,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
-        "consistency": consistency}))
+        "consistency": consistency, "grid": grid}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,10 @@
 """The port's core: delay models, round-aware processes and the fault
 scenarios, trace replay and calibration, TO matrices, the adaptive
 scheduler and load re-balancing, completion times, the single-round and
-rounds Monte-Carlo engines (round deadlines, trace recording), Theorem 1
-and the lower bound, coded baselines and the aggregator (counterparts of
-``repro.core``)."""
+rounds Monte-Carlo engines (round deadlines, trace recording, resumable
+sweeps, the evaluator cache), the grid engine and the racing planner,
+Theorem 1 and the lower bound, coded baselines and the aggregator
+(counterparts of ``repro.core``)."""
 from .aggregator import StragglerAggregator
 from .cluster import (FAULT_SCENARIOS, AR1Process, DelayProcess,
                       DiurnalLoadProcess, FaultProcess, IIDProcess,
@@ -26,13 +27,17 @@ from .completion import (apply_row_layout, completion_time,
 from .delays import (BimodalStragglerDelays, DelayModel, EmpiricalDelays,
                      ShiftedExponentialDelays, TruncatedGaussianDelays,
                      ec2_like, scenario1, scenario2)
-from .montecarlo import (RoundsResult, SchemeSpec, SweepResult,
-                         adaptive_spec, completion_samples, lb_spec,
-                         message_boundaries, message_group_sizes,
-                         message_slot_map, pc_spec, pcmm_spec, sweep,
-                         sweep_rounds, task_arrival_samples,
+from .grid import (GRID_FORMAT_VERSION, GridCell, GridResult, GridSpec,
+                   stream_grid)
+from .montecarlo import (ResumableSweep, RoundsResult, SchemeSpec,
+                         SweepResult, adaptive_spec, cache_stats, clear_cache,
+                         completion_samples, lb_spec, message_boundaries,
+                         message_group_sizes, message_slot_map, pc_spec,
+                         pcmm_spec, resumable_sweep, set_cache_capacity,
+                         sweep, sweep_rounds, task_arrival_samples,
                          task_arrival_times_gather, task_gather_plan,
                          tau_spec, to_spec, trajectory_samples)
+from .planner import PLAN_FORMAT_VERSION, PlanResult, plan
 from .scheduling import (GREEDY_IMPLS, MASKED, SCHEDULES, AdaptiveScheduler,
                          Schedule, block_to_matrix, censored_feedback_update,
                          cyclic_to_matrix, greedy_load_rebalance,
@@ -88,5 +93,8 @@ __all__ = [
     "sum_survival_grid", "theorem1_tail_r1_independent",
     "multimessage_marginal_cdfs", "multimessage_coded_tail",
     "multimessage_coded_mean", "truncated_gaussian_pdf", "delay_model_pdfs",
-    "operating_point_mean_lb",
+    "operating_point_mean_lb", "clear_cache", "cache_stats",
+    "set_cache_capacity", "ResumableSweep", "resumable_sweep", "GridCell",
+    "GridSpec", "GridResult", "stream_grid", "GRID_FORMAT_VERSION", "plan",
+    "PlanResult", "PLAN_FORMAT_VERSION",
 ]

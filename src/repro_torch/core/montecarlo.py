@@ -53,13 +53,22 @@ Fault tolerance: a round ``deadline`` closes rounds under the ``wait``,
 under ``reissue`` the tasks a round did not deliver become the next round's
 re-gather priority, the ``need`` rows of the ``greedy_assign`` kernel.
 ``record_trace=True`` captures the delay tables a run draws as a
-``DelayTrace`` and scores the run by replaying them.  Resumable sweeps and
-multi-device sharding wait for later slices.
+``DelayTrace`` and scores the run by replaying them.
+
+The built evaluators are cached (``cache_stats``, ``clear_cache``,
+``set_cache_capacity``): one per shape bucket, delay model and device for
+the single-round sweep, one per rounds configuration.  ``_dispatch_run``
+issues a sweep's chunks without waiting for them (the grid engine keeps a
+few in flight); ``ResumableSweep`` extends a sweep's trial axis chunk by
+chunk, bit-equal to a fresh sweep at the combined count.  Multi-device
+sharding waits for a later slice (``ROADMAP.md`` queue 1 item 5).
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
+import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -74,7 +83,8 @@ __all__ = [
     "task_arrival_times_gather", "message_boundaries", "message_slot_map",
     "message_group_sizes", "slot_arrival_times", "sweep",
     "completion_samples", "task_arrival_samples", "adaptive_spec",
-    "RoundsResult", "sweep_rounds", "trajectory_samples",
+    "RoundsResult", "sweep_rounds", "trajectory_samples", "clear_cache",
+    "cache_stats", "set_cache_capacity", "ResumableSweep", "resumable_sweep",
 ]
 
 INF = math.inf
@@ -601,6 +611,159 @@ def _build_bucket_eval(sig, deadline: Optional[float] = None):
     return eval_fn
 
 
+# ----------------------- evaluator caches + observability ---------------------
+
+class _LRUCache:
+    """Least-recently-used bound on the built-evaluator caches, and the
+    home of the counters ``cache_stats()`` reports.  The port compiles
+    nothing: an entry is a built evaluator (its closures and the device
+    tensors they hold), and ``compile_s`` sums the seconds spent building
+    the entries, not a compile time."""
+
+    def __init__(self, capacity: int = 128):
+        self.capacity = int(capacity)
+        self._d: "collections.OrderedDict" = collections.OrderedDict()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+        self.compile_s = 0.0
+
+    def get(self, key):
+        hit = self._d.get(key)
+        if hit is None:
+            self.misses += 1
+            return None
+        self._d.move_to_end(key)
+        self.hits += 1
+        return hit
+
+    def put(self, key, value) -> None:
+        self._d[key] = value
+        self._d.move_to_end(key)
+        self._trim()
+
+    def set_capacity(self, capacity: int) -> None:
+        capacity = int(capacity)
+        if capacity < 1:
+            raise ValueError(f"cache capacity must be >= 1, got {capacity}")
+        self.capacity = capacity
+        self._trim()
+
+    def _trim(self) -> None:
+        while len(self._d) > self.capacity:
+            self._d.popitem(last=False)            # evict least recent
+            self.evictions += 1
+
+    def clear(self) -> None:
+        self._d.clear()
+
+    def stats(self) -> dict:
+        return {"size": len(self._d), "capacity": self.capacity,
+                "hits": self.hits, "misses": self.misses,
+                "evictions": self.evictions,
+                "compile_s": round(self.compile_s, 6)}
+
+
+_EXEC_CACHE = _LRUCache()
+_ROUNDS_CACHE = _LRUCache()
+_BUILD_COUNT = 0
+
+
+def _cached(cache: _LRUCache, key, build):
+    """``cache[key]``, or ``build()`` stored under ``key``; an unhashable
+    key (a custom model or process) builds uncached, and so does ``key=None``.
+    Every build counts in ``cache_stats()["traces"]`` and its seconds in
+    the cache's ``compile_s``."""
+    global _BUILD_COUNT
+    if key is not None:
+        try:
+            hit = cache.get(key)
+        except TypeError:                  # unhashable: build uncached
+            key = None
+        else:
+            if hit is not None:
+                return hit
+    t0 = time.perf_counter()
+    fn = build()
+    cache.compile_s += time.perf_counter() - t0
+    _BUILD_COUNT += 1
+    if key is not None:
+        cache.put(key, fn)
+    return fn
+
+
+def clear_cache() -> None:
+    """Drop the built evaluators (mainly for benchmarking cold starts)."""
+    _EXEC_CACHE.clear()
+    _ROUNDS_CACHE.clear()
+
+
+def set_cache_capacity(capacity: int) -> None:
+    """Bound both evaluator caches to ``capacity`` entries (evicting the
+    least-recently-used at once if already over)."""
+    _EXEC_CACHE.set_capacity(capacity)
+    _ROUNDS_CACHE.set_capacity(capacity)
+
+
+def cache_stats() -> dict:
+    """The evaluator caches, in the JAX package's schema: ``exec`` (the
+    single-round evaluators, one per shape bucket, delay model and device)
+    and ``rounds`` (the rounds evaluators) each with ``size``,
+    ``capacity``, ``hits``, ``misses``, ``evictions`` and ``compile_s``,
+    and ``traces``.  The port compiles nothing, so ``traces`` counts
+    evaluator builds since import and ``compile_s`` the seconds spent
+    building them (closures and their device tensors; no kernel is built
+    here) -- one build per shape bucket when the cache holds."""
+    return {"exec": _EXEC_CACHE.stats(), "rounds": _ROUNDS_CACHE.stats(),
+            "traces": _BUILD_COUNT}
+
+
+def _get_exec(sig, model, device: torch.device):
+    """The built single-round evaluator of one shape bucket for ``model``
+    on ``device``, cached by ``(sig, model, device)``: ``sig`` carries only
+    counts and padded widths (``_eval_layout``), so every sweep with the
+    same scheme-kind structure reuses it with its own runtime ``params``.
+
+    ``scan(seed, starts, offs, limit, params, *, sums, samples)`` issues
+    one chunk per global start id: trial ids ``start + offs`` (lanes at or
+    past ``limit`` repeat the last real trial and are masked out), one
+    round of delays per trial, slot arrivals (eq. 1), every scheme of the
+    bucket scored.  It returns ``(p0, p1, ys)``: with ``sums`` the
+    per-chunk float32 partials of the statistics and of their squares
+    (``_tree_sum`` over the chunk, so their bits depend on the chunk length
+    alone), with ``samples`` the per-chunk statistics, each ``{group:
+    [per-chunk tensors]}`` on the device.  Nothing in it syncs the host."""
+    n, r_max = sig[1], sig[2]
+
+    def build():
+        eval_fn = _build_bucket_eval(sig)
+
+        def scan(seed, starts, offs, limit, params, *, sums=True,
+                 samples=False):
+            p0: Dict[str, list] = {}
+            p1: Dict[str, list] = {}
+            ys: Dict[str, list] = {}
+            for start in starts:
+                tids_raw = start + offs
+                T1, T2 = model.sample(seed, tids_raw.clamp(max=limit - 1), n,
+                                      r_max)
+                st = eval_fn(slot_arrival_times(T1, T2), params)
+                ok = (tids_raw < limit).reshape(-1, 1, 1)
+                for g, v in st.items():
+                    if samples:
+                        ys.setdefault(g, []).append(v)
+                    if sums:
+                        p0.setdefault(g, []).append(
+                            _tree_sum(torch.where(ok, v, 0.0)))
+                        p1.setdefault(g, []).append(
+                            _tree_sum(torch.where(ok, v * v, 0.0)))
+            return p0, p1, ys
+
+        return scan
+
+    return _cached(_EXEC_CACHE, (sig, model, device), build)
+
+
 # ------------------------------- trial loop ----------------------------------
 
 def _normalize_chunk(trials: int, chunk: Optional[int]) -> int:
@@ -640,7 +803,7 @@ def _single_device(devices) -> torch.device:
         if len(devices) != 1:
             raise NotImplementedError(
                 "the port's sweeps run on one device; multi-device sharding "
-                "arrives with a later slice")
+                "waits for ROADMAP.md queue 1 item 5")
         devices = devices[0]
     return resolve_device(devices)
 
@@ -754,47 +917,30 @@ def _validate_single_round(specs: Sequence[SchemeSpec], n: int,
     return specs
 
 
-def _chunk_stats(model, seed: int, tids: torch.Tensor, n: int, r_max: int,
-                 eval_fn, params) -> Dict[str, torch.Tensor]:
-    """One chunk of the trial loop: sample one round of delays per trial
-    id, form slot arrivals (eq. 1) and score every scheme of the bucket."""
-    T1, T2 = model.sample(seed, tids, n, r_max)
-    return eval_fn(slot_arrival_times(T1, T2), params)
+class _Pending:
+    """A dispatched sweep: its chunks' work is issued (asynchronously on a
+    card) and its per-chunk partials are still device tensors.
+    ``resolve()`` is the one host sync; it finishes the float64 host
+    combine.  ``stream_grid`` keeps a few of these in flight."""
+
+    __slots__ = ("_resolve", "_out", "_done")
+
+    def __init__(self, resolve_fn):
+        self._resolve = resolve_fn
+        self._out = None
+        self._done = False
+
+    def resolve(self):
+        if not self._done:
+            self._out = self._resolve()
+            self._done = True
+            self._resolve = None
+        return self._out
 
 
-def _run(specs: Sequence[SchemeSpec], model, n: int, *, trials: int,
-         seed: int, chunk: Optional[int], ks: Optional[int],
-         want_samples: bool, devices=None):
-    dev = _single_device(devices)
-    specs = _validate_single_round(specs, n, ks)
-    r_max = max(sp.load for sp in specs)
-    chunk = _normalize_chunk(trials, chunk)
-    sig, params, slots = _eval_layout(specs, n, r_max, ks)
-    eval_fn = _build_bucket_eval(sig)
-    pt = params_on(params, dev)
-    offs = torch.arange(chunk, dtype=torch.int64, device=dev)
-    samples: Dict[str, list] = {}
-    p0: Dict[str, list] = {}
-    p1: Dict[str, list] = {}
-    for start in range(0, trials, chunk):
-        tids_raw = start + offs
-        # a partial last chunk repeats the last real trial in masked lanes
-        st = _chunk_stats(model, seed, tids_raw.clamp(max=trials - 1), n,
-                          r_max, eval_fn, pt)
-        ok = (tids_raw < trials).reshape(-1, 1, 1)
-        for g, v in st.items():
-            if want_samples:
-                samples.setdefault(g, []).append(v)
-                continue
-            p0.setdefault(g, []).append(_tree_sum(torch.where(ok, v, 0.0)))
-            p1.setdefault(g, []).append(_tree_sum(torch.where(ok, v * v, 0.0)))
-
-    if want_samples:
-        ys = {g: torch.cat(v, dim=0)[:trials] for g, v in samples.items()}
-        return {name: ys[g][:, i, :] for name, (g, i) in slots.items()}
-
-    # per-chunk float32 partials -> float64 on the host, in global chunk
-    # order
+def _combine(p0: Dict[str, list], p1: Dict[str, list], slots, trials: int):
+    """Per-chunk float32 partials -> float64 on the host, in global chunk
+    order: ``(means, stderr)`` per scheme name."""
     mu_g = {g: torch.stack(v).cpu().numpy().astype(np.float64).sum(axis=0)
             / trials for g, v in p0.items()}
     sq_g = {g: torch.stack(v).cpu().numpy().astype(np.float64).sum(axis=0)
@@ -806,6 +952,39 @@ def _run(specs: Sequence[SchemeSpec], model, n: int, *, trials: int,
         means[name] = mu
         stderr[name] = np.sqrt(var / trials)
     return means, stderr
+
+
+def _dispatch_run(specs: Sequence[SchemeSpec], model, n: int, *, trials: int,
+                  seed: int, chunk: Optional[int], ks: Optional[int],
+                  want_samples: bool, devices=None) -> _Pending:
+    """Validate and issue one sweep without waiting for its results: every
+    chunk's work is issued and its float32 partials stay on the device.
+    The returned ``_Pending`` resolves to ``_run``'s output."""
+    dev = _single_device(devices)
+    specs = _validate_single_round(specs, n, ks)
+    r_max = max(sp.load for sp in specs)
+    chunk = _normalize_chunk(trials, chunk)
+    sig, params, slots = _eval_layout(specs, n, r_max, ks)
+    scan = _get_exec(sig, model, dev)
+    offs = torch.arange(chunk, dtype=torch.int64, device=dev)
+    starts = range(0, trials, chunk)
+    p0, p1, ys = scan(seed, starts, offs, trials, params_on(params, dev),
+                      sums=not want_samples, samples=want_samples)
+
+    if want_samples:
+        def resolve_samples():
+            cat = {g: torch.cat(v, dim=0)[:trials] for g, v in ys.items()}
+            return {name: cat[g][:, i, :] for name, (g, i) in slots.items()}
+        return _Pending(resolve_samples)
+    return _Pending(lambda: _combine(p0, p1, slots, trials))
+
+
+def _run(specs: Sequence[SchemeSpec], model, n: int, *, trials: int,
+         seed: int, chunk: Optional[int], ks: Optional[int],
+         want_samples: bool, devices=None):
+    return _dispatch_run(specs, model, n, trials=trials, seed=seed,
+                         chunk=chunk, ks=ks, want_samples=want_samples,
+                         devices=devices).resolve()
 
 
 # ------------------------------- public API ----------------------------------
@@ -903,6 +1082,167 @@ def task_arrival_samples(C, model, *, trials: int = 10000, seed: int = 0,
                     comm_eps=comm_eps)
     return _run([spec], model, n, trials=trials, seed=seed, chunk=chunk,
                 ks=None, want_samples=True, devices=devices)[spec.name]
+
+
+# ----------------------------- resumable sweeps ------------------------------
+
+class ResumableSweep:
+    """A sweep whose trial axis can be *extended* instead of recomputed.
+
+    Trial ``t``'s draws are a pure function of ``(seed, t)`` (``rng``) and
+    the statistics combine per-chunk float32 partials (``_tree_sum`` over
+    the chunk: their bits depend on the chunk length alone) in float64 in
+    global chunk order, so a sweep paused at ``t`` trials continues by
+    issuing only the chunks covering trials ``t..total-1``: the new
+    partials equal those of the same chunks of a fresh run at ``total``,
+    and ``extend_trials(total)`` equals a fresh ``sweep(...,
+    trials=total)`` bit for bit.  The racing planner (``core/planner``)
+    deepens only the points whose comparison is still close this way.
+
+    * ``chunk`` is required: resumability is defined by the chunk
+      decomposition.  Every total but the last must land on a chunk
+      boundary (a partial final chunk repeats its last trial in masked
+      lanes, so there is no continuation past it: extending raises).
+    * ``narrow(names)`` drops schemes from later extensions.  The draws
+      keep the original slot-grid width ``r_max``, so the survivors'
+      partials do not change.
+    * ``keep_samples=True`` also keeps each extension's per-trial
+      statistics, float32 numpy on the host (``samples()``, memory
+      ``O(trials * L)`` per scheme).  They come from the same chunk scan as
+      the partials; the sums still come from the ``_tree_sum`` path that
+      ``sweep`` takes, so one code path defines them.
+    * ``devices``: the one device (``None`` = the CUDA card).
+    """
+
+    def __init__(self, specs: Sequence[SchemeSpec], model, n: int, *,
+                 seed: int = 0, chunk: int, ks: Optional[int] = None,
+                 devices=None, keep_samples: bool = False):
+        self._dev = _single_device(devices)
+        specs = _validate_single_round(specs, n, ks)
+        chunk = int(chunk)
+        if chunk < 1:
+            raise ValueError(f"chunk must be >= 1, got chunk={chunk}")
+        self._specs = specs
+        self._model = model
+        self._n = int(n)
+        self._seed = int(seed)
+        self._chunk = chunk
+        self._ks = ks
+        self._keep = bool(keep_samples)
+        self._r_max = max(sp.load for sp in specs)
+        self._done = 0
+        self._p0: Dict[str, list] = {sp.name: [] for sp in specs}
+        self._p1: Dict[str, list] = {sp.name: [] for sp in specs}
+        self._samp: Dict[str, list] = (
+            {sp.name: [] for sp in specs} if self._keep else {})
+
+    @property
+    def trials(self) -> int:
+        """Trials evaluated so far."""
+        return self._done
+
+    @property
+    def chunk(self) -> int:
+        return self._chunk
+
+    @property
+    def spec_names(self) -> Tuple[str, ...]:
+        return tuple(sp.name for sp in self._specs)
+
+    def extend_trials(self, total: int) -> SweepResult:
+        """Continue the sweep to ``total`` trials and return the combined
+        result, bit-equal to ``sweep(..., trials=total)`` at the same
+        (seed, chunk)."""
+        total = int(total)
+        if total <= self._done:
+            raise ValueError(
+                f"extend_trials: total ({total}) must exceed the "
+                f"{self._done} trials already evaluated")
+        if self._done % self._chunk != 0:
+            raise ValueError(
+                f"extend_trials: current total ({self._done}) is not a "
+                f"multiple of chunk ({self._chunk}); a partial final chunk "
+                f"repeats its last trial in masked lanes, so the sweep "
+                f"cannot be extended past it (keep every total but the "
+                f"last chunk-aligned)")
+        add = total - self._done
+        sig, params, slots = _eval_layout(self._specs, self._n, self._r_max,
+                                          self._ks)
+        scan = _get_exec(sig, self._model, self._dev)
+        offs = torch.arange(self._chunk, dtype=torch.int64, device=self._dev)
+        p0, p1, ys = scan(self._seed, range(self._done, total, self._chunk),
+                          offs, total, params_on(params, self._dev),
+                          sums=True, samples=self._keep)
+        p0 = {g: torch.stack(v).cpu().numpy() for g, v in p0.items()}
+        p1 = {g: torch.stack(v).cpu().numpy() for g, v in p1.items()}
+        ys = {g: torch.cat(v, dim=0)[:add].cpu().numpy()
+              for g, v in ys.items()}
+        for name, (g, i) in slots.items():
+            self._p0[name].append(p0[g][:, i, :])
+            self._p1[name].append(p1[g][:, i, :])
+            if self._keep:
+                self._samp[name].append(ys[g][:, i, :])
+        self._done = total
+        return self.result()
+
+    def result(self) -> SweepResult:
+        """The combined result over every trial evaluated so far (the same
+        float64 host combine as ``sweep``, in global chunk order)."""
+        if self._done == 0:
+            raise ValueError("no trials evaluated yet; call extend_trials")
+        t = self._done
+        means: Dict[str, np.ndarray] = {}
+        stderr: Dict[str, np.ndarray] = {}
+        for sp in self._specs:
+            s0 = np.concatenate(self._p0[sp.name], axis=0).astype(np.float64)
+            s1 = np.concatenate(self._p1[sp.name], axis=0).astype(np.float64)
+            mu = s0.sum(axis=0) / t
+            var = np.maximum(s1.sum(axis=0) / t - mu * mu, 0.0)
+            means[sp.name] = mu
+            stderr[sp.name] = np.sqrt(var / t)
+        fixed = frozenset(sp.name for sp in self._specs
+                          if sp.kind in ("pc", "pcmm"))
+        return SweepResult(means=means, stderr=stderr, trials=t, n=self._n,
+                           ks=self._ks, fixed=fixed)
+
+    def samples(self) -> Dict[str, np.ndarray]:
+        """Per-trial statistics ``{name: (trials, L)}`` float32 so far
+        (paired across schemes: row ``t`` of every scheme saw the same
+        delay draws).  Needs ``keep_samples=True``."""
+        if not self._keep:
+            raise ValueError("per-trial samples were not kept; construct "
+                             "with keep_samples=True")
+        return {sp.name: np.concatenate(self._samp[sp.name], axis=0)
+                for sp in self._specs}
+
+    def narrow(self, names: Sequence[str]) -> None:
+        """Drop every scheme not in ``names`` from later extensions (its
+        accumulated state is freed).  The draws keep the original
+        ``r_max``, so the survivors' partials are unchanged."""
+        keep = set(names)
+        have = {sp.name for sp in self._specs}
+        unknown = sorted(keep - have)
+        if unknown:
+            raise ValueError(f"narrow: unknown scheme(s) {unknown}; have "
+                             f"{sorted(have)}")
+        if not keep:
+            raise ValueError("narrow: need at least one surviving scheme")
+        self._specs = tuple(sp for sp in self._specs if sp.name in keep)
+        for d in (self._p0, self._p1, self._samp):
+            for nm in list(d):
+                if nm not in keep:
+                    del d[nm]
+
+
+def resumable_sweep(specs: Sequence[SchemeSpec], model, n: int, *,
+                    seed: int = 0, chunk: int, ks: Optional[int] = None,
+                    devices=None, keep_samples: bool = False
+                    ) -> ResumableSweep:
+    """A ``ResumableSweep`` (see its docstring): a sweep whose trial axis
+    extends by ``extend_trials``, bit-equal to a fresh ``sweep`` at the
+    combined trial count."""
+    return ResumableSweep(specs, model, n, seed=seed, chunk=chunk, ks=ks,
+                          devices=devices, keep_samples=keep_samples)
 
 
 # ----------------------------- rounds axis -----------------------------------
@@ -1149,6 +1489,27 @@ def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
     return rounds_fn
 
 
+def _get_rounds_exec(specs: Tuple[SchemeSpec, ...], process, n: int,
+                     r_max: int, ks: int, rounds: int, beta: float,
+                     gamma: float, censored: bool,
+                     greedy_impl: Optional[str], device: torch.device,
+                     deadline: Optional[float] = None,
+                     policy: str = "wait"):
+    """``_build_rounds_fn``'s evaluator, cached by every argument (the JAX
+    package's ``_get_rounds_exec`` key).  A ``TraceProcess`` stays
+    uncached (its function holds the whole recording, and traces are
+    one-shot), and so does an unhashable custom process.  A cached function
+    carries no state from one call to the next: each call starts its
+    process state, estimates and backlogs afresh."""
+    from .trace import TraceProcess
+    key = (None if isinstance(process, TraceProcess) else
+           (specs, process, n, r_max, ks, rounds, beta, gamma, censored,
+            deadline, policy, device, greedy_impl))
+    return _cached(_ROUNDS_CACHE, key, lambda: _build_rounds_fn(
+        specs, process, n, r_max, ks, rounds, beta, gamma, censored,
+        greedy_impl, device, deadline, policy))
+
+
 def _capture_tables(process, n: int, r_max: int, rounds: int, seed: int,
                     tids: torch.Tensor):
     """The recording pass for one chunk: step the process alone under the
@@ -1254,7 +1615,7 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
                           greedy_impl=greedy_impl)
         return out[:-1] + (trace,)
 
-    rounds_fn = _build_rounds_fn(specs, process, n, r_max, k, rounds, beta,
+    rounds_fn = _get_rounds_exec(specs, process, n, r_max, k, rounds, beta,
                                  gamma, censored, greedy_impl, dev,
                                  deadline, deadline_policy)
     offs = torch.arange(chunk, dtype=torch.int64, device=dev)

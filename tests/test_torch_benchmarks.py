@@ -10,7 +10,10 @@ whose reference runs cost more than ~10 s of JAX compiles, are held to the
 reference's loop constants (``benchmarks/fig6_vs_workers.py``: ``for n in
 (10, 11, 12, 13, 14, 15)``; ``benchmarks/mc_engine.py``: its rows
 ``legacy``, ``fused``, ``speedup``, ``scan_overhead``, ``chunked1M`` and
-``scaling1``, the ``scaling`` row only with more than one device)."""
+``scaling1``, the ``scaling`` row only with more than one device), and so
+are the grid and planner jobs' (``benchmarks/grid_stream.py``,
+``benchmarks/planner.py``), run here at a few hundred trials with their
+guards passing, and made to fire."""
 import json
 import os
 import subprocess
@@ -20,8 +23,9 @@ import pytest
 import torch
 
 from benchmarks_torch import (common, fig6_vs_workers, fig10_load_rebalance,
-                              fig11_trace_replay, fig12_faults, mc_engine,
-                              run)
+                              fig11_trace_replay, fig12_faults, grid_stream,
+                              mc_engine, planner, run)
+from repro.core.grid import GridResult as JaxGridResult
 from repro_torch.core import (completion_samples, cyclic_to_matrix,
                               scenario1, staircase_to_matrix, to_spec)
 
@@ -169,3 +173,80 @@ def test_module_run_from_the_repo_root(tmp_path):
     assert out.returncode == 0, out.stderr
     assert out.stdout.splitlines()[-1].startswith("fig3/summary,")
     assert (tmp_path / "BENCH_fig3.json").exists()
+
+
+GRID_ROWS = [
+    ("grid/stream", sorted(["cells", "trials", "cells_per_sec", "buckets",
+                            "compiles", "fused_dispatches"])),
+    ("grid/naive", sorted(["cells", "subset_of", "trials",
+                           "cells_per_sec"])),
+    ("grid/speedup", sorted(["stream_over_naive", "bitexact"]))]
+PLANNER_ROWS = [
+    ("planner/exhaustive", sorted(["cells", "trials", "trial_evals", "best",
+                                   "best_mean", "ties"])),
+    ("planner/race", sorted(["winner", "trials_spent", "exhaustive_trials",
+                             "saved", "pruned", "raced", "rungs",
+                             "lb_gap"])),
+    ("planner/agreement", sorted(["agree", "planner", "exhaustive",
+                                  "mean_gap"]))]
+
+
+def test_grid_rows_follow_the_reference_and_guards_pass(tmp_path):
+    common.drain_rows()
+    out = grid_stream.run(300, "cpu", out=str(tmp_path))
+    rows = common.drain_rows()
+    assert _keys(rows) == GRID_ROWS
+    last = {r["name"]: r["derived"] for r in rows}
+    assert last["grid/stream"]["cells"] == 64
+    assert last["grid/stream"]["buckets"] == 4
+    assert last["grid/stream"]["compiles"] == 4 == out["builds"]
+    assert last["grid/stream"]["fused_dispatches"] == 4
+    assert last["grid/naive"]["cells"] == 8
+    assert last["grid/speedup"]["bitexact"] == "PASS"
+    # the artifact is the JAX package's schema
+    res = JaxGridResult.load(str(tmp_path / "GRID_result.json"))
+    assert len(res.cells) == 64 and res.meta["devices"] == "cpu"
+
+
+def test_planner_rows_follow_the_reference_and_guards_pass():
+    common.drain_rows()
+    out = planner.run(300, "cpu")
+    rows = common.drain_rows()
+    assert _keys(rows) == PLANNER_ROWS
+    last = {r["name"]: r["derived"] for r in rows}
+    assert last["planner/agreement"]["agree"] == 1.0
+    assert out["winner"] == out["best"]
+    assert last["planner/race"]["saved"] > 1.0
+    assert out["trials_spent"] < out["exhaustive_trials"] == 64 * 300
+
+
+def test_grid_guard_fires_on_a_changed_cell(monkeypatch):
+    real = grid_stream.stream_grid
+
+    def shifted(cells, **kw):
+        res = real(cells, **kw)
+        first = next(iter(res.cells.values()))
+        for nm in first["means"]:
+            first["means"][nm] = first["means"][nm] * (1 + 1e-7)
+        return res
+
+    monkeypatch.setattr(grid_stream, "stream_grid", shifted)
+    common.drain_rows()
+    with pytest.raises(SystemExit, match="NOT bit-exact"):
+        grid_stream.run(200, "cpu", out="")
+    assert common.drain_rows()[-1]["derived"]["bitexact"] == "FAIL"
+
+
+def test_planner_guard_fires_on_another_winner(monkeypatch):
+    real = planner.plan
+
+    def other(*a, **kw):
+        res = real(*a, **kw)
+        res.winner = "pc/r2"
+        return res
+
+    monkeypatch.setattr(planner, "plan", other)
+    common.drain_rows()
+    with pytest.raises(SystemExit, match="argmin disagreement"):
+        planner.run(200, "cpu")
+    assert common.drain_rows()[-1]["derived"]["agree"] == 0.0

@@ -14,8 +14,11 @@ route each call takes (float32 on its TF32 tensor-core kernel, bfloat16
 on the wgmma kernel at dh 64-256 and on the CUDA cores at dh 16 / 32), the
 float32 kernel's error against a float64 evaluation (at most 10x the plain
 float32 version's own), their launch counters and input checks, the engines' per-trial samples and trajectories
-on the card against their own CPU runs, and the LM's logits on the card
-against the CPU with the swa route's launch counts.
+on the card against their own CPU runs, the grid engine's fused cells
+against per-cell sweeps on the card bit for bit, a resumable sweep's
+extension against a fresh card sweep, a cached rounds function's second
+call, and the LM's logits on the card against the CPU with the swa route's
+launch counts.
 
 Skipped without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -30,11 +33,15 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import (DelayTrace, TraceProcess, adaptive_spec,
-                              completion_samples, cyclic_to_matrix,
-                              greedy_row_assignment_batch, lb_spec, pc_spec,
-                              scenario1, staircase_to_matrix, sweep_rounds,
-                              to_spec, trajectory_samples)
+from repro_torch.core import (DelayTrace, GridCell, GridSpec,
+                              MarkovRegimeProcess, TraceProcess,
+                              adaptive_spec, completion_samples,
+                              cyclic_to_matrix, greedy_row_assignment_batch,
+                              lb_spec, pc_spec, pcmm_spec, resumable_sweep,
+                              scenario1, staircase_to_matrix, stream_grid,
+                              sweep, sweep_rounds, to_spec,
+                              trajectory_samples)
+from repro_torch.core import montecarlo
 from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.kernels import build, ops, ref
@@ -423,6 +430,88 @@ def test_trajectories_on_card_equal_cpu(cuda, censored):
                                trials=trials, devices="cpu",
                                censored_feedback=censored)
         assert torch.equal(a.cpu(), b)
+
+
+def test_stream_grid_fused_equals_per_cell_on_card(cuda):
+    """The grid engine on the card: every fused cell (all-k and single-k,
+    budgets, overheads, coded schemes) equals its per-cell sweep on the
+    card bit for bit, in several chunks, with one evaluator build per
+    shape bucket."""
+    cells = GridSpec(n=8, families=("cs", "ss", "ra", "lb", "pc", "pcmm"),
+                     loads=(2, 4, 8), messages=(None, 2),
+                     comm_eps=(0.0, 0.02), ks=(None, 5), trials=3000,
+                     chunk=1000).cells(scenario1())
+    montecarlo.clear_cache()
+    before = montecarlo.cache_stats()["traces"]
+    res = stream_grid(cells, devices=cuda)
+    assert montecarlo.cache_stats()["traces"] - before == res.meta["buckets"]
+    assert res.meta["devices"].startswith("cuda")
+    for c in cells:
+        ref = sweep(c.specs, c.model, c.n, trials=c.trials, seed=c.seed,
+                    chunk=c.chunk, ks=c.ks, devices=cuda)
+        for sp in c.specs:
+            np.testing.assert_array_equal(res.cell(c.name)["means"][sp.name],
+                                          np.atleast_1d(ref.means[sp.name]))
+            np.testing.assert_array_equal(
+                res.cell(c.name)["stderr"][sp.name],
+                np.atleast_1d(ref.stderr[sp.name]))
+
+
+@pytest.mark.parametrize("ks", [None, 5])
+def test_resumable_extension_equals_fresh_sweep_on_card(cuda, ks):
+    """A resumable sweep extended over three rungs equals a fresh card
+    sweep at each total bit for bit, and its kept samples equal
+    completion_samples on the card."""
+    n = 8
+    specs = [to_spec("cs", cyclic_to_matrix(n, 4)),
+             to_spec("ss", staircase_to_matrix(n, 4), messages=2),
+             lb_spec(4), pcmm_spec(4)]
+    rs = resumable_sweep(specs, scenario1(), n, seed=2, chunk=512, ks=ks,
+                         devices=cuda, keep_samples=True)
+    for total in (512, 2048, 8192):
+        got = rs.extend_trials(total)
+        fresh = sweep(specs, scenario1(), n, trials=total, seed=2, chunk=512,
+                      ks=ks, devices=cuda)
+        for nm in fresh.means:
+            np.testing.assert_array_equal(got.means[nm], fresh.means[nm])
+            np.testing.assert_array_equal(got.stderr[nm], fresh.stderr[nm])
+    ref = completion_samples(specs[0], scenario1(), n, trials=8192, seed=2,
+                             chunk=512, k=ks, devices=cuda)
+    np.testing.assert_array_equal(
+        rs.samples()["cs"].reshape(ref.shape), ref.cpu().numpy())
+
+
+def test_cached_rounds_function_same_bits_on_card(cuda):
+    """A rounds evaluator from the cache, called twice on the card (the
+    adaptive spec through the greedy_assign kernel, reissue deadlines),
+    gives the same bits: it carries no state from one call to the next."""
+    n, r = 12, 3
+    proc = MarkovRegimeProcess(base=scenario1(), persistence=0.9)
+    specs = (adaptive_spec("adapt", cyclic_to_matrix(n, r)),
+             to_spec("cs", cyclic_to_matrix(n, r)))
+    args = (specs, proc, n, r, 9, 4, 0.7, 0.5, True, None, cuda, 2e-3,
+            "reissue")
+    fn = montecarlo._get_rounds_exec(*args)
+    assert montecarlo._get_rounds_exec(*args) is fn
+    tids = torch.arange(500, device=cuda)
+    ops.reset_launch_counts()
+    a_times, a_aux = fn(3, tids)
+    b_times, b_aux = fn(3, tids)
+    assert ops.LAUNCHES["greedy_assign"] == 2 * 4
+    for nm in a_times:
+        assert torch.equal(a_times[nm], b_times[nm])
+        for key in a_aux[nm]:
+            assert torch.equal(a_aux[nm][key], b_aux[nm][key])
+    cell = GridCell("r", specs, n, proc, trials=500, rounds=4, k=9,
+                    censored_feedback=True, deadline=2e-3,
+                    deadline_policy="reissue")
+    grid = stream_grid([cell], devices=cuda)
+    ref = sweep_rounds(specs, proc, n, rounds=4, k=9, trials=500,
+                       censored_feedback=True, deadline=2e-3,
+                       deadline_policy="reissue", devices=cuda)
+    for nm in ref.per_round:
+        np.testing.assert_array_equal(grid.cell("r")["per_round"][nm],
+                                      ref.per_round[nm])
 
 
 SWA_SHAPES = [
