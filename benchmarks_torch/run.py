@@ -30,6 +30,10 @@ Prints ``name,us_per_call,derived`` CSV rows:
          writes GRID_result.json into --out)
   planner  racing planner vs the exhaustive grid (exits non-zero unless
          both name the same winner with consistent means)
+  fig13  the live master-worker cluster vs the engine: bit-exact per-round
+         times and trace replay, the live mean within the Monte-Carlo
+         prediction's tolerance, deadline accounting equal to the engine's
+         degradation streams (exits non-zero on any violation)
   mc_engine  fused sweep-engine throughput vs the seed-style per-scheme path
   table1 one DGD iteration per scheme incl. real PC/PCMM decode (the rows'
          ``ok`` hold each update error to its bound)
@@ -37,8 +41,8 @@ Prints ``name,us_per_call,derived`` CSV rows:
 Each job also writes ``BENCH_<name>.json`` (the rows with parsed derived
 metrics) into ``--out``.  Every job's rows are screened for NaN/inf metric
 values: a non-finite number aborts the harness with a non-zero exit.  The
-reference's other jobs (fig13, grid, planner, roofline) wait for later
-slices of the port: asking for one exits non-zero and names its
+reference's other job (roofline) waits for a later
+slice of the port: asking for one exits non-zero and names its
 ``ROADMAP.md`` item.
 
 Run from the repository root (``--device cuda``, the default, needs a card):
@@ -56,7 +60,6 @@ import time
 #: the reference's jobs that wait for a later slice, and the ROADMAP.md
 #: item each waits for
 LATER = {
-    "fig13": "queue 1 item 6 (live/)",
     "roofline": "queue 1 item 8 (the rest of the LM stack)",
 }
 
@@ -94,7 +97,8 @@ def main(argv=None) -> dict:
     from . import (common, fig3_delays, fig4_vs_load, fig5_ec2,
                    fig6_vs_workers, fig7_vs_target, fig8_convergence,
                    fig9_multimessage, fig10_load_rebalance,
-                   fig11_trace_replay, fig12_faults, grid_stream,
+                   fig11_trace_replay, fig12_faults, fig13_live,
+                   grid_stream,
                    mc_engine, planner, table1_e2e)
 
     jobs = {
@@ -112,6 +116,7 @@ def main(argv=None) -> dict:
             trials, dev, out=args.out or "bench_out_torch"),
         "grid": lambda: grid_stream.run(trials, dev, out=args.out),
         "planner": lambda: planner.run(trials, dev),
+        "fig13": lambda: fig13_live.run(trials, dev),
         "mc_engine": lambda: mc_engine.run(trials, dev),
         "table1": lambda: table1_e2e.run(dev),
     }

@@ -35,7 +35,13 @@ bucket, launches per fused dispatch), card against CPU means on a
 sweeps, the racing planner against the grid's ``best_cell``, the Fig. 8
 cell with an adaptive spec through ``stream_grid`` (greedy_assign
 launches, card against CPU), and ``python -m benchmarks_torch.run --quick
---only grid,planner``.
+--only grid,planner``.  Then the live phase: ``repro_torch.live``'s master
+and n in-process workers over inproc and TCP at the paper's EC2 size
+(n = 15, r = 3, 100 rounds): static CS bit-equal to the engine, to the
+trace's replay and to the CPU, a close_partial deadline equal to the
+engine's degradation streams, adaptive censored feedback under reissue
+(one greedy_assign launch a round, card equal to CPU), an n = 200 leg on
+the kernel's wide route, and Fig. 13 through the harness.
 
 Run from the repository root on a machine with a card:
 
@@ -69,7 +75,8 @@ from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
 from repro_torch.core import (DelayTrace, GridCell,  # noqa: E402
                               GridSpec, RoundConfig, TraceProcess,
                               adaptive_spec, cache_stats, completion_samples,
-                              cyclic_to_matrix, lb_spec, lower_bound_mean_mc,
+                              cyclic_to_matrix, ec2_cluster, lb_spec,
+                              lower_bound_mean_mc,
                               make_scenario, mean_completion_time, pc_spec,
                               pcmm_spec, random_assignment_to_matrix,
                               resumable_sweep, scenario1, staircase_to_matrix,
@@ -80,6 +87,7 @@ from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.live import run_live, sample_delay_tables  # noqa: E402
 from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
                                 layer_specs)
 
@@ -1040,6 +1048,284 @@ def grid_phase():
             "cache": cache_stats(), "seconds": secs}
 
 
+#: the live phase: the paper's EC2 cluster (Table I: n = 15 workers, r = 3,
+#: every task's result a round) over Table I's 100 iterations
+LIVE_N, LIVE_R, LIVE_K, LIVE_ROUNDS = 15, 3, 15, 100
+#: the live phase's wide leg: adaptive under reissue past the warp route
+LIVE_WIDE = dict(n=200, r=4, k=150, rounds=3)
+
+
+def live_process(n):
+    """The live phase's cluster: ``ec2_cluster(n, persistence=0.95,
+    spread=3, base=scenario1())``."""
+    return ec2_cluster(n, persistence=0.95, spread=3, base=scenario1())
+
+
+def timed_live(cfg, process, rounds, **kw):
+    """``run_live`` (on the card unless ``device=`` says otherwise) and its
+    wall seconds, the card synchronized at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = run_live(cfg, process, rounds, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def shared_trace(n, r, rounds):
+    """A trial-0 trace of ``live_process(n)`` drawn on the CPU, for card
+    against CPU runs: the card's truncated-Gaussian draws (``erfinv``) may
+    part from the CPU's in the last bits, as the grid phase notes."""
+    T1, T2 = sample_delay_tables(live_process(n), 0, rounds, n, r,
+                                 device="cpu")
+    return TraceProcess(DelayTrace(T1[:, None], T2[:, None]))
+
+
+def same_live(a, b, what):
+    check(np.array_equal(a.per_round, b.per_round)
+          and np.array_equal(a.realized, b.realized)
+          and np.array_equal(a.missed, b.missed)
+          and np.array_equal(a.trace.T1, b.trace.T1)
+          and np.array_equal(a.trace.T2, b.trace.T2),
+          f"live {what}: per_round / realized / missed / trace differ")
+
+
+def live_phase():
+    """The live master-worker cluster on the card (``repro_torch.live``):
+    ``run_live`` with n in-process workers over ``inproc`` and over
+    ``tcp://127.0.0.1:0``, the master scoring and scheduling on the card.
+
+    1. Static CS at the EC2 size (``RoundConfig(n=15, k=15, kind="cs",
+       r=3)`` on ``live_process(15)``, 100 rounds, ``time_scale=0``,
+       ``abort_on_close=False``): ``per_round`` equal bit for bit to
+       ``sweep_rounds(trials=1, record_trace=True)`` on the card (the
+       trace too) and to the replay of the live trace through
+       ``TraceProcess``; the tcp run equal to the inproc run (per_round
+       and trace); the same live run on the card and on the CPU over one
+       CPU-drawn trace, equal (per_round, realized, missed, trace).
+    2. Deadline: ``close_partial`` at the run's median round: per_round,
+       realized and missed equal the engine's degradation streams; at
+       least one round misses and one does not.
+    3. Adaptive, censored feedback under ``reissue`` (same deadline) on the
+       shared trace: greedy_assign launched once a round (100; the counts
+       set to 0 just before, read just after; the kernel's launches
+       counted by torch.profiler in a second run, up to three tries where
+       it drops events), the card's run equal to
+       the CPU's (per_round, realized, trace).  The master's launches a
+       round: the profiled run's kernels less the workers' table draws.
+    4. Wide leg: n = 200, r = 4, k = 150, 3 rounds, adaptive under
+       reissue on a CPU-drawn trace: 3 launches on greedy_assign's wide
+       route, the card's run equal to the CPU's.
+    5. Fig. 13: ``python -m benchmarks_torch.run --quick --only fig13`` on
+       the card, every status row PASS.
+
+    Prints each leg's wall seconds, the workers' table sampling apart
+    (each of the n workers draws the full (rounds, n, r) tables, as the
+    JAX package's workers do), and ms a round on inproc and tcp: the
+    shared-trace runs' wall seconds less the workers' replayed draws,
+    timed apart."""
+    t_phase = time.perf_counter()
+    n, r, k, rounds = LIVE_N, LIVE_R, LIVE_K, LIVE_ROUNDS
+    proc = live_process(n)
+    static = RoundConfig(n=n, k=k, kind="cs", r=r)
+    spec = static.to_scheme_spec("cs")
+    out = {"n": n, "r": r, "k": k, "rounds": rounds}
+    run_live(static, proc, 2, abort_on_close=False)          # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sample_delay_tables(proc, static.seed, rounds, n, r)
+    torch.cuda.synchronize()
+    sample_s = time.perf_counter() - t0
+    out["sampling_seconds"] = sample_s
+
+    # 1. static CS: the engine, the replay, tcp, the CPU
+    card, card_s = timed_live(static, proc, rounds, abort_on_close=False)
+    tcp, tcp_s = timed_live(static, proc, rounds, abort_on_close=False,
+                            address="tcp://127.0.0.1:0")
+    ekw = dict(rounds=rounds, trials=1, k=k, seed=static.seed)
+    eng = sweep_rounds([spec], proc, n, record_trace=True, **ekw)
+    rep = sweep_rounds([spec], TraceProcess(card.trace), n, **ekw)
+    live32 = card.per_round.astype(np.float32)
+    check(np.array_equal(live32, eng.per_round["cs"].astype(np.float32))
+          and np.array_equal(card.trace.T1, eng.trace.T1)
+          and np.array_equal(card.trace.T2, eng.trace.T2),
+          "live static: card run differs from sweep_rounds(record_trace)")
+    check(np.array_equal(live32, rep.per_round["cs"].astype(np.float32)),
+          "live static: card run differs from its trace's replay")
+    same_live(tcp, card, "static tcp vs inproc")
+    check(card.realized.tolist() == [k] * rounds and not card.missed.any()
+          and bool(np.isfinite(card.per_round).all()),
+          "live static: a round short of k or non-finite")
+    # the rounds themselves, over a shared trace (a worker's replayed
+    # tables are a gather a round): ms a round on inproc and on tcp
+    shared = shared_trace(n, r, rounds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        sample_delay_tables(shared, static.seed, rounds, n, r)
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    on_card, sh_s = timed_live(static, shared, rounds, abort_on_close=False)
+    on_tcp, sh_tcp_s = timed_live(static, shared, rounds,
+                                  abort_on_close=False,
+                                  address="tcp://127.0.0.1:0")
+    on_cpu, cpu_s = timed_live(static, shared, rounds, abort_on_close=False,
+                               device="cpu")
+    same_live(on_tcp, on_card, "static tcp vs inproc (shared trace)")
+    same_live(on_card, on_cpu, "static card vs CPU (shared trace)")
+    draws = float(np.abs(card.trace.T1.astype(np.float64)
+                         - shared.trace.T1).max())
+    out["static"] = {"inproc_seconds": card_s, "tcp_seconds": tcp_s,
+                     "shared_inproc_seconds": sh_s,
+                     "shared_tcp_seconds": sh_tcp_s, "cpu_seconds": cpu_s,
+                     "replay_sampling_seconds": replay_s,
+                     "ms_per_round_inproc": (sh_s - replay_s) / rounds * 1e3,
+                     "ms_per_round_tcp": (sh_tcp_s - replay_s) / rounds * 1e3,
+                     "mean_ms": card.mean * 1e3,
+                     "card_vs_cpu_draws_max_abs": draws}
+    print(f"live static CS (n={n} r={r} k={k}, {rounds} rounds, "
+          f"ec2_cluster persistence 0.95 spread 3): per_round equal bit for "
+          f"bit to sweep_rounds(record_trace) and to the trace's replay on "
+          f"the card; tcp equal to inproc; card equal to CPU on a shared "
+          f"trace; mean {card.mean * 1e3:.6f} ms/round; wall seconds "
+          f"inproc={card_s:.4f} tcp={tcp_s:.4f} (each with the workers' "
+          f"draws); worker table sampling {n} x ({rounds}, {n}, {r}) "
+          f"seconds={sample_s:.4f} (measured apart); on the shared trace "
+          f"wall seconds inproc={sh_s:.4f} tcp={sh_tcp_s:.4f} cpu="
+          f"{cpu_s:.4f}, the replayed draws {replay_s:.4f}, so ms a round "
+          f"inproc={out['static']['ms_per_round_inproc']:.4f} tcp="
+          f"{out['static']['ms_per_round_tcp']:.4f}; card vs CPU draws max "
+          f"abs diff {draws:.3e}")
+
+    # 2. deadline: close_partial at the median round
+    dl = float(np.quantile(card.per_round, 0.5))
+    cfg_dl = RoundConfig(n=n, k=k, kind="cs", r=r, deadline=dl,
+                         deadline_policy="close_partial")
+    res_dl, dl_s = timed_live(cfg_dl, proc, rounds, abort_on_close=False)
+    eng_dl = sweep_rounds([spec], proc, n, deadline=dl,
+                          deadline_policy="close_partial", record_trace=True,
+                          **ekw)
+    deg = eng_dl.degradation["cs"]
+    check(np.array_equal(res_dl.per_round.astype(np.float32),
+                         eng_dl.per_round["cs"].astype(np.float32))
+          and np.array_equal(res_dl.realized.astype(np.float64),
+                             deg["realized_k"])
+          and np.array_equal(res_dl.missed.astype(np.float64),
+                             deg["missed"]),
+          "live deadline: per_round / realized / missed differ from the "
+          "engine's degradation streams")
+    missed = int(res_dl.missed.sum())
+    check(0 < missed < rounds, f"live deadline: {missed}/{rounds} missed")
+    out["deadline"] = {"seconds": dl_s, "deadline_ms": dl * 1e3,
+                       "missed": missed,
+                       "mean_realized_k": float(res_dl.realized.mean())}
+    print(f"live deadline close_partial at {dl * 1e3:.6f} ms: per_round, "
+          f"realized and missed equal the engine's degradation streams; "
+          f"missed {missed}/{rounds}, mean realized k "
+          f"{res_dl.realized.mean():.4f}; wall seconds={dl_s:.4f}")
+
+    # 3. adaptive: censored feedback under reissue, on the shared trace
+    cfg_ad = RoundConfig(n=n, k=k, kind="cs", r=r, adaptive=True,
+                         censored_feedback=True, deadline=dl,
+                         deadline_policy="reissue")
+    ops.reset_launch_counts()
+    ad_card, ad_s = timed_live(cfg_ad, shared, rounds)
+    launches = dict(ops.LAUNCHES)
+    check(launches["greedy_assign"] == rounds,
+          f"live adaptive: greedy_assign launches {launches} != {rounds}")
+    ad_cpu, ad_cpu_s = timed_live(cfg_ad, shared, rounds, device="cpu")
+    same_live(ad_card, ad_cpu, "adaptive card vs CPU")
+    _, _, draw_kernels = profiled(lambda: [sample_delay_tables(
+        shared, 0, rounds, n, r) for _ in range(n)])
+    # the kernel's launches as the profiler records them; it may drop an
+    # event (one of 100 in one smoke on an H100), so up to three tries: the
+    # gate is the wrapper's count above, and no try may see more than one
+    # greedy_assign kernel a round
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            again = run_live(cfg_ad, shared, rounds)
+            torch.cuda.synchronize()
+        same_live(again, ad_card, "adaptive card, profiled run")
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        total = int(sum(e.count for e in kernels))
+        greedy_prof = int(sum(e.count for e in kernels if "greedy" in e.key))
+        check(greedy_prof <= rounds, f"live adaptive: the profiler counts "
+                                     f"{greedy_prof} greedy_assign kernels")
+        if greedy_prof == rounds:
+            break
+    if total and greedy_prof != rounds:
+        print(f"chip_smoke: the profiler recorded {greedy_prof} of {rounds} "
+              f"greedy_assign kernels in each of three tries (dropped "
+              f"events)", file=sys.stderr)
+    master_per_round = (None if not total or draw_kernels is None
+                        else (total - draw_kernels) / rounds)
+    out["adaptive"] = {
+        "seconds": ad_s, "cpu_seconds": ad_cpu_s,
+        "greedy_launches": launches["greedy_assign"],
+        "greedy_need_launches": launches["greedy_assign_need"],
+        "profiled_greedy_kernels": greedy_prof if total else None,
+        "master_launches_per_round": master_per_round,
+        "mean_ms": ad_card.mean * 1e3,
+        "missed": int(ad_card.missed.sum()),
+        "mean_realized_k": float(ad_card.realized.mean())}
+    shown = ("not measured" if master_per_round is None
+             else f"{master_per_round:.1f}")
+    print(f"live adaptive censored reissue (n={n}, {rounds} rounds, deadline "
+          f"{dl * 1e3:.6f} ms, shared trace): greedy_assign launches="
+          f"{launches['greedy_assign']} (with need rows "
+          f"{launches['greedy_assign_need']}; profiler: "
+          f"{greedy_prof if total else 'not measured'} greedy kernels); "
+          f"card equal to CPU bit for bit; master launches a round={shown}; "
+          f"mean {ad_card.mean * 1e3:.6f} ms/round, missed "
+          f"{int(ad_card.missed.sum())}/{rounds}; wall seconds card="
+          f"{ad_s:.4f} cpu={ad_cpu_s:.4f}")
+
+    # 4. the wide leg: n = 200 on greedy_assign's wide route
+    nw, rw, kw, rounds_w = (LIVE_WIDE[key] for key in ("n", "r", "k",
+                                                       "rounds"))
+    wide = shared_trace(nw, rw, rounds_w)
+    static_w = RoundConfig(n=nw, k=kw, kind="cs", r=rw)
+    dl_w = float(np.median(sweep_rounds(
+        [static_w.to_scheme_spec("cs")], wide, nw, rounds=rounds_w,
+        trials=1, k=kw).per_round["cs"]))
+    cfg_w = RoundConfig(n=nw, k=kw, kind="cs", r=rw, adaptive=True,
+                        censored_feedback=True, deadline=dl_w,
+                        deadline_policy="reissue")
+    ops.reset_launch_counts()
+    w_card, w_s = timed_live(cfg_w, wide, rounds_w)
+    wl = dict(ops.LAUNCHES)
+    check(wl["greedy_assign"] == rounds_w and ops.greedy_route(nw) == "wide",
+          f"live wide: greedy_assign launches {wl} (route "
+          f"{ops.greedy_route(nw)})")
+    w_cpu, w_cpu_s = timed_live(cfg_w, wide, rounds_w, device="cpu")
+    same_live(w_card, w_cpu, "wide card vs CPU")
+    out["wide"] = {"seconds": w_s, "cpu_seconds": w_cpu_s,
+                   "greedy_launches": wl["greedy_assign"],
+                   "greedy_need_launches": wl["greedy_assign_need"],
+                   "deadline_ms": dl_w * 1e3}
+    print(f"live wide adaptive reissue (n={nw} r={rw} k={kw}, {rounds_w} "
+          f"rounds, route={ops.greedy_route(nw)}): greedy_assign launches="
+          f"{wl['greedy_assign']} (with need rows "
+          f"{wl['greedy_assign_need']}); card equal to CPU bit for bit; "
+          f"wall seconds card={w_s:.4f} cpu={w_cpu_s:.4f}")
+
+    # 5. Fig. 13 through the harness
+    out_dir = str(Path(__file__).resolve().parent / "bench_out_torch")
+    done = bench_run.main(["--quick", "--device", "cuda", "--only", "fig13",
+                           "--out", out_dir])
+    status = {row["name"]: row["derived"]["status"]
+              for row in done["fig13"]["rows"]}
+    check(len(status) == 3 and set(status.values()) == {"PASS"},
+          f"fig13 status rows {status}")
+    out["fig13_seconds"] = done["fig13"]["seconds"]
+    print(f"live fig13 (n=8 r=2 k=6, 20 rounds, seed 7): status rows "
+          f"{status}; seconds={done['fig13']['seconds']:.4f}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"live phase wall seconds={out['seconds']:.4f}")
+    return out
+
+
 #: the benchmark jobs the figures phase runs (fig8 runs in rounds_phase)
 FIGURE_JOBS = ("fig3", "fig4", "fig5", "fig6", "fig7", "fig9", "table1",
                "mc_engine")
@@ -1592,6 +1878,7 @@ def main():
     served = serve_phase()
     consistency = consistency_phase()
     grid = grid_phase()
+    live = live_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -1655,11 +1942,15 @@ def main():
             "faults_grid_close_partial":
                 faults["grid"]["close_partial"]["greedy_launches"],
             "faults_grid_reissue":
-                faults["grid"]["reissue"]["greedy_launches"]},
+                faults["grid"]["reissue"]["greedy_launches"],
+            "live_adaptive": live["adaptive"]["greedy_launches"],
+            "live_wide": live["wide"]["greedy_launches"]},
         "need_row_launches_by_path": {
             "faults_grid_reissue":
                 faults["grid"]["reissue"]["greedy_need_launches"],
-            "adaptive_n200_reissue": wide_reissue["need_launches"]},
+            "adaptive_n200_reissue": wide_reissue["need_launches"],
+            "live_adaptive": live["adaptive"]["greedy_need_launches"],
+            "live_wide": live["wide"]["greedy_need_launches"]},
         "max_abs_err": g_row["max_abs_err"],
         "ms": g_row["ms"], "device_ms": g_row["device_ms"],
         "n1_device_ms": g_row["n1_device_ms"], "pick_us": g_row["pick_us"],
@@ -1726,7 +2017,7 @@ def main():
         "adaptive_wide_reissue": wide_reissue, "figures": figures,
         "faults": faults,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
-        "consistency": consistency, "grid": grid}))
+        "consistency": consistency, "grid": grid, "live": live}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,7 +4,8 @@ scheduler and load re-balancing, completion times, the single-round and
 rounds Monte-Carlo engines (round deadlines, trace recording, resumable
 sweeps, the evaluator cache), the grid engine and the racing planner,
 Theorem 1 and the lower bound, coded baselines and the aggregator
-(counterparts of ``repro.core``)."""
+(counterparts of ``repro.core``), and lazy re-exports of the live layer
+(``repro_torch.live``)."""
 from .aggregator import StragglerAggregator
 from .cluster import (FAULT_SCENARIOS, AR1Process, DelayProcess,
                       DiurnalLoadProcess, FaultProcess, IIDProcess,
@@ -98,3 +99,22 @@ __all__ = [
     "GridSpec", "GridResult", "stream_grid", "GRID_FORMAT_VERSION", "plan",
     "PlanResult", "PLAN_FORMAT_VERSION",
 ]
+
+# ------------------- live-layer facade (lazy re-exports) ---------------------
+# repro_torch.live imports from repro_torch.core's submodules, so importing
+# it eagerly here would be circular; PEP 562 resolves the names on first
+# access (the JAX package's facade, the same names).
+_LIVE_EXPORTS = ("run_live", "Master", "LiveResult", "RoundReport",
+                 "run_worker", "sample_delay_tables", "Comm", "Listener",
+                 "CommClosedError", "connect", "listen")
+
+
+def __getattr__(name):
+    if name in _LIVE_EXPORTS:
+        from .. import live
+        return getattr(live, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LIVE_EXPORTS))

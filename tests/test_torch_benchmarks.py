@@ -1,6 +1,6 @@
 """The port's benchmark harness (``python -m benchmarks_torch.run``) on the
 CPU: it writes ``BENCH_<name>.json``, refuses non-finite metrics and the
-jobs of later slices, fig9's and fig10-12's guards pass, table1's ``ok``
+jobs of later slices, fig9's and fig10-13's guards pass, table1's ``ok``
 holds, and the
 seed-style ``legacy`` path of ``mc_engine`` gives per-trial CS / SS order
 statistics bit-equal to the fused engine's on shared draws (mins and sorts
@@ -23,8 +23,8 @@ import pytest
 import torch
 
 from benchmarks_torch import (common, fig6_vs_workers, fig10_load_rebalance,
-                              fig11_trace_replay, fig12_faults, grid_stream,
-                              mc_engine, planner, run)
+                              fig11_trace_replay, fig12_faults, fig13_live,
+                              grid_stream, mc_engine, planner, run)
 from repro.core.grid import GridResult as JaxGridResult
 from repro_torch.core import (completion_samples, cyclic_to_matrix,
                               scenario1, staircase_to_matrix, to_spec)
@@ -74,13 +74,14 @@ def test_harness_refuses_later_slices_by_roadmap_item(name):
         run.main(["--device", "cpu", "--only", f"fig3,{name}", "--out", ""])
 
 
-@pytest.mark.parametrize("name", ["fig10", "fig11", "fig12"])
+@pytest.mark.parametrize("name", ["fig10", "fig11", "fig12", "fig13"])
 def test_fault_figures_pass_on_the_cpu(name, tmp_path):
-    """The fault-tolerance figures (no longer refused) at 64 trials on the
-    CPU: every guard passes and the status rows read PASS."""
+    """The fault-tolerance figures and the live cluster's Fig. 13 (no
+    longer refused) at 64 trials on the CPU: every guard passes and the
+    status rows read PASS."""
     mod = {"fig10": fig10_load_rebalance, "fig11": fig11_trace_replay,
-           "fig12": fig12_faults}[name]
-    kw = {} if name == "fig10" else {"out": str(tmp_path)}
+           "fig12": fig12_faults, "fig13": fig13_live}[name]
+    kw = {"out": str(tmp_path)} if name in ("fig11", "fig12") else {}
     common.drain_rows()
     mod.run(64, "cpu", **kw)
     rows = common.drain_rows()

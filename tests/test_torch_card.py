@@ -17,7 +17,8 @@ float32 version's own), their launch counters and input checks, the engines' per
 on the card against their own CPU runs, the grid engine's fused cells
 against per-cell sweeps on the card bit for bit, a resumable sweep's
 extension against a fresh card sweep, a cached rounds function's second
-call, and the LM's logits on the card against the CPU with the swa route's
+call, the live cluster's static and adaptive runs (the master on the card)
+against the CPU's on a shared trace, and the LM's logits on the card against the CPU with the swa route's
 launch counts.
 
 Skipped without a card.  This file imports neither JAX nor the JAX
@@ -34,7 +35,7 @@ import pytest
 import torch
 
 from repro_torch.core import (DelayTrace, GridCell, GridSpec,
-                              MarkovRegimeProcess, TraceProcess,
+                              MarkovRegimeProcess, RoundConfig, TraceProcess,
                               adaptive_spec, completion_samples,
                               cyclic_to_matrix, greedy_row_assignment_batch,
                               lb_spec, pc_spec, pcmm_spec, resumable_sweep,
@@ -45,6 +46,7 @@ from repro_torch.core import montecarlo
 from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.kernels import build, ops, ref
+from repro_torch.live import run_live, sample_delay_tables
 from repro_torch.models import forward, init_cache, init_params
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
@@ -430,6 +432,65 @@ def test_trajectories_on_card_equal_cpu(cuda, censored):
                                trials=trials, devices="cpu",
                                censored_feedback=censored)
         assert torch.equal(a.cpu(), b)
+
+
+def _live_trace(n, r, rounds, seed):
+    gen = np.random.default_rng(seed)
+    T1 = (1e-4 * (0.5 + gen.random((rounds, 1, n, r)))).astype(np.float32)
+    T2 = (5e-4 * (0.5 + gen.random((rounds, 1, n, r)))).astype(np.float32)
+    return TraceProcess(DelayTrace(T1, T2))
+
+
+def _same_live(a, b):
+    for key in ("per_round", "realized", "missed"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key))
+    np.testing.assert_array_equal(a.trace.T1, b.trace.T1)
+    np.testing.assert_array_equal(a.trace.T2, b.trace.T2)
+
+
+def test_live_static_on_card_equals_cpu_and_the_engine(cuda):
+    """A static live run (inproc and tcp, the master scoring on the card)
+    on a shared trace: the same bits as on the CPU and as the engine's
+    replay; the card's own draws equal sweep_rounds' recording."""
+    n, r, rounds = 8, 2, 5
+    proc = _live_trace(n, r, rounds, 3)
+    cfg = RoundConfig(n=n, k=6, kind="cs", r=r)
+    a = run_live(cfg, proc, rounds, abort_on_close=False)
+    _same_live(a, run_live(cfg, proc, rounds, abort_on_close=False,
+                           device="cpu"))
+    _same_live(a, run_live(cfg, proc, rounds, abort_on_close=False,
+                           address="tcp://127.0.0.1:0"))
+    spec = cfg.to_scheme_spec("s")
+    eng = sweep_rounds([spec], proc, n, rounds=rounds, trials=1, k=6,
+                       devices=cuda)
+    np.testing.assert_array_equal(a.per_round.astype(np.float32),
+                                  eng.per_round["s"].astype(np.float32))
+    cluster = MarkovRegimeProcess(base=scenario1(), persistence=0.9)
+    T1, T2 = sample_delay_tables(cluster, 5, rounds, n, r)
+    rec = sweep_rounds([spec], cluster, n, rounds=rounds, trials=1, k=6,
+                       seed=5, record_trace=True, devices=cuda).trace
+    np.testing.assert_array_equal(T1, rec.T1[:, 0])
+    np.testing.assert_array_equal(T2, rec.T2[:, 0])
+
+
+@pytest.mark.parametrize("n", [8, 200])
+def test_live_adaptive_on_card_equals_cpu(cuda, n):
+    """An adaptive live run under reissue with censored feedback on a
+    shared trace: one greedy_assign launch a round (the wide route at
+    n = 200), and the same bits on the card as on the CPU."""
+    r, rounds = 3, 4
+    proc = _live_trace(n, r, rounds, 8)
+    k = 3 * n // 4
+    dl = float(np.median(sweep_rounds(
+        [to_spec("cs", cyclic_to_matrix(n, r))], proc, n, rounds=rounds,
+        trials=1, k=k, devices=cuda).per_round["cs"]))
+    cfg = RoundConfig(n=n, k=k, kind="cs", r=r, adaptive=True,
+                      censored_feedback=True, deadline=dl,
+                      deadline_policy="reissue")
+    ops.reset_launch_counts()
+    a = run_live(cfg, proc, rounds)
+    assert ops.LAUNCHES["greedy_assign"] == rounds
+    _same_live(a, run_live(cfg, proc, rounds, device="cpu"))
 
 
 def test_stream_grid_fused_equals_per_cell_on_card(cuda):
