@@ -16,15 +16,21 @@ Workloads (the ones ``chip_smoke.py`` drives):
           one prefill of 2 x 2048 tokens into an empty cache (29
           swa_attention launches, all on the tensor-core kernel);
   serve-decode   8 greedy decode steps of that batch after the prefill,
-          with launches per step.
+          with launches per step;
+  train   gemma3-4b at full width and depth, bf16, AdamW: 2 straggler-
+          scheduled training steps of the smoke's round (n = 8, r = 2,
+          k = 6, SS, 16 x 64 tokens a slot, the Markov cluster, adaptive
+          rows: one greedy_assign launch a step), with launches per step;
+  train-optimizer  the in-place AdamW step alone over the same weights.
 
 Run on a machine with a card, from the repository root:
 
-    python3 benchmarks_torch/profile_port.py
+    python3 benchmarks_torch/profile_port.py [--only train,serve-decode]
 
 Prints one JSON object per workload.  Where the profiler records no device
 time, the device numbers read null (not measured).
 """
+import argparse
 import json
 import subprocess
 import sys
@@ -43,9 +49,15 @@ from repro_torch.train import make_serve_step  # noqa: E402
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 import fig8_convergence as fig8  # noqa: E402
 from repro_torch.core import sweep_rounds  # noqa: E402
-from repro_torch.core import (cyclic_to_matrix, lb_spec, pc_spec,  # noqa: E402
-                              pcmm_spec, random_assignment_to_matrix,
-                              scenario1, staircase_to_matrix, sweep, to_spec)
+from repro_torch.core import (AdaptiveScheduler, RoundConfig,  # noqa: E402
+                              cyclic_to_matrix, ec2_cluster, lb_spec,
+                              pc_spec, pcmm_spec,
+                              random_assignment_to_matrix, scenario1,
+                              staircase_to_matrix, sweep, to_spec)
+from repro_torch.data import TaskPartition, lm_task_batches  # noqa: E402
+from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
+from repro_torch.train import (init_train_state,  # noqa: E402
+                               make_straggler_train_step)
 
 
 def _device_us(evt) -> float:
@@ -78,7 +90,20 @@ def window(name, fn, card, units=None):
                          "device_ms": _device_us(e) / 1e3} for e in top]}))
 
 
-def main():
+WORKLOADS = ("sweep", "rounds", "dgd", "dgd-markov", "serve-prefill",
+             "serve-decode", "train", "train-optimizer")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", default=None,
+                    help="comma-separated workloads (default: all of "
+                         f"{', '.join(WORKLOADS)})")
+    only = ap.parse_args(argv).only
+    want = set(WORKLOADS if only is None else only.split(","))
+    if want - set(WORKLOADS):
+        sys.exit(f"profile_port: unknown workloads "
+                 f"{sorted(want - set(WORKLOADS))}")
     if not torch.cuda.is_available():
         sys.exit("profile_port: no CUDA device available")
     card = subprocess.run(
@@ -90,18 +115,25 @@ def main():
              to_spec("ss", staircase_to_matrix(n, r)),
              to_spec("ra", random_assignment_to_matrix(n)),
              lb_spec(r), pc_spec(r), pcmm_spec(r)]
-    window("sweep", lambda: sweep(specs, scenario1(), n, trials=200_000,
-                                  chunk=20_000, devices="cuda"), card)
+    if "sweep" in want:
+        window("sweep", lambda: sweep(specs, scenario1(), n, trials=200_000,
+                                      chunk=20_000, devices="cuda"), card)
     proc = fig8.cell_process(0.98, 3.0)
-    window("rounds", lambda: sweep_rounds(
-        fig8.specs(), proc, fig8.N, rounds=fig8.ROUNDS, k=fig8.K,
-        trials=8000, chunk=fig8.CHUNK, devices="cuda"), card,
-        units=("chunk-round", 4 * fig8.ROUNDS))
-    window("dgd", lambda: dgd.run_paper(RegressionConfig(), 20,
-                                        device="cuda"), card)
-    window("dgd-markov", lambda: dgd.run_paper(
-        RegressionConfig(), 20, device="cuda", cluster="markov"), card)
-    serve_windows(card)
+    if "rounds" in want:
+        window("rounds", lambda: sweep_rounds(
+            fig8.specs(), proc, fig8.N, rounds=fig8.ROUNDS, k=fig8.K,
+            trials=8000, chunk=fig8.CHUNK, devices="cuda"), card,
+            units=("chunk-round", 4 * fig8.ROUNDS))
+    if "dgd" in want:
+        window("dgd", lambda: dgd.run_paper(RegressionConfig(), 20,
+                                            device="cuda"), card)
+    if "dgd-markov" in want:
+        window("dgd-markov", lambda: dgd.run_paper(
+            RegressionConfig(), 20, device="cuda", cluster="markov"), card)
+    if want & {"serve-prefill", "serve-decode"}:
+        serve_windows(card)
+    if want & {"train", "train-optimizer"}:
+        train_windows(card, want)
 
 
 @torch.inference_mode()
@@ -125,6 +157,40 @@ def serve_windows(card, batch=2, prompt_len=2048, steps=8):
                                                    state["tok"])
 
     window("serve-decode", decode, card, units=("decode step", steps))
+
+
+
+def train_windows(card, want, steps=2):
+    cfg = get_config("gemma3-4b")
+    n, r, k = 8, 2, 6
+    rc = RoundConfig(n=n, k=k, kind="ss", r=r)
+    opt = adamw(cosine_schedule(3e-4, 20, warmup=5))
+    state = init_train_state(cfg, opt, seed=0, device="cuda")
+    step_fn = make_straggler_train_step(
+        cfg, opt, rc, ec2_cluster(n, spread=3.0, persistence=0.95))
+    sched = AdaptiveScheduler(rc.to_matrix(), device="cuda")
+    part = TaskPartition(n=n, global_batch=16, seq_len=64,
+                         vocab=cfg.vocab_size, source="bigram")
+    run = {"state": state, "cluster": None}
+
+    def train():
+        for _ in range(steps):
+            st = run["state"]
+            toks, labs = lm_task_batches(part, sched.matrix(), st.step,
+                                         device="cuda")
+            run["state"], m, run["cluster"] = step_fn(
+                st, toks, labs, 0, run["cluster"], sched.row_of_worker())
+            sched.observe(m["worker_t1"].cpu().numpy())
+
+    if "train" in want:
+        window("train", train, card, units=("train step", steps))
+    if "train-optimizer" in want:
+        params = run["state"].named_params()
+        # the weights stand in for the gradients: the same shapes and
+        # dtypes, no extra memory (the values do not change the work)
+        scale = torch.ones((), device="cuda")
+        window("train-optimizer", lambda: opt.step_(
+            params, params, run["state"].opt_state, scale), card)
 
 
 if __name__ == "__main__":

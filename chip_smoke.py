@@ -41,7 +41,16 @@ and n in-process workers over inproc and TCP at the paper's EC2 size
 trace's replay and to the CPU, a close_partial deadline equal to the
 engine's degradation streams, adaptive censored feedback under reissue
 (one greedy_assign launch a round, card equal to CPU), an n = 200 leg on
-the kernel's wide route, and Fig. 13 through the harness.
+the kernel's wide route, and Fig. 13 through the harness.  Last, the train
+phase: straggler-scheduled training of gemma3-4b at full size (34 layers,
+bf16, AdamW) through ``repro_torch.launch.train`` for 20 steps (the loss
+falls; one greedy_assign launch a step from the adaptive scheduler, no
+swa_attention launch inside training), the trained weights' logits through
+the swa kernel without grad against the autograd route, a replay of the
+run's recorded delays (bit-equal rounds; the log equal to the engine's
+trial-0 tables), 10 steps under the reissue deadline policy (need rows on
+the launches after rounds that left a task undelivered), and at the smoke
+config the card against the CPU and a resume against a straight run.
 
 Run from the repository root on a machine with a card:
 
@@ -57,6 +66,7 @@ import ctypes
 import dataclasses
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -86,7 +96,11 @@ from repro_torch.core import montecarlo  # noqa: E402
 from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
+from repro_torch.core import load_trace  # noqa: E402
+from repro_torch.data import TaskPartition, lm_task_batches  # noqa: E402
 from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.cluster import build_cluster  # noqa: E402
 from repro_torch.live import run_live, sample_delay_tables  # noqa: E402
 from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
                                 layer_specs)
@@ -1848,6 +1862,301 @@ def consistency_phase():
             "narrow_f32_launches": narrow_launches["swa_attention_f32"]}
 
 
+#: the train phase's full-size leg: gemma3-4b as configured, AdamW with the
+#: cosine schedule, the paper's round (n = 8, r = 2, k = 6, SS) on a
+#: persistent-straggler cluster with adaptive row re-assignment
+TRAIN_ARGV = ["--arch", "gemma3-4b", "--steps", "20", "--n", "8", "--r", "2",
+              "--k", "6", "--batch", "16", "--seq", "64", "--schedule", "ss",
+              "--cluster", "markov", "--persistence", "0.95", "--spread", "3",
+              "--adaptive"]
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "train_smoke"
+#: card against CPU at the smoke config in float32 (tests/test_torch_train.py's
+#: AdamW tolerance: loss rel 1e-5, weights within 5e-4, 99.9 % within 1e-5)
+TRAIN_F32_LOSS_REL = 1e-5
+TRAIN_F32_W_ATOL = 5e-4
+TRAIN_F32_W_Q999 = 1e-5
+#: the bfloat16 tolerance of the swa checks (tests/test_torch_card.py's TOL)
+TRAIN_BF16_REL = 3e-2
+
+
+def _launches_per_step(res, key):
+    return [h["launches"][key] for h in res.history]
+
+
+def _free_cuda():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def train_leg_a(log):
+    """Leg A: the slice at full size through the trainer CLI, recording the
+    delays.  The counts are set to 0 just before it and read after."""
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = train_cli.main(TRAIN_ARGV + ["--log-delays", str(log)])
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    cfg = res.state.params.cfg
+    n_params = sum(p.numel() for p in res.state.params.parameters())
+    check(cfg.name == "gemma3-4b" and cfg.n_layers == 34
+          and n_params == 4_550_996_480 and cfg.param_dtype == "bfloat16",
+          f"train leg A model: {cfg.name} {cfg.n_layers} layers {n_params}")
+    losses = [h["loss"] for h in res.history]
+    gnorms = [h["grad_norm"] for h in res.history]
+    check(len(losses) == 20 and all(np.isfinite(losses + gnorms)),
+          f"train leg A: non-finite loss or grad norm {losses} {gnorms}")
+    check(losses[-1] < losses[0],
+          f"train leg A: loss {losses[0]:.4f} -> {losses[-1]:.4f} did not "
+          f"fall")
+    greedy = _launches_per_step(res, "greedy_assign")
+    check(greedy == [1] * 20 and launches["greedy_assign"] == 20,
+          f"train leg A: greedy_assign launches a step {greedy}")
+    check(launches["swa_attention"] == 0,
+          f"train leg A: swa_attention launched in training {launches}")
+    secs = res.step_seconds[1:]
+    tokens = 2 * 16 * 64                    # r x batch x seq a step
+    out = {"steps": 20, "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "grad_norms": gnorms,
+           "step_s_first": res.step_seconds[0],
+           "step_s_mean": float(np.mean(secs)),
+           "step_s_median": float(np.median(secs)),
+           "tok_per_s": tokens / float(np.mean(secs)),
+           "peak_mem_bytes": peak, "mem_before_bytes": base,
+           "greedy_launches": launches["greedy_assign"],
+           "greedy_launches_per_step": greedy,
+           "swa_launches": launches["swa_attention"],
+           "completion_times": [h["completion_time"] for h in res.history]}
+    print(f"train A gemma3-4b 34 layers bf16 {n_params} params, 20 steps "
+          f"n=8 r=2 k=6 ss+adaptive markov: loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}; {out['step_s_mean']:.4f} s/step after step 0 "
+          f"(median {out['step_s_median']:.4f}, step 0 "
+          f"{res.step_seconds[0]:.3f}), {out['tok_per_s']:.1f} tok/s, peak "
+          f"memory {peak} bytes ({base} before); greedy_assign launches a "
+          f"step {greedy[0]}..{max(greedy)} ({launches['greedy_assign']} in "
+          f"all), swa_attention launches {launches['swa_attention']}")
+    return res, out
+
+
+def train_leg_e(res):
+    """Leg E: the trained weights' logits under torch.no_grad (the swa
+    kernel route: one tensor-core launch per sliding-window layer) against
+    the same forward under autograd (attention_core).  The counts are set
+    to 0 just before the no-grad forward and read after both."""
+    model = res.state.params
+    cfg = model.cfg
+    n_swa = sum(s.mixer == "swa" for s in layer_specs(cfg))
+    part = TaskPartition(n=8, global_batch=16, seq_len=64,
+                         vocab=cfg.vocab_size, source="bigram",
+                         seed=res.seeds["data_seed"])
+    toks, labs = lm_task_batches(part, staircase_to_matrix(8, 2), 20,
+                                 device=DEV)
+    toks, labs = toks[0].reshape(16, 64), labs[0].reshape(16, 64)
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        kern = forward(model, cfg, toks)[0][..., :cfg.vocab_size].float()
+    nograd = dict(ops.LAUNCHES)
+    with torch.enable_grad():
+        auto = forward(model, cfg, toks)[0][..., :cfg.vocab_size]
+        auto = auto.detach().float()
+    after = dict(ops.LAUNCHES)
+    check(nograd["swa_attention"] == n_swa == 29
+          and nograd["swa_attention_wgmma"] == n_swa,
+          f"train leg E: no-grad forward launches {nograd} (want {n_swa} "
+          f"on the tensor-core route)")
+    check(after["swa_attention"] == n_swa,
+          f"train leg E: the autograd forward launched swa_attention {after}")
+    rel = ((kern - auto).abs().max() / auto.abs().max()).item()
+
+    def seq_loss(lg):
+        lp = torch.log_softmax(lg, dim=-1)
+        return -lp.gather(-1, labs[..., None])[..., 0].mean(-1)
+
+    la, lk = seq_loss(auto), seq_loss(kern)
+    loss_rel = ((lk - la).abs().max() / la.abs().max()).item()
+    check(bool(torch.isfinite(kern).all()) and rel <= TRAIN_BF16_REL
+          and loss_rel <= TRAIN_BF16_REL,
+          f"train leg E: kernel route vs autograd route logits rel {rel:.3e}"
+          f", losses rel {loss_rel:.3e}")
+    print(f"train E trained gemma3-4b no-grad (swa kernel, {n_swa} tensor-core"
+          f" launches at (16, 64, 8, 4, 256, W 1024)) vs autograd "
+          f"(attention_core): logits rel {rel:.3e}, per-sequence loss rel "
+          f"{loss_rel:.3e}")
+    return {"logits_rel": rel, "loss_rel": loss_rel,
+            "swa_launches": nograd["swa_attention"],
+            "wgmma_launches": nograd["swa_attention_wgmma"]}
+
+
+def train_leg_c(log, a_out, seeds):
+    """Leg C: replay leg A's recorded delays (--cluster trace): the rounds
+    bit-equal; the log equal to the engine's trial-0 recording of the same
+    process and seed."""
+    _free_cuda()
+    ops.reset_launch_counts()
+    res = train_cli.main(TRAIN_ARGV + ["--cluster", "trace", "--trace",
+                                       str(log)])
+    launches = dict(ops.LAUNCHES)
+    ct = [h["completion_time"] for h in res.history]
+    check(ct == a_out["completion_times_exact"],
+          "train leg C: replayed completion times differ")
+    check([h["winners"] for h in res.history] == a_out["winners"]
+          and [h["delivered_tasks"] for h in res.history]
+          == a_out["delivered"], "train leg C: replayed winners differ")
+    check(_launches_per_step(res, "greedy_assign") == [1] * 20,
+          f"train leg C: greedy_assign launches {launches}")
+    loss_diff = max(abs(h["loss"] - l) for h, l in
+                    zip(res.history, a_out["losses"]))
+    del res
+    _free_cuda()
+    args = train_cli._parser().parse_args(TRAIN_ARGV)
+    process = build_cluster(args, seeds)
+    T1, T2 = montecarlo._capture_tables(
+        process, 8, 2, 20, seeds["delay_seed"],
+        torch.zeros(1, dtype=torch.int64, device=DEV))
+    tr = load_trace(str(log))
+    check(np.array_equal(tr.T1[:, 0], T1[:, 0])
+          and np.array_equal(tr.T2[:, 0], T2[:, 0]),
+          "train leg C: logged delays differ from the engine's trial-0 "
+          "recording")
+    print(f"train C replay of leg A's 20 logged rounds: completion times, "
+          f"winners, delivered tasks bit-equal; the log equal to "
+          f"montecarlo._capture_tables (trial 0, seed "
+          f"{seeds['delay_seed']}); loss max abs diff vs leg A "
+          f"{loss_diff:.3e}")
+    return {"replay_equal": True, "engine_tables_equal": True,
+            "loss_max_abs_diff": loss_diff,
+            "greedy_launches": launches["greedy_assign"]}
+
+
+def train_leg_b(deadline):
+    """Leg B: reissue at leg A's median round: each greedy_assign launch
+    carries need rows exactly when the round before left a task
+    undelivered.  Counts set to 0 just before, read after."""
+    _free_cuda()
+    ops.reset_launch_counts()
+    argv = TRAIN_ARGV + ["--steps", "10", "--deadline", repr(deadline),
+                         "--deadline-policy", "reissue"]
+    res = train_cli.main(argv)
+    launches = dict(ops.LAUNCHES)
+    need = _launches_per_step(res, "greedy_assign_need")
+    undelivered = [not all(h["delivered_tasks"]) for h in res.history]
+    want = [0] + [int(u) for u in undelivered[:-1]]
+    check(_launches_per_step(res, "greedy_assign") == [1] * 10,
+          f"train leg B: greedy_assign launches {launches}")
+    check(need == want and launches["greedy_assign_need"] == sum(want),
+          f"train leg B: need-row launches {need} vs undelivered rounds "
+          f"{want}")
+    losses = [h["loss"] for h in res.history]
+    check(all(np.isfinite(losses)), f"train leg B: losses {losses}")
+    missed = sum(h["deadline_missed"] for h in res.history)
+    print(f"train B reissue at deadline {deadline * 1e3:.6f} ms: "
+          f"{missed}/10 rounds closed short of k, need-row launches "
+          f"{launches['greedy_assign_need']} = rounds before the last that "
+          f"left a task undelivered; realized k "
+          f"{[h['realized_k'] for h in res.history]}")
+    del res
+    return {"deadline_ms": deadline * 1e3, "missed": missed,
+            "greedy_launches": launches["greedy_assign"],
+            "greedy_need_launches": launches["greedy_assign_need"],
+            "need_per_step": need}
+
+
+def train_leg_d():
+    """Leg D: the smoke config in float32 on one CPU-recorded trace, card
+    against CPU (rounds exact, loss and weights at the float32 AdamW
+    tolerance); then resume: 4 steps, --resume to 8, against 8 straight on
+    the card (weights and optimizer state bit-equal)."""
+    smoke = ["--arch", "gemma3-4b", "--smoke", "--n", "4", "--r", "2",
+             "--k", "3", "--seq", "48", "--batch", "8"]
+    log = TRAIN_DIR / "smoke_delays.npz"
+    # the CPU's initial state, written at step 0, starts both runs (a
+    # torch.Generator draws other numbers on the card)
+    init = TRAIN_DIR / "init"
+    first = train_cli.main(smoke + ["--steps", "0", "--device", "cpu",
+                                    "--ckpt-dir", str(init)]).ckpt_path
+    train_cli.main(smoke + ["--steps", "5", "--cluster", "markov",
+                            "--device", "cpu", "--log-delays", str(log)])
+    replay = smoke + ["--steps", "5", "--cluster", "trace", "--trace",
+                      str(log), "--adaptive", "--resume"]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ck = TRAIN_DIR / f"from_init_{dev}"
+        ck.mkdir()
+        shutil.copy(first, ck)
+        runs[dev] = train_cli.main(replay + ["--device", dev, "--ckpt-dir",
+                                             str(ck)])
+    card, cpu = runs["cuda"], runs["cpu"]
+    check(card.start == cpu.start == 0, "train leg D: not from step 0")
+    for a, b in zip(card.history, cpu.history):
+        check(a["completion_time"] == b["completion_time"]
+              and a["weights"] == b["weights"]
+              and a["row_of_worker"] == b["row_of_worker"],
+              f"train leg D: step {a['step']} rounds differ card vs CPU")
+        check(abs(a["loss"] - b["loss"]) <= TRAIN_F32_LOSS_REL * abs(b["loss"]),
+              f"train leg D: loss {a['loss']} vs {b['loss']}")
+    diffs = np.concatenate([
+        (p.detach().cpu() - q.detach()).abs().flatten().numpy()
+        for p, q in zip(card.state.params.parameters(),
+                        cpu.state.params.parameters())])
+    w_max, w_q = float(diffs.max()), float(np.quantile(diffs, 0.999))
+    check(w_max <= TRAIN_F32_W_ATOL and w_q <= TRAIN_F32_W_Q999,
+          f"train leg D: weights card vs CPU max {w_max:.3e}, q999 {w_q:.3e}")
+    ck = TRAIN_DIR / "ckpt"
+    plain = smoke + ["--cluster", "iid"]
+    train_cli.main(plain + ["--steps", "4", "--ckpt-dir", str(ck)])
+    resumed = train_cli.main(plain + ["--steps", "8", "--ckpt-dir", str(ck),
+                                      "--resume"])
+    straight = train_cli.main(plain + ["--steps", "8"])
+    check(resumed.start == 4, f"train leg D: resumed at {resumed.start}")
+    # one program on one card from the same bits: the resumed run must be
+    # the straight run, weights and AdamW state (step, m, v) alike
+    r_max = max((p - q).abs().max().item() for p, q in zip(
+        resumed.state.params.parameters(), straight.state.params.parameters()))
+    check(r_max == 0, f"train leg D: resume vs straight max abs {r_max:.3e}")
+    ro, so = resumed.state.opt_state, straight.state.opt_state
+    check(resumed.state.step == straight.state.step == 8
+          and int(ro["step"]) == int(so["step"]) == 8
+          and all(torch.equal(ro[key][name], so[key][name])
+                  for key in ("m", "v") for name in so[key]),
+          "train leg D: resumed optimizer state differs from the straight run")
+    print(f"train D smoke f32 card vs CPU, 5 steps on a recorded trace: "
+          f"rounds and adaptive rows equal, loss rel <= "
+          f"{TRAIN_F32_LOSS_REL:g}, weights max abs {w_max:.3e} (99.9 % "
+          f"within {w_q:.3e}); resume 4 -> 8 vs 8 straight on the card: "
+          f"weights and AdamW step, m, v bit-equal")
+    return {"weights_max_abs": w_max, "weights_q999": w_q,
+            "resume_max_abs": r_max}
+
+
+def train_phase():
+    """Straggler-scheduled LM training through the port's trainer CLI,
+    after the serve, grid and live phases have freed their models: legs A
+    (gemma3-4b at full size, 20 steps), E (the trained weights through the
+    swa kernel without grad), C (record and replay), B (reissue) and D
+    (card against CPU and resume at the smoke config)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)     # no stale checkpoint
+    TRAIN_DIR.mkdir(parents=True)
+    log = TRAIN_DIR / "delays.npz"
+    res, a = train_leg_a(log)
+    a["completion_times_exact"] = a["completion_times"]
+    a["winners"] = [h["winners"] for h in res.history]
+    a["delivered"] = [h["delivered_tasks"] for h in res.history]
+    seeds = res.seeds
+    e = train_leg_e(res)
+    del res
+    c = train_leg_c(log, a, seeds)
+    b = train_leg_b(float(np.median(a["completion_times"])))
+    d = train_leg_d()
+    for key in ("completion_times_exact", "winners", "delivered"):
+        a.pop(key)
+    secs = time.perf_counter() - t_phase
+    print(f"train phase wall seconds={secs:.4f}")
+    return {"full": a, "nograd": e, "replay": c, "reissue": b,
+            "card_vs_cpu": d, "seconds": secs}
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1879,6 +2188,7 @@ def main():
     consistency = consistency_phase()
     grid = grid_phase()
     live = live_phase()
+    train = train_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -1944,13 +2254,16 @@ def main():
             "faults_grid_reissue":
                 faults["grid"]["reissue"]["greedy_launches"],
             "live_adaptive": live["adaptive"]["greedy_launches"],
-            "live_wide": live["wide"]["greedy_launches"]},
+            "live_wide": live["wide"]["greedy_launches"],
+            "train": train["full"]["greedy_launches"],
+            "train_reissue": train["reissue"]["greedy_launches"]},
         "need_row_launches_by_path": {
             "faults_grid_reissue":
                 faults["grid"]["reissue"]["greedy_need_launches"],
             "adaptive_n200_reissue": wide_reissue["need_launches"],
             "live_adaptive": live["adaptive"]["greedy_need_launches"],
-            "live_wide": live["wide"]["greedy_need_launches"]},
+            "live_wide": live["wide"]["greedy_need_launches"],
+            "train_reissue": train["reissue"]["greedy_need_launches"]},
         "max_abs_err": g_row["max_abs_err"],
         "ms": g_row["ms"], "device_ms": g_row["device_ms"],
         "n1_device_ms": g_row["n1_device_ms"], "pick_us": g_row["pick_us"],
@@ -2005,6 +2318,8 @@ def main():
         "launches": served["wgmma_launches"],
         "launches_by_path": {
             "serve": served["wgmma_launches"],
+            "train": train["full"]["swa_launches"],
+            "train_nograd": train["nograd"]["wgmma_launches"],
             "lm_f32": consistency["f32_wgmma_launches"],
             "lm_bf16_dh32": consistency["narrow_wgmma_launches"]},
         "max_abs_err": t_row["max_abs_err"],
@@ -2017,7 +2332,8 @@ def main():
         "adaptive_wide_reissue": wide_reissue, "figures": figures,
         "faults": faults,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
-        "consistency": consistency, "grid": grid, "live": live}))
+        "consistency": consistency, "grid": grid, "live": live,
+        "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -18,14 +18,16 @@ import torch
 
 from .core import cluster, delays, scheduling
 from .core.spec import RoundConfig
+from .ckpt import from_numpy
 from .core.trace import DelayTrace
 from .device import resolve_device
 from .models.config import ModelConfig
-from .models.model import plan_segments
+from .models.model import Transformer, plan_segments
+from .train.steps import TrainState
 
 __all__ = ["delay_model", "delay_process", "to_matrix", "round_config",
            "regression_state", "delay_tables", "delay_trace",
-           "adaptive_scheduler", "lm_params"]
+           "adaptive_scheduler", "lm_params", "train_state"]
 
 _MODELS = {cls.__name__: cls for cls in (
     delays.TruncatedGaussianDelays, delays.ShiftedExponentialDelays,
@@ -183,17 +185,46 @@ def _unstack(params: dict, cfg: ModelConfig) -> dict:
     return out
 
 
-def _tensor(a: np.ndarray) -> torch.Tensor:
-    """A CPU tensor copy of a numpy array; JAX's bfloat16 arrays (numpy's
-    ``ml_dtypes.bfloat16``) keep their bits."""
-    if a.dtype.name == "bfloat16":
-        return torch.tensor(np.ascontiguousarray(a).view(np.uint16)).view(
-            torch.bfloat16)
-    return torch.tensor(a)
+def _lists(tree):
+    """Nested dicts keyed "0", "1", ... (a checkpoint read with
+    ``ckpt.read_tree``) back to the lists the JAX tree holds."""
+    if isinstance(tree, dict):
+        out = {k: _lists(v) for k, v in tree.items()}
+        if out and all(k.isdigit() for k in out) and \
+                sorted(int(k) for k in out) == list(range(len(out))):
+            return [out[str(i)] for i in range(len(out))]
+        return out
+    if isinstance(tree, (list, tuple)):
+        return [_lists(v) for v in tree]
+    return tree
 
 
 def lm_params(params: dict, cfg: ModelConfig) -> dict:
     """The JAX package's LM parameters (``repro.models.init_params``'s tree,
     leaves as numpy arrays) as a state dict of the port's ``Transformer``
     for ``cfg`` (CPU tensors; ``load_state_dict`` casts and moves them)."""
-    return {name: _tensor(a) for name, a in _unstack(params, cfg).items()}
+    return {name: from_numpy(a) for name, a in
+            _unstack(_lists(params), cfg).items()}
+
+
+def train_state(params: dict, opt_state: dict, step, cfg: ModelConfig, *,
+                device=None) -> TrainState:
+    """The JAX package's ``TrainState`` (its ``params``, its ``opt_state``
+    with ``step`` and the moment trees, e.g. ``m`` and ``v`` of AdamW, and
+    its ``step``; leaves as numpy arrays, as ``jax.tree_util.tree_map(
+    np.asarray, ...)`` or ``ckpt.read_tree`` of a JAX checkpoint give them)
+    as the port's: trainable weights on ``device``, each moment unstacked
+    like the weights (``lm_params``) and keyed by parameter name, in
+    float32 on ``device``."""
+    dev = resolve_device(device)
+    model = Transformer(cfg, device=dev)
+    model.load_state_dict(lm_params(params, cfg))
+    model.requires_grad_(True)
+    opt = {"step": torch.tensor(int(np.asarray(opt_state["step"])),
+                                dtype=torch.int32)}
+    for name, tree in opt_state.items():
+        if name == "step":
+            continue
+        opt[name] = {k: from_numpy(a).to(device=dev, dtype=torch.float32)
+                     for k, a in _unstack(_lists(tree), cfg).items()}
+    return TrainState(model, opt, int(np.asarray(step)))

@@ -566,8 +566,9 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     float32 tensor-core kernel (``csrc/swa_attention_f32.cu``), the bfloat16
     one (``csrc/swa_attention_wgmma.cu``) or the CUDA-core one
     (``csrc/swa_attention.cu``); float32 or bfloat16, contiguous, dh in
-    ``SWA_HEAD_DIMS``.  A build or launch failure of any raises.  CPU
-    tensors take the plain version."""
+    ``SWA_HEAD_DIMS``.  A build or launch failure of any raises, and so
+    does a CUDA call that autograd would record (the kernels are
+    forward-only).  CPU tensors take the plain version."""
     if not isinstance(window, int) or window < 1:
         raise ValueError(f"swa_attention needs an integer window >= 1, got "
                          f"{window!r}")
@@ -583,6 +584,15 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}")
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return ref.swa_attention_ref(q, k, v, window)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        # the kernels write through raw pointers: their output would enter
+        # the graph with no history and the gradients of q, k, v would be
+        # lost without a word
+        raise RuntimeError(
+            "swa_attention's kernels are forward-only: call them under "
+            "torch.no_grad() or on tensors that do not require grad (a "
+            "backward kernel is later work, ROADMAP.md section 2); under "
+            "autograd the model takes models.layers.attention_core")
     dev = q.device
     if dev.type != "cuda" or k.device != dev or v.device != dev:
         raise ValueError(f"swa_attention needs q, k, v on one CUDA device "

@@ -7,8 +7,9 @@ Weights keep the JAX layout (a ``dense`` weight is ``(d_in, d_out)`` and is
 used as ``x @ w``) and the JAX names, so ``repro_torch.convert.lm_params``
 is a copy.  The attention of a sliding-window (``swa``) layer over a chunk
 of fresh tokens, with no cache or into an empty ring, is the
-``swa_attention`` kernel (``kernels/ops.py``); the other attention paths
-are torch ops, as the JAX package computes them in jnp.  KV caches are
+``swa_attention`` kernel (``kernels/ops.py``) when no gradient is
+recorded; the other attention paths, and that one under autograd, are
+torch ops, as the JAX package computes them in jnp.  KV caches are
 updated in place (the JAX package returns new arrays); ``pos`` is a host
 integer.
 """
@@ -251,6 +252,11 @@ def gqa_init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
     return attn
 
 
+def _records_grad(*ts: torch.Tensor) -> bool:
+    """True when autograd records an op on any of ``ts``."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
               window: Optional[int] = None,
               positions: Optional[torch.Tensor] = None,
@@ -278,13 +284,16 @@ def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     # the ring condition of repro/models/layers.py:374
     ring = cache is not None and window is not None and S < cfg.max_seq_len
 
-    if window is not None and causal and (cache is None or
-                                          (ring and pos == 0)):
+    if window is not None and causal and not _records_grad(q, kx, vx) \
+            and (cache is None or (ring and pos == 0)):
         # Windowed causal attention over this chunk alone: without a cache,
         # or into an empty ring, where every ring slot holds a negative
         # position and is masked (repro/models/layers.py:374-402 reduces
         # to this, also for T > S).  The kernel takes the (B, T, H, dh)
-        # layout as is.
+        # layout as is.  It is forward-only, as the TPU kernel is: under
+        # autograd the layer takes attention_core below, the JAX model's
+        # own no-cache path (repro/models/layers.py:367-371), which never
+        # calls its Pallas kernel.
         out = ops.swa_attention(q.contiguous(), kx.contiguous(),
                                 vx.contiguous(), window=window)
         o = out.reshape(B, T, H * dh)

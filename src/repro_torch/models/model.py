@@ -4,8 +4,8 @@ The JAX package groups the layers into segments (``plan_segments``) and
 scans each over stacked weights.  Eager PyTorch needs no scan: the
 ``Transformer`` holds one block per layer in ``layer_specs`` order, and
 ``plan_segments`` is kept for ``convert.lm_params``, which unstacks the JAX
-segments into those layers.  ``remat`` and ``scan_layers`` change nothing
-here.
+segments into those layers.  ``remat`` recomputes each block in backward
+(``torch.utils.checkpoint``); ``scan_layers`` changes nothing here.
 
 Weights: ``embed`` (V_pad, d), ``blocks.<l>.{norm1, mixer, norm2, ffn}``,
 ``final_norm``, ``lm_head`` (absent with tied embeddings), under the JAX
@@ -18,7 +18,9 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from . import layers as L
@@ -156,14 +158,24 @@ class Transformer(nn.Module):
         """tokens (B, T) -> (logits (B, T, V_pad), aux_loss, new_cache);
         the auxiliary loss is zero (no MoE layers)."""
         cfg = self.cfg
-        x = self.embed[tokens].to(getattr(torch, cfg.dtype))
+        # F.embedding's backward sums a row's gradients in a fixed order
+        # (indexing's index_put_ accumulates in a racy one on the CPU)
+        x = F.embedding(tokens, self.embed).to(getattr(torch, cfg.dtype))
         T = x.shape[1]
         pos0 = 0 if cache is None else cache["pos"]
         positions = pos0 + torch.arange(T, device=x.device)[None, :]
+        # cfg.remat: recompute each block's activations in backward, as the
+        # JAX package checkpoints each layer group (repro/models/model.py:278)
+        remat = cfg.remat and cache is None and torch.is_grad_enabled() \
+            and self.embed.requires_grad
         new_layers = []
         for i, block in enumerate(self.blocks):
             c = None if cache is None else cache["layers"][i]
-            x, c = block(x, positions=positions, cache=c)
+            if remat:
+                x, c = checkpoint(block, x, positions=positions,
+                                  use_reentrant=False)
+            else:
+                x, c = block(x, positions=positions, cache=c)
             new_layers.append(c)
         x = self.final_norm(x)
         logits = (x @ self.embed.to(x.dtype).T if self.lm_head is None
@@ -177,17 +189,17 @@ class Transformer(nn.Module):
         return logits, torch.zeros((), device=x.device), new_cache
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0,
-                device=None) -> Transformer:
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
+                trainable: bool = False) -> Transformer:
     """A ``Transformer`` with random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``; on the ``meta``
-    device only the shapes exist.  The port serves and does not train yet,
-    so the weights need no gradients."""
+    device only the shapes exist.  Serving weights take no gradients;
+    ``trainable=True`` gives weights that do (``train.init_train_state``)."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     if dev.type != "meta":
         model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
-    return model.requires_grad_(False)
+    return model.requires_grad_(trainable)
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,

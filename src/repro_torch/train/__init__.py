@@ -1,5 +1,8 @@
-"""Steps of the port's LM stack (counterpart of ``repro.train``); serving
-only so far."""
-from .steps import make_serve_step
+"""Steps of the port's LM stack (counterpart of ``repro.train``): the
+straggler-scheduled and the plain train steps, and the serve step."""
+from .steps import (TrainState, init_train_state, lm_loss, lm_loss_per_seq,
+                    make_serve_step, make_straggler_train_step,
+                    make_train_step)
 
-__all__ = ["make_serve_step"]
+__all__ = ["TrainState", "init_train_state", "lm_loss", "lm_loss_per_seq",
+           "make_train_step", "make_straggler_train_step", "make_serve_step"]

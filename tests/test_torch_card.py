@@ -18,8 +18,11 @@ on the card against their own CPU runs, the grid engine's fused cells
 against per-cell sweeps on the card bit for bit, a resumable sweep's
 extension against a fresh card sweep, a cached rounds function's second
 call, the live cluster's static and adaptive runs (the master on the card)
-against the CPU's on a shared trace, and the LM's logits on the card against the CPU with the swa route's
-launch counts.
+against the CPU's on a shared trace, the LM's logits on the card against the CPU with the swa route's
+launch counts, and training: the swa kernels refuse a call autograd would
+record, a bfloat16 straggler-scheduled step on the card against the CPU
+(the round exact, loss rel 3e-2, weights within AdamW's reach), and the
+trainer CLI's one greedy_assign launch a step under ``--adaptive``.
 
 Skipped without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -45,9 +48,13 @@ from repro_torch.core import (DelayTrace, GridCell, GridSpec,
 from repro_torch.core import montecarlo
 from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
+from repro_torch.data import TaskPartition, lm_task_batches
 from repro_torch.kernels import build, ops, ref
+from repro_torch.launch import train as train_cli
 from repro_torch.live import run_live, sample_delay_tables
 from repro_torch.models import forward, init_cache, init_params
+from repro_torch.optim import adamw
+from repro_torch.train import init_train_state, make_straggler_train_step
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
 
@@ -735,3 +742,108 @@ def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
         assert rel(a, b) < 1e-4
     assert ops.LAUNCHES["swa_attention"] == before + 12
     assert ops.LAUNCHES["swa_attention_f32"] == before_f32 + 12
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_swa_kernels_refuse_calls_autograd_would_record(cuda, dtype):
+    """The kernels write through raw pointers, so their output has no
+    history: under autograd the wrapper raises instead of dropping the
+    gradients of q, k, v; without grad it launches."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q, k, v = (torch.randn(1, 64, 8, 64, generator=gen, device=cuda,
+                           dtype=dtype) for _ in range(3))
+    before = ops.LAUNCHES["swa_attention"]
+    with pytest.raises(RuntimeError, match="forward-only"):
+        ops.swa_attention(q.requires_grad_(), k, v, window=16)
+    assert ops.LAUNCHES["swa_attention"] == before
+    with torch.no_grad():
+        out = ops.swa_attention(q, k, v, window=16)
+    assert out.grad_fn is None and ops.LAUNCHES["swa_attention"] == before + 1
+    ops.swa_attention(q.detach(), k, v, window=16)
+    assert ops.LAUNCHES["swa_attention"] == before + 2
+
+
+#: the bfloat16 card-vs-CPU training check compares the updates the two
+#: devices make from one start: the norm of their difference within this
+#: share of the CPU update's norm, and 99 % of the elements within one
+#: learning rate of it.  A step that leaves the weights as they were has a
+#: gap of 1 and fails; so does one that moves them the wrong way.
+TRAIN_BF16_UPDATE_REL = 0.1
+TRAIN_BF16_UPDATE_Q = 0.99
+
+
+def _update_gap(d_card, d_cpu):
+    """(norm of the difference over the CPU update's norm, the
+    ``TRAIN_BF16_UPDATE_Q`` quantile of the elementwise difference)."""
+    diff = torch.cat([(a - b).flatten() for a, b in zip(d_card, d_cpu)])
+    ref_norm = torch.cat([b.flatten() for b in d_cpu]).norm()
+    return ((diff.norm() / ref_norm).item(),
+            torch.quantile(diff.abs()[::max(1, diff.numel() // 2 ** 24)],
+                           TRAIN_BF16_UPDATE_Q).item())
+
+
+def test_bf16_train_step_on_card_matches_cpu(cuda):
+    """gemma3-4b's smoke config in bfloat16, two straggler-scheduled AdamW
+    steps on one CPU-drawn trace from one set of weights, the card against
+    the CPU: the rounds (completion times, winner weights) exact, the loss
+    within rel 3e-2 (the bfloat16 tolerance above) and the update each
+    device made (its weights after the steps less the start) within
+    ``TRAIN_BF16_UPDATE_REL`` of the CPU's in norm and one learning rate
+    elementwise at the ``TRAIN_BF16_UPDATE_Q`` quantile."""
+    cfg = dataclasses.replace(get_config("gemma3-4b").smoke(),
+                              param_dtype="bfloat16", dtype="bfloat16")
+    n, r, k, lr, steps = 4, 2, 3, 1e-3, 2
+    T1, T2 = MarkovRegimeProcess(p_slow=0.3).sample_rounds(5, 1, n, r, steps,
+                                                           device="cpu")
+    trace = DelayTrace(T1.numpy(), T2.numpy())
+    rc = RoundConfig(n=n, k=k, kind="ss", r=r)
+    part = TaskPartition(n=n, global_batch=8, seq_len=48,
+                         vocab=cfg.vocab_size, source="bigram")
+    opt = adamw(lr)
+    runs = {}
+    first = init_train_state(cfg, opt, seed=0, device="cpu")
+    start = [p.detach().float().clone() for p in first.params.parameters()]
+    for dev in ("cpu", cuda):
+        state = init_train_state(cfg, opt, seed=0, device=dev)
+        # the CPU's weights on both (a Generator draws others on the card)
+        state.params.load_state_dict(first.params.state_dict())
+        step = make_straggler_train_step(cfg, opt, rc, TraceProcess(trace))
+        cl, hist = None, []
+        for t in range(steps):
+            toks, labs = lm_task_batches(part, rc.to_matrix(), t, device=dev)
+            state, m, cl = step(state, toks, labs, 0, cl)
+            hist.append({key: v.cpu() for key, v in m.items()})
+        runs[str(dev)] = (state, hist)
+    (cs, ch), (gs, gh) = runs["cpu"], runs[str(cuda)]
+    for a, b in zip(gh, ch):
+        for key in ("completion_time", "weights", "delivered_tasks"):
+            assert torch.equal(a[key], b[key]), key
+        assert abs(float(a["loss"]) - float(b["loss"])) <= \
+            3e-2 * abs(float(b["loss"]))
+        assert torch.isfinite(a["grad_norm"])
+    d_cpu = [p.detach().float() - w for p, w in
+             zip(cs.params.parameters(), start)]
+    d_card = [p.detach().float().cpu() - w for p, w in
+              zip(gs.params.parameters(), start)]
+
+    def within(d):
+        rel, q = _update_gap(d, d_cpu)
+        return rel <= TRAIN_BF16_UPDATE_REL and q <= lr
+
+    rel, q = _update_gap(d_card, d_cpu)
+    print(f"bf16 update card vs CPU: rel {rel:.4e}, q{TRAIN_BF16_UPDATE_Q:g} "
+          f"{q:.4e} (lr {lr:g})")
+    assert within(d_card), (rel, q)
+    # the gate fails a card that took no step, or stepped the wrong way
+    assert not within([torch.zeros_like(d) for d in d_cpu])
+    assert not within([-d for d in d_cpu])
+
+
+def test_trainer_launches_greedy_assign_once_a_step(cuda, capsys):
+    res = train_cli.main(["--arch", "gemma3-4b", "--smoke", "--steps", "3",
+                          "--seq", "32", "--adaptive", "--cluster",
+                          "markov"])
+    assert [h["launches"]["greedy_assign"] for h in res.history] == [1] * 3
+    assert all(h["launches"]["swa_attention"] == 0 for h in res.history)
+    assert all(np.isfinite(h["loss"]) for h in res.history)
+    assert "done: 3 rounds" in capsys.readouterr().out

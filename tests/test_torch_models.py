@@ -3,8 +3,10 @@ plans for every architecture, parameter shapes of gemma3-4b at full size,
 the dense layers (atol 1e-5 in float32), full ``forward`` logits through
 ``convert.lm_params`` (atol 2e-4) on gemma3-4b's smoke width with a
 run-length and a periodic segment plan, the port's own decode-vs-full
-consistency (tests/test_models.py's 2e-3 bound), the swa route through the
-kernel wrapper, and the configurations outside the slice."""
+consistency (tests/test_models.py's 2e-3 bound), bfloat16 logits within
+twice the reference's own bfloat16-vs-float32 gap (measured in the test),
+the swa route through the kernel wrapper, and the configurations outside
+the slice."""
 import dataclasses
 
 import jax
@@ -242,6 +244,37 @@ def test_forward_matches_jax_through_lm_params(n_layers, plan):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-4,
                                    rtol=0)
     assert tc["pos"] == int(jc["pos"]) == 45
+
+
+def test_bf16_logits_within_the_references_own_bf16_gap():
+    """The port in bfloat16 against the JAX package: the same bfloat16
+    weights (the float32 ones rounded) through both packages; the port's
+    logits may be no further from the reference's float32 logits than
+    twice the reference's own bfloat16 logits are (the bound measured
+    here, each run, not chosen)."""
+    jcfg, params, tcfg, _ = _gemma_pair(7)
+    bf = dict(param_dtype="bfloat16", dtype="bfloat16")
+    jcfg16 = dataclasses.replace(jcfg, **bf)
+    tcfg16 = dataclasses.replace(tcfg, **bf)
+    params16 = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16),
+                                      params)
+    model16 = tmodel.init_params(tcfg16, device="cpu")
+    model16.load_state_dict(convert.lm_params(
+        jax.tree_util.tree_map(np.asarray, params16), tcfg16))
+    assert all(p.dtype == torch.bfloat16 for p in model16.parameters())
+    toks = np.random.default_rng(16).integers(0, jcfg.vocab_size, (2, 48))
+    jfwd = jax.jit(j_forward, static_argnums=1)
+    ref32 = np.asarray(jfwd(params, jcfg, jnp.asarray(toks))[0])
+    ref16 = np.asarray(jfwd(params16, jcfg16, jnp.asarray(toks))[0],
+                       np.float32)
+    got, _, _ = tmodel.forward(model16, tcfg16, torch.as_tensor(toks))
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    real = slice(0, jcfg.vocab_size)           # the padded tail is -1e9
+    gap_ref = np.abs(ref16 - ref32)[..., real].max()
+    gap_port = np.abs(got - ref32)[..., real].max()
+    assert 0 < gap_ref and np.isfinite(got).all()
+    assert gap_port <= 2 * gap_ref, (gap_port, gap_ref)
 
 
 def _decode_vs_full(cfg, T=9, prefill=5, atol=2e-3):
