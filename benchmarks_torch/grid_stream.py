@@ -14,6 +14,16 @@ before each): a cell's cost there has nothing shared with other cells, so
 the subset's rate stands for the grid's.  Every timed block ends in a host
 read of its means.  ``device`` is where both run (the card by default).
 
+Before the timers start, the same grid is streamed once untimed: that
+pays what a process pays once (the card's context, the first load of each
+torch kernel the sweeps launch at these sizes, the allocator's blocks),
+so the rows read the same when the job runs first in a fresh process as
+after other jobs.  Each timed block is then the best of ``REPS`` runs, as
+``mc_engine.py``'s are, with the evaluator cache cleared before each, so
+every timed stream still builds each of its buckets itself: at
+``--quick`` a block lasts about 0.1 s of host-bound work, and one run of
+it moves by tens of percent with the host's other load.
+
 Rows:
   grid/stream   the full grid streamed: cells/s, shape buckets,
                 ``compiles`` (evaluator builds: the port compiles nothing),
@@ -37,6 +47,9 @@ from repro_torch.core import (GridSpec, cache_stats, clear_cache, scenario1,
 
 from .common import emit
 
+#: runs of each timed block; the fastest is reported
+REPS = 3
+
 
 def _grid(trials: int) -> GridSpec:
     return GridSpec(n=16, families=("cs", "ss", "ra", "lb", "pc", "pcmm"),
@@ -48,15 +61,20 @@ def run(trials: int = 20000, device=None, out: str = "bench_out_torch"):
     model = scenario1()
     cells = _grid(trials).cells(model)
 
+    # ---- untimed: the process's first-use costs ----
+    stream_grid(cells, devices=device, pipeline=2)
+
     # ---- the full grid streamed (one evaluator build per shape bucket) ----
-    clear_cache()
-    s0 = cache_stats()
-    t0 = time.perf_counter()
-    res = stream_grid(cells, devices=device, pipeline=2)
-    t_stream = time.perf_counter() - t0
-    s1 = cache_stats()
-    compiles = s1["exec"]["misses"] - s0["exec"]["misses"]
-    builds = s1["traces"] - s0["traces"]
+    t_stream, compiles, builds = float("inf"), 0, 0
+    for _ in range(REPS):
+        clear_cache()
+        s0 = cache_stats()
+        t0 = time.perf_counter()
+        res = stream_grid(cells, devices=device, pipeline=2)
+        t_stream = min(t_stream, time.perf_counter() - t0)
+        s1 = cache_stats()
+        compiles = max(compiles, s1["exec"]["misses"] - s0["exec"]["misses"])
+        builds = max(builds, s1["traces"] - s0["traces"])
     cps_stream = len(cells) / t_stream
     emit("grid/stream", t_stream * 1e6,
          f"cells={len(cells)};trials={trials};"
@@ -76,14 +94,16 @@ def run(trials: int = 20000, device=None, out: str = "bench_out_torch"):
     for c in cells:
         by_load.setdefault(c.r_max, []).append(c)
     subset = [c for grp in by_load.values() for c in (grp[0], grp[-1])]
-    t0 = time.perf_counter()
-    naive = {}
-    for c in subset:
-        clear_cache()                  # the per-cell build of the old loop
-        naive[c.name] = sweep(c.specs, c.model, c.n, trials=c.trials,
-                              seed=c.seed, chunk=c.chunk, ks=c.ks,
-                              devices=device)
-    t_naive = time.perf_counter() - t0
+    t_naive = float("inf")
+    for _ in range(REPS):
+        t0 = time.perf_counter()
+        naive = {}
+        for c in subset:
+            clear_cache()              # the per-cell build of the old loop
+            naive[c.name] = sweep(c.specs, c.model, c.n, trials=c.trials,
+                                  seed=c.seed, chunk=c.chunk, ks=c.ks,
+                                  devices=device)
+        t_naive = min(t_naive, time.perf_counter() - t0)
     cps_naive = len(subset) / t_naive
     emit("grid/naive", t_naive * 1e6,
          f"cells={len(subset)};subset_of={len(cells)};trials={trials};"

@@ -18,17 +18,18 @@ Rows:
   mc_engine/chunked1M      10^6 trials (50 x trials under --quick) in
                            20k-trial chunks
   mc_engine/scaling1       the chunked sweep on one device
-  mc_engine/scaling        the same on every local device -- only with more
-                           than one device, and the port's engine runs on one
-                           (ROADMAP.md queue 1 item 5), so it is not emitted
+  mc_engine/scaling        the same trials sharded over a device list
+                           (strong speedup) and trials x D over it (weak
+                           efficiency) -- only with more than one device;
+                           the row names its device list
 """
 from __future__ import annotations
 
-import sys
 import time
 
 import torch
 
+from repro_torch import sharding
 from repro_torch.core import (cyclic_to_matrix, lb_spec, pc_spec,
                               pc_threshold, pcmm_spec, pcmm_threshold,
                               random_assignment_to_matrix, scenario1,
@@ -110,6 +111,8 @@ def _time(fn, reps: int = 3) -> float:
 
 
 def run(trials: int = 20000, device=None):
+    """The rows above on ``device``; the scaling row shards over every local
+    card (one CPU block under ``device="cpu"``)."""
     n = r = k = 16
     model = scenario1()
     n_schemes = 6
@@ -153,26 +156,45 @@ def run(trials: int = 20000, device=None):
          f"cs_at_k={res.at_k('cs', k) * 1e3:.5f}ms"
          f"+-{float(res.stderr['cs'][k - 1]) * 1e3:.5f}ms")
 
-    scaling = _scaling(model, n, r, trials, device)
+    scaling = _scaling(model, n, r, trials, device, None)
     return {"legacy_s": t_legacy, "fused_s": t_fused,
             "speedup": thr_fused / thr_legacy, "big_s": t_big,
             "scan_overhead": thr_chunk / thr_fused, **scaling}
 
 
-def _scaling(model, n: int, r: int, trials: int, device) -> dict:
-    """The chunked sweep on one device (the base point of the reference's
-    strong and weak scaling rows)."""
+def _scaling(model, n: int, r: int, trials: int, device, devices) -> dict:
+    """The reference's strong and weak scaling of the chunked sweep: the
+    same trials on ``device`` and sharded over ``devices`` (bit-equal
+    results, only the wall time moves), and ``trials * D`` over the ``D``
+    devices.  The one-device row is always emitted, the sharded one only
+    for more than one device."""
     dev = resolve_device(device)
+    if devices is None:
+        devices = None if dev.type == "cuda" else [dev]
+    devs = sharding.trial_devices(devices)
+    D = len(devs)
     specs = _fused_specs(n, r, seed=0)
-    chunk = max(1, trials // 16)
-    t1 = _time(lambda: sweep(specs, model, n, trials=trials, seed=0,
-                             chunk=chunk, devices=dev))
+    chunk = max(1, trials // 16)       # every device gets whole chunks
+
+    def run_sweep(tr: int, on):
+        return _time(lambda: sweep(specs, model, n, trials=tr, seed=0,
+                                   chunk=chunk, devices=on))
+
+    t1 = run_sweep(trials, dev)
     tps1 = trials / t1
     emit("mc_engine/scaling1", t1 * 1e6,
          f"devices=1;trials={trials};chunk={chunk};"
          f"trials_per_sec={tps1:,.0f}")
-    if dev.type == "cuda" and torch.cuda.device_count() > 1:
-        print("mc_engine: no multi-device scaling row: the port's engine "
-              "runs on one device (ROADMAP.md queue 1 item 5)",
-              file=sys.stderr)
-    return {"scaling_devices": 1, "trials_per_sec_1dev": tps1}
+    if D <= 1:
+        return {"scaling_devices": 1, "trials_per_sec_1dev": tps1}
+    t_strong = run_sweep(trials, devs)
+    t_weak = run_sweep(trials * D, devs)
+    strong, weak_eff = t1 / t_strong, t1 / t_weak
+    emit("mc_engine/scaling", t_strong * 1e6,
+         f"devices={D};device_list={'+'.join(map(str, devs))};"
+         f"trials={trials};chunk={chunk};"
+         f"trials_per_sec={trials / t_strong:,.0f};"
+         f"strong_speedup={strong:.2f}x;weak_efficiency={weak_eff:.2f}")
+    return {"scaling_devices": D, "trials_per_sec_1dev": tps1,
+            "trials_per_sec": trials / t_strong,
+            "strong_speedup": strong, "weak_efficiency": weak_eff}

@@ -40,10 +40,10 @@ Prints ``name,us_per_call,derived`` CSV rows:
 
 Each job also writes ``BENCH_<name>.json`` (the rows with parsed derived
 metrics) into ``--out``.  Every job's rows are screened for NaN/inf metric
-values: a non-finite number aborts the harness with a non-zero exit.  The
-reference's other job (roofline) waits for a later
-slice of the port: asking for one exits non-zero and names its
-``ROADMAP.md`` item.
+values: a non-finite number aborts the harness with a non-zero exit.
+``python -m benchmarks_torch.regression_gate`` holds the artifacts to the
+port's baseline.  The reference's roofline job waits for a later slice of
+the port: asking for it exits non-zero and names its ``ROADMAP.md`` item.
 
 Run from the repository root (``--device cuda``, the default, needs a card):
 

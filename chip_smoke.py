@@ -41,7 +41,14 @@ and n in-process workers over inproc and TCP at the paper's EC2 size
 trace's replay and to the CPU, a close_partial deadline equal to the
 engine's degradation streams, adaptive censored feedback under reissue
 (one greedy_assign launch a round, card equal to CPU), an n = 200 leg on
-the kernel's wide route, and Fig. 13 through the harness.  Last, the train
+the kernel's wide route, and Fig. 13 through the harness.  Then the gate
+phase: Fig. 8 at --quick through the harness, and the port's regression
+gate (``benchmarks_torch.regression_gate``) over the artifacts the
+figures, faults, grid and live phases wrote, which must exit 0; and the
+shard phase: sweep-1M on four copies of the card (``devices=["cuda:0"] *
+4``) and the Fig. 8 cell (0.98, 3) on three, padded chunk counts both,
+each bit-equal to one device, with the sharded cell's greedy_assign
+launches counted.  Last, the train
 phase: straggler-scheduled training of gemma3-4b at full size (34 layers,
 bf16, AdamW) through ``repro_torch.launch.train`` for 20 steps (the loss
 falls; one greedy_assign launch a step from the adaptive scheduler, no
@@ -50,7 +57,8 @@ the swa kernel without grad against the autograd route, a replay of the
 run's recorded delays (bit-equal rounds; the log equal to the engine's
 trial-0 tables), 10 steps under the reissue deadline policy (need rows on
 the launches after rounds that left a task undelivered), and at the smoke
-config the card against the CPU and a resume against a straight run.
+config the card against the CPU, each from ``init_params`` under one seed
+on its own device, and a resume against a straight run.
 
 Run from the repository root on a machine with a card:
 
@@ -110,6 +118,7 @@ import fig8_convergence as fig8  # noqa: E402
 import greedy_pick  # noqa: E402
 from benchmarks_torch import grid_stream  # noqa: E402
 from benchmarks_torch import planner as planner_bench  # noqa: E402
+from benchmarks_torch import regression_gate  # noqa: E402
 from benchmarks_torch import run as bench_run  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
@@ -119,6 +128,9 @@ F32_FLOPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12
 TF32_FLOPS_PER_S = 495e12
 DEV = torch.device("cuda")
+#: where the harness phases write their BENCH_<name>.json files, which the
+#: gate phase reads
+BENCH_OUT = Path(__file__).resolve().parent / "bench_out_torch"
 # float32 stays float32 on the card: no TF32 in matmuls or convolutions
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -323,15 +335,24 @@ def kernel_phase():
     return rows, tall_launches
 
 
+SWEEP_N, SWEEP_R, SWEEP_TRIALS, SWEEP_CHUNK = 16, 4, 1_000_000, 20_000
+
+
+def sweep_1m_specs():
+    """sweep-1M's schemes: CS/SS/RA/LB/PC/PCMM at n = 16, r = 4."""
+    n, r = SWEEP_N, SWEEP_R
+    return [to_spec("cs", cyclic_to_matrix(n, r)),
+            to_spec("ss", staircase_to_matrix(n, r)),
+            to_spec("ra", random_assignment_to_matrix(n)),
+            lb_spec(r), pc_spec(r), pcmm_spec(r)]
+
+
 def engine_phase():
     """The 10^6-trial sweep over CS/SS/RA/LB/PC/PCMM (n=16, r=4, all-k,
     scenario 1), trial-level LB <= CS/SS, and CUDA-vs-CPU samples."""
-    n, r, model = 16, 4, scenario1()
-    specs = [to_spec("cs", cyclic_to_matrix(n, r)),
-             to_spec("ss", staircase_to_matrix(n, r)),
-             to_spec("ra", random_assignment_to_matrix(n)),
-             lb_spec(r), pc_spec(r), pcmm_spec(r)]
-    trials, chunk = 1_000_000, 20_000
+    n, r, model = SWEEP_N, SWEEP_R, scenario1()
+    specs = sweep_1m_specs()
+    trials, chunk = SWEEP_TRIALS, SWEEP_CHUNK
     sweep(specs, model, n, trials=chunk, chunk=chunk, devices="cuda")  # warm
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -713,7 +734,7 @@ def faults_phase():
        reissue; a preemption trace over a tie-exact base, adapt and rebal
        bit-equal under close_partial and reissue."""
     n, k, rounds = fig8.N, fig8.K, fig8.ROUNDS
-    out_dir = str(Path(__file__).resolve().parent / "bench_out_torch")
+    out_dir = str(BENCH_OUT)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     done = bench_run.main(["--quick", "--device", "cuda", "--only",
@@ -924,7 +945,7 @@ def grid_phase():
     6. ``python -m benchmarks_torch.run --quick --only grid,planner``:
        ``bitexact=PASS`` and ``agree=1``."""
     t_phase = time.perf_counter()
-    out_dir = str(Path(__file__).resolve().parent / "bench_out_torch")
+    out_dir = str(BENCH_OUT)
     streamed = grid_stream.run(GRID_TRIALS, "cuda", out=out_dir)
     check(streamed["bitexact"], "grid: fused cells differ from per-cell")
     check(streamed["cells"] == 64 and streamed["buckets"] == 4
@@ -1325,7 +1346,7 @@ def live_phase():
           f"wall seconds card={w_s:.4f} cpu={w_cpu_s:.4f}")
 
     # 5. Fig. 13 through the harness
-    out_dir = str(Path(__file__).resolve().parent / "bench_out_torch")
+    out_dir = str(BENCH_OUT)
     done = bench_run.main(["--quick", "--device", "cuda", "--only", "fig13",
                            "--out", out_dir])
     status = {row["name"]: row["derived"]["status"]
@@ -1361,7 +1382,7 @@ def figures_phase():
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     done = bench_run.main(["--quick", "--device", "cuda", "--only",
-                           ",".join(FIGURE_JOBS)])
+                           ",".join(FIGURE_JOBS), "--out", str(BENCH_OUT)])
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = dict(ops.LAUNCHES)
@@ -1865,6 +1886,114 @@ def consistency_phase():
 #: the train phase's full-size leg: gemma3-4b as configured, AdamW with the
 #: cosine schedule, the paper's round (n = 8, r = 2, k = 6, SS) on a
 #: persistent-straggler cluster with adaptive row re-assignment
+#: the shard phase's device lists: the one card repeated, which checks the
+#: layout, the padding and the bits (a speedup needs several cards)
+SHARD_SWEEP_DEVICES = ["cuda:0"] * 4
+SHARD_FIG8_DEVICES = ["cuda:0"] * 3
+#: the Fig. 8 cell's sharded leg: 8 000 trials in chunks of 1 750 are 5
+#: chunks, padded to 6 over 3 devices, the last chunk partial
+SHARD_FIG8 = dict(cell=(0.98, 3.0), trials=8000, chunk=1750)
+
+
+def _max_abs_gap(a: dict, b: dict) -> float:
+    """max |a - b| over every scheme's array of two result dicts."""
+    assert a.keys() == b.keys(), (sorted(a), sorted(b))
+    return max(float(np.max(np.abs(np.asarray(a[k]) - np.asarray(b[k]))))
+               for k in a)
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def shard_phase(card):
+    """Trial sharding (``repro_torch.sharding``) at full width on device
+    lists that repeat the one card: sweep-1M on 4 x cuda:0 against
+    ``devices=1`` (50 chunks, padded to 52), and the Fig. 8 cell (0.98, 3)
+    at 8 000 trials in chunks of 1 750 (5 chunks, padded to 6, the last
+    partial) on 3 x cuda:0 against one device, with the sharded run's
+    greedy_assign launches counted (one a chunk-round).  Every statistic
+    of each leg is held bit-equal (max abs 0)."""
+    model, n = scenario1(), SWEEP_N
+    specs = sweep_1m_specs()
+    kw = dict(trials=SWEEP_TRIALS, chunk=SWEEP_CHUNK)
+    one, t_one = _timed(lambda: sweep(specs, model, n, devices=1, **kw))
+    many, t_many = _timed(lambda: sweep(specs, model, n,
+                                        devices=SHARD_SWEEP_DEVICES, **kw))
+    used, nc_pad, _ = montecarlo._shard_layout(
+        SWEEP_TRIALS, SWEEP_CHUNK, SHARD_SWEEP_DEVICES)
+    sweep_devs, sweep_pad = len(used), nc_pad
+    gap = max(_max_abs_gap(one.means, many.means),
+              _max_abs_gap(one.stderr, many.stderr))
+    check(gap == 0, f"shard sweep-1M: {len(used)} devices vs 1, max abs "
+                    f"{gap:.3e}")
+    print(f"shard sweep-1M ({card}): {SWEEP_TRIALS} trials in "
+          f"{SWEEP_CHUNK}-trial chunks, {-(-SWEEP_TRIALS // SWEEP_CHUNK)} "
+          f"chunks padded to {nc_pad} over {len(used)} x cuda:0: means and "
+          f"stderr max abs {gap:g} against devices=1; wall s one device "
+          f"{t_one:.4f}, sharded {t_many:.4f}")
+    p, spread = SHARD_FIG8["cell"]
+    proc, sp = fig8.cell_process(p, spread), fig8.specs()
+    rkw = dict(rounds=fig8.ROUNDS, k=fig8.K, trials=SHARD_FIG8["trials"],
+               chunk=SHARD_FIG8["chunk"], seed=0)
+    ops.reset_launch_counts()
+    r_many, tr_many = _timed(lambda: sweep_rounds(
+        sp, proc, fig8.N, devices=SHARD_FIG8_DEVICES, **rkw))
+    launches = dict(ops.LAUNCHES)
+    r_one, tr_one = _timed(lambda: sweep_rounds(sp, proc, fig8.N, devices=1,
+                                                **rkw))
+    used, nc_pad, _ = montecarlo._shard_layout(
+        SHARD_FIG8["trials"], SHARD_FIG8["chunk"], SHARD_FIG8_DEVICES)
+    nc = -(-SHARD_FIG8["trials"] // SHARD_FIG8["chunk"])
+    check(nc_pad > nc, f"shard fig8: {nc} chunks need no padding")
+    want = nc * fig8.ROUNDS
+    check(launches["greedy_assign"] == want,
+          f"shard fig8: greedy_assign launches {launches} != {want}")
+    rgap = max(_max_abs_gap(getattr(r_one, f), getattr(r_many, f))
+               for f in ("per_round", "stderr", "wallclock",
+                         "wallclock_stderr"))
+    check(rgap == 0, f"shard fig8: {len(used)} devices vs 1, max abs "
+                     f"{rgap:.3e}")
+    print(f"shard fig8 cell p{p} s{spread:g} ({card}): "
+          f"{SHARD_FIG8['trials']} trials in {SHARD_FIG8['chunk']}-trial "
+          f"chunks, {nc} chunks padded to {nc_pad} over {len(used)} x "
+          f"cuda:0: per-round, wall-clock and stderr max abs {rgap:g} "
+          f"against devices=1; greedy_assign launches "
+          f"{launches['greedy_assign']} (= chunks x rounds); wall s one "
+          f"device {tr_one:.4f}, sharded {tr_many:.4f}")
+    return {"sweep": {"devices": sweep_devs, "padded_chunks": sweep_pad,
+                      "max_abs": gap, "seconds_one": t_one,
+                      "seconds_sharded": t_many},
+            "fig8": {"devices": len(used), "chunks": nc,
+                     "padded_chunks": nc_pad, "max_abs": rgap,
+                     "greedy_launches": launches["greedy_assign"],
+                     "seconds_one": tr_one, "seconds_sharded": tr_many}}
+
+
+def gate_phase():
+    """The port's regression gate (``benchmarks_torch.regression_gate``)
+    on the artifacts the figures, faults, grid and live phases wrote into
+    ``bench_out_torch/``, after Fig. 8 at --quick writes its own there
+    (with its greedy_assign launches counted); the gate must exit 0."""
+    ops.reset_launch_counts()
+    done, secs = _timed(lambda: bench_run.main(
+        ["--quick", "--device", "cuda", "--only", "fig8", "--out",
+         str(BENCH_OUT)]))
+    launches = dict(ops.LAUNCHES)
+    check(list(done) == ["fig8"], f"gate: fig8 ran {sorted(done)}")
+    rc = regression_gate.main(["--results", str(BENCH_OUT)])
+    check(rc == 0, f"gate: regression_gate exited {rc}")
+    print(f"gate: regression_gate exit {rc} on {BENCH_OUT.name}/ (fig8 "
+          f"--quick {secs:.3f} s, greedy_assign launches "
+          f"{launches['greedy_assign']})")
+    return {"exit": rc, "fig8_seconds": secs,
+            "greedy_launches": launches["greedy_assign"]}
+
+
 TRAIN_ARGV = ["--arch", "gemma3-4b", "--steps", "20", "--n", "8", "--r", "2",
               "--k", "6", "--batch", "16", "--seq", "64", "--schedule", "ss",
               "--cluster", "markov", "--persistence", "0.95", "--spread", "3",
@@ -2062,32 +2191,59 @@ def train_leg_b(deadline):
             "need_per_step": need}
 
 
+#: float32 erfinv on the card and on the CPU part by at most this many
+#: units in the last place (tests/test_torch_card.py's bound on
+#: init_params' normals)
+INIT_ERFINV_ULPS = 4
+
+
+def init_gap(cfg, seed):
+    """``init_params(cfg, seed)`` on the card against the CPU: (max abs
+    difference, max difference in units in the last place of the CPU's
+    value, elements that differ, elements).  The Philox words are the same
+    integers on both; only ``erfinv`` may part in the last bits."""
+    a = init_params(cfg, seed=seed, device=DEV)
+    b = init_params(cfg, seed=seed, device="cpu")
+    inf = torch.tensor(float("inf"))
+    gaps, ulps = [], []
+    for p, q in zip(a.parameters(), b.parameters()):
+        g = (p.detach().cpu() - q.detach()).abs()
+        gaps.append(g)
+        ulps.append(float((g / (torch.nextafter(q.abs(), inf)
+                                - q.abs())).max()))
+    return (max(float(g.max()) for g in gaps), max(ulps),
+            sum(int((g > 0).sum()) for g in gaps),
+            sum(g.numel() for g in gaps))
+
+
 def train_leg_d():
     """Leg D: the smoke config in float32 on one CPU-recorded trace, card
-    against CPU (rounds exact, loss and weights at the float32 AdamW
-    tolerance); then resume: 4 steps, --resume to 8, against 8 straight on
-    the card (weights and optimizer state bit-equal)."""
+    against CPU, each from ``init_params`` under the run's init seed on its
+    own device (rounds exact, loss and weights at the float32 AdamW
+    tolerance; the initial weights at that seed compared); then resume: 4 steps,
+    --resume to 8, against 8 straight on the card (weights and optimizer
+    state bit-equal)."""
     smoke = ["--arch", "gemma3-4b", "--smoke", "--n", "4", "--r", "2",
              "--k", "3", "--seq", "48", "--batch", "8"]
     log = TRAIN_DIR / "smoke_delays.npz"
-    # the CPU's initial state, written at step 0, starts both runs (a
-    # torch.Generator draws other numbers on the card)
-    init = TRAIN_DIR / "init"
-    first = train_cli.main(smoke + ["--steps", "0", "--device", "cpu",
-                                    "--ckpt-dir", str(init)]).ckpt_path
     train_cli.main(smoke + ["--steps", "5", "--cluster", "markov",
                             "--device", "cpu", "--log-delays", str(log)])
     replay = smoke + ["--steps", "5", "--cluster", "trace", "--trace",
-                      str(log), "--adaptive", "--resume"]
-    runs = {}
-    for dev in ("cuda", "cpu"):
-        ck = TRAIN_DIR / f"from_init_{dev}"
-        ck.mkdir()
-        shutil.copy(first, ck)
-        runs[dev] = train_cli.main(replay + ["--device", dev, "--ckpt-dir",
-                                             str(ck)])
+                      str(log), "--adaptive"]
+    runs = {dev: train_cli.main(replay + ["--device", dev])
+            for dev in ("cuda", "cpu")}
     card, cpu = runs["cuda"], runs["cpu"]
     check(card.start == cpu.start == 0, "train leg D: not from step 0")
+    # the initial weights the two runs started from: init_params at the
+    # init seed that the trainer derived from --seed
+    i_seed = card.seeds["init_seed"]
+    check(cpu.seeds["init_seed"] == i_seed,
+          "train leg D: card and CPU runs derived different init seeds")
+    i_max, i_ulps, i_diff, i_all = init_gap(
+        get_config("gemma3-4b").smoke(), i_seed)
+    check(i_ulps <= INIT_ERFINV_ULPS,
+          f"train leg D: init_params card vs CPU {i_ulps:g} ulps (max abs "
+          f"{i_max:.3e})")
     for a, b in zip(card.history, cpu.history):
         check(a["completion_time"] == b["completion_time"]
               and a["weights"] == b["weights"]
@@ -2120,13 +2276,19 @@ def train_leg_d():
           and all(torch.equal(ro[key][name], so[key][name])
                   for key in ("m", "v") for name in so[key]),
           "train leg D: resumed optimizer state differs from the straight run")
-    print(f"train D smoke f32 card vs CPU, 5 steps on a recorded trace: "
-          f"rounds and adaptive rows equal, loss rel <= "
+    print(f"train D smoke f32 card vs CPU from init_params(seed={i_seed}) "
+          f"on each device (initial weights max abs {i_max:.3e}, {i_ulps:g} "
+          f"ulps, bound {INIT_ERFINV_ULPS}; {i_diff} of {i_all} elements "
+          f"differ: erfinv), 5 steps "
+          f"on a recorded trace: rounds and adaptive rows equal, loss rel <= "
           f"{TRAIN_F32_LOSS_REL:g}, weights max abs {w_max:.3e} (99.9 % "
           f"within {w_q:.3e}); resume 4 -> 8 vs 8 straight on the card: "
           f"weights and AdamW step, m, v bit-equal")
-    return {"weights_max_abs": w_max, "weights_q999": w_q,
-            "resume_max_abs": r_max}
+    return {"init_seed": i_seed, "init_max_abs": i_max,
+            "init_max_ulps": i_ulps,
+            "init_elements_differ": i_diff,
+            "init_elements": i_all, "weights_max_abs": w_max,
+            "weights_q999": w_q, "resume_max_abs": r_max}
 
 
 def train_phase():
@@ -2164,6 +2326,8 @@ def main():
     card = smi.stdout.strip().splitlines()[0]
     build_s = build.build_all()
     print(f"device: {card}; kernel build {build_s:.2f} s")
+    for stale in BENCH_OUT.glob("BENCH_*.json"):     # the gate reads this run's
+        stale.unlink()
     for name in build.SOURCES:
         log = (build.BUILD_DIR / f"{name}.log")
         if log.exists():
@@ -2188,6 +2352,8 @@ def main():
     consistency = consistency_phase()
     grid = grid_phase()
     live = live_phase()
+    gate = gate_phase()
+    shard = shard_phase(card)
     train = train_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
@@ -2256,6 +2422,8 @@ def main():
             "live_adaptive": live["adaptive"]["greedy_launches"],
             "live_wide": live["wide"]["greedy_launches"],
             "train": train["full"]["greedy_launches"],
+            "shard_fig8": shard["fig8"]["greedy_launches"],
+            "gate_fig8": gate["greedy_launches"],
             "train_reissue": train["reissue"]["greedy_launches"]},
         "need_row_launches_by_path": {
             "faults_grid_reissue":
@@ -2333,7 +2501,7 @@ def main():
         "faults": faults,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency, "grid": grid, "live": live,
-        "train": train}))
+        "gate": gate, "shard": shard, "train": train}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -38,8 +38,8 @@ import time
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
-import torch
 
+from .. import sharding
 from . import montecarlo as mc
 from .montecarlo import (SchemeSpec, lb_spec, pc_spec, pcmm_spec, sweep_rounds,
                          to_spec)
@@ -366,21 +366,14 @@ def _model_key(model):
         return id(model)
 
 
-def _device_name(dev: torch.device) -> str:
-    """``"cpu"`` or ``"cuda:<index>"``: the device a run used, as its
-    artifact records it."""
-    if dev.type == "cuda" and dev.index is None:
-        return f"cuda:{torch.cuda.current_device()}"
-    return str(dev)
-
-
 def stream_grid(cells: Sequence[GridCell], *, devices=None,
                 pipeline: int = 2) -> GridResult:
     """Evaluate every cell, fusing the cells that share their
     draw-defining coordinates into one multi-spec sweep and keeping up to
     ``pipeline`` fused dispatches in flight (two by default).  ``devices``
-    is the one device (``None`` = the CUDA card, ``"cpu"`` on request; more
-    than one raises, ``ROADMAP.md`` queue 1 item 5).
+    shards every dispatch's trial axis, as in ``sweep`` (``None`` = every
+    CUDA card, ``"cpu"`` on request); ``meta["devices"]`` names the
+    devices (``sharding.device_label``).
 
     Every cell's ``means`` / ``stderr`` equal a per-cell ``sweep`` (or
     ``sweep_rounds``) at the same coordinates bit for bit: fusion only
@@ -396,7 +389,7 @@ def stream_grid(cells: Sequence[GridCell], *, devices=None,
         raise ValueError(f"duplicate grid cell names: {dup}")
     if pipeline < 1:
         raise ValueError(f"pipeline depth must be >= 1, got {pipeline}")
-    dev = mc._single_device(devices)
+    devs = sharding.trial_devices(devices)
 
     t0 = time.perf_counter()
     sweep_cells = [c for c in cells if not c.is_rounds]
@@ -439,7 +432,7 @@ def stream_grid(cells: Sequence[GridCell], *, devices=None,
             _resolve_one()
         pending.append((grp, mc._dispatch_run(
             fused, c0.model, c0.n, trials=c0.trials, seed=c0.seed,
-            chunk=c0.chunk, ks=c0.ks, want_samples=False, devices=dev)))
+            chunk=c0.chunk, ks=c0.ks, want_samples=False, devices=devs)))
     while pending:
         _resolve_one()
 
@@ -453,7 +446,7 @@ def stream_grid(cells: Sequence[GridCell], *, devices=None,
                            censored_feedback=cell.censored_feedback,
                            deadline=cell.deadline,
                            deadline_policy=cell.deadline_policy,
-                           devices=dev)
+                           devices=devs)
         entry = {
             "kind": "rounds", "n": cell.n, "trials": cell.trials,
             "seed": cell.seed, "rounds": cell.rounds, "k": cell.k,
@@ -472,5 +465,5 @@ def stream_grid(cells: Sequence[GridCell], *, devices=None,
             "cells_per_sec": len(cells) / seconds if seconds > 0 else 0.0,
             "fused_dispatches": len(groups), "buckets": len(sigs),
             "rounds_cells": len(rounds_cells), "pipeline": pipeline,
-            "devices": _device_name(dev)}
+            "devices": sharding.device_label(devs)}
     return GridResult(cells=results, meta=meta)

@@ -60,8 +60,14 @@ The built evaluators are cached (``cache_stats``, ``clear_cache``,
 the single-round sweep, one per rounds configuration.  ``_dispatch_run``
 issues a sweep's chunks without waiting for them (the grid engine keeps a
 few in flight); ``ResumableSweep`` extends a sweep's trial axis chunk by
-chunk, bit-equal to a fresh sweep at the combined count.  Multi-device
-sharding waits for a later slice (``ROADMAP.md`` queue 1 item 5).
+chunk, bit-equal to a fresh sweep at the combined count.
+
+``devices`` shards the trial axis (``repro_torch.sharding``): whole chunks
+go to the devices in contiguous blocks (``_shard_layout``, the JAX
+package's layout), each device runs its block through the same per-chunk
+scans, and the host combines the partials in global chunk order, so every
+statistic and every per-trial sample equals the one-device result bit for
+bit.
 """
 from __future__ import annotations
 
@@ -74,7 +80,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..device import resolve_device
+from .. import sharding
 from . import rng, scheduling
 
 __all__ = [
@@ -718,50 +724,64 @@ def cache_stats() -> dict:
             "traces": _BUILD_COUNT}
 
 
-def _get_exec(sig, model, device: torch.device):
+def _get_exec(sig, model, devs: Tuple[torch.device, ...]):
     """The built single-round evaluator of one shape bucket for ``model``
-    on ``device``, cached by ``(sig, model, device)``: ``sig`` carries only
-    counts and padded widths (``_eval_layout``), so every sweep with the
-    same scheme-kind structure reuses it with its own runtime ``params``.
+    on the device tuple ``devs``, cached by ``(sig, model, devs)`` (the
+    JAX package's key): ``sig`` carries only counts and padded widths
+    (``_eval_layout``), so every sweep with the same scheme-kind structure
+    reuses it with its own runtime ``params``.
 
-    ``scan(seed, starts, offs, limit, params, *, sums, samples)`` issues
-    one chunk per global start id: trial ids ``start + offs`` (lanes at or
-    past ``limit`` repeat the last real trial and are masked out), one
-    round of delays per trial, slot arrivals (eq. 1), every scheme of the
-    bucket scored.  It returns ``(p0, p1, ys)``: with ``sums`` the
-    per-chunk float32 partials of the statistics and of their squares
-    (``_tree_sum`` over the chunk, so their bits depend on the chunk length
-    alone), with ``samples`` the per-chunk statistics, each ``{group:
-    [per-chunk tensors]}`` on the device.  Nothing in it syncs the host."""
+    ``scan(seed, starts, chunk, limit, params, *, sums, samples)`` issues
+    one chunk per global start id, the chunks dealt to ``devs`` in
+    contiguous blocks (``sharding.issue_order``): trial ids ``start +
+    arange(chunk)`` (lanes at or past ``limit`` repeat the last real trial
+    and are masked out), one round of delays per trial, slot arrivals (eq.
+    1), every scheme of the bucket scored with the layout ``params``
+    (numpy, moved once to each device).  It returns ``(p0, p1, ys)``: with
+    ``sums`` the per-chunk float32 partials of the statistics and of their
+    squares (``_tree_sum`` over the chunk, so their bits depend on the
+    chunk length alone), with ``samples`` the per-chunk statistics, each
+    ``{group: [per-chunk tensors]}`` in global chunk order on the devices
+    that ran them.  Nothing in it syncs the host."""
     n, r_max = sig[1], sig[2]
 
     def build():
         eval_fn = _build_bucket_eval(sig)
 
-        def scan(seed, starts, offs, limit, params, *, sums=True,
+        def scan(seed, starts, chunk, limit, params, *, sums=True,
                  samples=False):
+            starts = list(starts)
+            local = {d: (torch.arange(chunk, dtype=torch.int64, device=d),
+                         params_on(params, d)) for d in dict.fromkeys(devs)}
+            out = [None] * len(starts)
+            for i, d in sharding.issue_order(len(starts), devs):
+                offs, pt = local[d]
+                tids_raw = starts[i] + offs
+                T1, T2 = model.sample(seed, tids_raw.clamp(max=limit - 1), n,
+                                      r_max)
+                st = eval_fn(slot_arrival_times(T1, T2), pt)
+                ok = (tids_raw < limit).reshape(-1, 1, 1)
+                out[i] = {g: (_tree_sum(torch.where(ok, v, 0.0))
+                              if sums else None,
+                              _tree_sum(torch.where(ok, v * v, 0.0))
+                              if sums else None,
+                              v if samples else None)
+                          for g, v in st.items()}
             p0: Dict[str, list] = {}
             p1: Dict[str, list] = {}
             ys: Dict[str, list] = {}
-            for start in starts:
-                tids_raw = start + offs
-                T1, T2 = model.sample(seed, tids_raw.clamp(max=limit - 1), n,
-                                      r_max)
-                st = eval_fn(slot_arrival_times(T1, T2), params)
-                ok = (tids_raw < limit).reshape(-1, 1, 1)
-                for g, v in st.items():
+            for part in out:
+                for g, (a, b, v) in part.items():
+                    if sums:
+                        p0.setdefault(g, []).append(a)
+                        p1.setdefault(g, []).append(b)
                     if samples:
                         ys.setdefault(g, []).append(v)
-                    if sums:
-                        p0.setdefault(g, []).append(
-                            _tree_sum(torch.where(ok, v, 0.0)))
-                        p1.setdefault(g, []).append(
-                            _tree_sum(torch.where(ok, v * v, 0.0)))
             return p0, p1, ys
 
         return scan
 
-    return _cached(_EXEC_CACHE, (sig, model, device), build)
+    return _cached(_EXEC_CACHE, (sig, model, devs), build)
 
 
 # ------------------------------- trial loop ----------------------------------
@@ -797,15 +817,35 @@ def _tree_sum(v: torch.Tensor) -> torch.Tensor:
     return v[0]
 
 
-def _single_device(devices) -> torch.device:
-    """The one device a sweep runs on (``None`` = the CUDA card)."""
-    if isinstance(devices, (list, tuple)):
-        if len(devices) != 1:
-            raise NotImplementedError(
-                "the port's sweeps run on one device; multi-device sharding "
-                "waits for ROADMAP.md queue 1 item 5")
-        devices = devices[0]
-    return resolve_device(devices)
+def _shard_layout(trials: int, chunk: int, devices):
+    """Device and padding layout of a sharded sweep, the JAX package's
+    ``_shard_layout``: the trial axis is cut into ``ceil(trials / chunk)``
+    chunks whatever the device count (which keeps sharded results bit-equal
+    to one device), the chunks go to the devices in contiguous blocks, and
+    the chunk count is padded up to a multiple of the ``d_eff`` devices
+    used.  Returns ``(devs[:d_eff], nc_pad, padded_trials)``, read off
+    ``sharding.chunk_blocks``, the one layout that the scans deal their
+    chunks by.  The port runs no padded chunk; the JAX package's padded
+    lanes repeat the last real trial and are masked out, so both give the
+    same statistics."""
+    devs = sharding.trial_devices(devices)
+    blocks = sharding.chunk_blocks(-(-trials // chunk), len(devs))
+    nc_pad = len(blocks) * len(blocks[0])
+    return devs[:len(blocks)], nc_pad, nc_pad * chunk
+
+
+def _to_host(ts: Sequence[torch.Tensor], join=torch.stack) -> np.ndarray:
+    """Per-chunk tensors, in global chunk order and possibly on several
+    devices, joined (``torch.stack`` or ``torch.cat`` along axis 0) on the
+    host: one transfer for each run of chunks on one device."""
+    runs: list = []
+    for t in ts:
+        if runs and runs[-1][0].device == t.device:
+            runs[-1].append(t)
+        else:
+            runs.append([t])
+    parts = [join(r).cpu().numpy() for r in runs]
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
 
 
 def _check_specs(specs: Sequence[SchemeSpec], n: int) -> Tuple[SchemeSpec, ...]:
@@ -941,9 +981,9 @@ class _Pending:
 def _combine(p0: Dict[str, list], p1: Dict[str, list], slots, trials: int):
     """Per-chunk float32 partials -> float64 on the host, in global chunk
     order: ``(means, stderr)`` per scheme name."""
-    mu_g = {g: torch.stack(v).cpu().numpy().astype(np.float64).sum(axis=0)
-            / trials for g, v in p0.items()}
-    sq_g = {g: torch.stack(v).cpu().numpy().astype(np.float64).sum(axis=0)
+    mu_g = {g: _to_host(v).astype(np.float64).sum(axis=0) / trials
+            for g, v in p0.items()}
+    sq_g = {g: _to_host(v).astype(np.float64).sum(axis=0)
             for g, v in p1.items()}
     means, stderr = {}, {}
     for name, (g, i) in slots.items():
@@ -958,22 +998,22 @@ def _dispatch_run(specs: Sequence[SchemeSpec], model, n: int, *, trials: int,
                   seed: int, chunk: Optional[int], ks: Optional[int],
                   want_samples: bool, devices=None) -> _Pending:
     """Validate and issue one sweep without waiting for its results: every
-    chunk's work is issued and its float32 partials stay on the device.
-    The returned ``_Pending`` resolves to ``_run``'s output."""
-    dev = _single_device(devices)
+    chunk's work is issued and its float32 partials stay on the devices
+    that ran it.  The returned ``_Pending`` resolves to ``_run``'s output
+    (per-trial samples gathered on the first device)."""
     specs = _validate_single_round(specs, n, ks)
     r_max = max(sp.load for sp in specs)
     chunk = _normalize_chunk(trials, chunk)
+    devs, _, _ = _shard_layout(trials, chunk, devices)
     sig, params, slots = _eval_layout(specs, n, r_max, ks)
-    scan = _get_exec(sig, model, dev)
-    offs = torch.arange(chunk, dtype=torch.int64, device=dev)
-    starts = range(0, trials, chunk)
-    p0, p1, ys = scan(seed, starts, offs, trials, params_on(params, dev),
+    scan = _get_exec(sig, model, devs)
+    p0, p1, ys = scan(seed, range(0, trials, chunk), chunk, trials, params,
                       sums=not want_samples, samples=want_samples)
 
     if want_samples:
         def resolve_samples():
-            cat = {g: torch.cat(v, dim=0)[:trials] for g, v in ys.items()}
+            cat = {g: torch.cat([x.to(devs[0]) for x in v], dim=0)[:trials]
+                   for g, v in ys.items()}
             return {name: cat[g][:, i, :] for name, (g, i) in slots.items()}
         return _Pending(resolve_samples)
     return _Pending(lambda: _combine(p0, p1, slots, trials))
@@ -1043,9 +1083,13 @@ def sweep(specs: Sequence[SchemeSpec], model, n: int, *, trials: int = 20000,
     ``chunk`` streams the trials in chunks of that size (default one chunk;
     per-trial samples are chunk-invariant, means agree to float32
     round-off); ``ks=None`` gives every k in 1..n from one sort, an int only
-    that order statistic.  ``devices``: the one device to run on (``None``
-    = the CUDA card; ``"cpu"`` to run on the CPU).  ``record_trace=True``
-    raises: a single round has no per-round tables to record."""
+    that order statistic.  ``devices`` shards the trial axis: ``None``
+    every CUDA card, an int the first that many, a device (``"cpu"`` to
+    run on the CPU) or a sequence of devices of one type, repeats allowed;
+    whole chunks are dealt to them in contiguous blocks, so at most
+    ``ceil(trials / chunk)`` devices are used, and every result equals the
+    one-device result bit for bit.  ``record_trace=True`` raises: a single
+    round has no per-round tables to record."""
     _reject_single_round_trace(record_trace, "sweep")
     means, stderr = _run(specs, model, n, trials=trials, seed=seed,
                          chunk=chunk, ks=ks, want_samples=False,
@@ -1111,13 +1155,14 @@ class ResumableSweep:
       ``O(trials * L)`` per scheme).  They come from the same chunk scan as
       the partials; the sums still come from the ``_tree_sum`` path that
       ``sweep`` takes, so one code path defines them.
-    * ``devices``: the one device (``None`` = the CUDA card).
+    * ``devices`` as in ``sweep``: each extension's chunks are dealt to
+      them in contiguous blocks.
     """
 
     def __init__(self, specs: Sequence[SchemeSpec], model, n: int, *,
                  seed: int = 0, chunk: int, ks: Optional[int] = None,
                  devices=None, keep_samples: bool = False):
-        self._dev = _single_device(devices)
+        self._devs = sharding.trial_devices(devices)
         specs = _validate_single_round(specs, n, ks)
         chunk = int(chunk)
         if chunk < 1:
@@ -1166,17 +1211,16 @@ class ResumableSweep:
                 f"cannot be extended past it (keep every total but the "
                 f"last chunk-aligned)")
         add = total - self._done
+        devs, _, _ = _shard_layout(add, self._chunk, self._devs)
         sig, params, slots = _eval_layout(self._specs, self._n, self._r_max,
                                           self._ks)
-        scan = _get_exec(sig, self._model, self._dev)
-        offs = torch.arange(self._chunk, dtype=torch.int64, device=self._dev)
+        scan = _get_exec(sig, self._model, devs)
         p0, p1, ys = scan(self._seed, range(self._done, total, self._chunk),
-                          offs, total, params_on(params, self._dev),
-                          sums=True, samples=self._keep)
-        p0 = {g: torch.stack(v).cpu().numpy() for g, v in p0.items()}
-        p1 = {g: torch.stack(v).cpu().numpy() for g, v in p1.items()}
-        ys = {g: torch.cat(v, dim=0)[:add].cpu().numpy()
-              for g, v in ys.items()}
+                          self._chunk, total, params, sums=True,
+                          samples=self._keep)
+        p0 = {g: _to_host(v) for g, v in p0.items()}
+        p1 = {g: _to_host(v) for g, v in p1.items()}
+        ys = {g: _to_host(v, torch.cat)[:add] for g, v in ys.items()}
         for name, (g, i) in slots.items():
             self._p0[name].append(p0[g][:, i, :])
             self._p1[name].append(p1[g][:, i, :])
@@ -1492,22 +1536,26 @@ def _build_rounds_fn(specs: Tuple[SchemeSpec, ...], process, n: int,
 def _get_rounds_exec(specs: Tuple[SchemeSpec, ...], process, n: int,
                      r_max: int, ks: int, rounds: int, beta: float,
                      gamma: float, censored: bool,
-                     greedy_impl: Optional[str], device: torch.device,
+                     greedy_impl: Optional[str],
+                     devs: Tuple[torch.device, ...],
                      deadline: Optional[float] = None,
                      policy: str = "wait"):
-    """``_build_rounds_fn``'s evaluator, cached by every argument (the JAX
-    package's ``_get_rounds_exec`` key).  A ``TraceProcess`` stays
-    uncached (its function holds the whole recording, and traces are
-    one-shot), and so does an unhashable custom process.  A cached function
-    carries no state from one call to the next: each call starts its
-    process state, estimates and backlogs afresh."""
+    """``_build_rounds_fn``'s evaluator on each distinct device of
+    ``devs`` (``{device: rounds_fn}``), cached by every argument and the
+    device tuple (the JAX package's ``_get_rounds_exec`` key).  A
+    ``TraceProcess`` stays uncached (its function holds the whole
+    recording, and traces are one-shot), and so does an unhashable custom
+    process.  A cached function carries no state from one call to the
+    next: each call starts its process state, estimates and backlogs
+    afresh."""
     from .trace import TraceProcess
     key = (None if isinstance(process, TraceProcess) else
            (specs, process, n, r_max, ks, rounds, beta, gamma, censored,
-            deadline, policy, device, greedy_impl))
-    return _cached(_ROUNDS_CACHE, key, lambda: _build_rounds_fn(
-        specs, process, n, r_max, ks, rounds, beta, gamma, censored,
-        greedy_impl, device, deadline, policy))
+            deadline, policy, devs, greedy_impl))
+    return _cached(_ROUNDS_CACHE, key, lambda: {
+        d: _build_rounds_fn(specs, process, n, r_max, ks, rounds, beta,
+                            gamma, censored, greedy_impl, d, deadline, policy)
+        for d in dict.fromkeys(devs)})
 
 
 def _capture_tables(process, n: int, r_max: int, rounds: int, seed: int,
@@ -1525,22 +1573,24 @@ def _capture_tables(process, n: int, r_max: int, rounds: int, seed: int,
     return np.stack(T1s), np.stack(T2s)
 
 
-def _record_trace(process, n, r_max, *, rounds, trials, seed, chunk, dev,
+def _record_trace(process, n, r_max, *, rounds, trials, seed, chunk, devs,
                   meta: dict):
     """The delay tables a rounds run over ``process`` draws, as a
     ``DelayTrace`` (the first pass of ``record_trace=True``): every trial
     id's draws are those of the evaluation, so replaying the trace scores
-    the same rounds."""
+    the same rounds.  The chunks are dealt to ``devs`` as the evaluation
+    deals them."""
     from .trace import DelayTrace
-    parts1, parts2 = [], []
-    for lo in range(0, trials, chunk):
+    starts = list(range(0, trials, chunk))
+    parts = [None] * len(starts)
+    for i, d in sharding.issue_order(len(starts), devs):
+        lo = starts[i]
         tids = torch.arange(lo, min(lo + chunk, trials), dtype=torch.int64,
-                            device=dev)
-        T1, T2 = _capture_tables(process, n, r_max, rounds, seed, tids)
-        parts1.append(T1)
-        parts2.append(T2)
-    return DelayTrace(np.concatenate(parts1, axis=1),
-                      np.concatenate(parts2, axis=1), meta=meta)
+                            device=d)
+        parts[i] = _capture_tables(process, n, r_max, rounds, seed, tids)
+    return DelayTrace(np.concatenate([p[0] for p in parts], axis=1),
+                      np.concatenate([p[1] for p in parts], axis=1),
+                      meta=meta)
 
 
 def _check_rounds_args(specs, n, ks, rounds):
@@ -1560,6 +1610,18 @@ def _check_rounds_args(specs, n, ks, rounds):
     if rounds < 1:
         raise ValueError(f"need rounds >= 1, got {rounds}")
     return specs
+
+
+def _chunk_sums(ys, ok: torch.Tensor):
+    """One chunk's partials of each scheme's (rounds, chunk) times: (4,
+    rounds) float32 sums over the valid trials of the times, their
+    squares, the cumulative wall-clock and its squares."""
+    out = {}
+    for nm, v in ys.items():
+        cum = _left_fold(v, 0)
+        out[nm] = torch.stack([_tree_sum(torch.where(ok, x, 0.0).T)
+                               for x in (v, v * v, cum, cum * cum)])
+    return out
 
 
 def _chunk_aux(aux, ok: torch.Tensor, ks: int):
@@ -1588,7 +1650,6 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
     from .cluster import as_process
     from .spec import validate_deadline
     deadline = validate_deadline(deadline, deadline_policy)
-    dev = _single_device(devices)
     process = as_process(process)
     process.check_rounds(rounds)
     specs = _check_rounds_args(specs, n, k, rounds)
@@ -1596,6 +1657,7 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
     rng.round_seed(seed, rounds)                 # validate the seed range
     r_max = max(sp.load for sp in specs)
     chunk = _normalize_chunk(trials, chunk)
+    devs, _, _ = _shard_layout(trials, chunk, devices)
 
     if record:
         # two passes: capture the tables, then score the run by replaying
@@ -1603,7 +1665,7 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
         from .trace import TraceProcess
         trace = _record_trace(
             process, n, r_max, rounds=rounds, trials=trials, seed=seed,
-            chunk=chunk, dev=dev,
+            chunk=chunk, devs=devs,
             meta={"source": "sweep_rounds", "seed": int(seed), "k": int(k),
                   "process": type(process).__name__,
                   "schemes": [sp.name for sp in specs]})
@@ -1611,38 +1673,39 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
                           trials=trials, seed=seed, chunk=chunk, beta=beta,
                           gamma=gamma, censored=censored,
                           want_samples=want_samples, deadline=deadline,
-                          deadline_policy=deadline_policy, devices=dev,
+                          deadline_policy=deadline_policy, devices=devs,
                           greedy_impl=greedy_impl)
         return out[:-1] + (trace,)
 
-    rounds_fn = _get_rounds_exec(specs, process, n, r_max, k, rounds, beta,
-                                 gamma, censored, greedy_impl, dev,
-                                 deadline, deadline_policy)
-    offs = torch.arange(chunk, dtype=torch.int64, device=dev)
-    samples: Dict[str, list] = {}
-    parts: Dict[str, list] = {}
-    aux_parts: Dict[str, Dict[str, list]] = {}
-    for start in range(0, trials, chunk):
-        tids_raw = start + offs
+    fns = _get_rounds_exec(specs, process, n, r_max, k, rounds, beta,
+                           gamma, censored, greedy_impl, devs, deadline,
+                           deadline_policy)
+    offs = {d: torch.arange(chunk, dtype=torch.int64, device=d)
+            for d in fns}
+    starts = list(range(0, trials, chunk))
+    out = [None] * len(starts)
+    for i, d in sharding.issue_order(len(starts), devs):
+        tids_raw = starts[i] + offs[d]
         # a partial last chunk repeats the last real trial in masked lanes
-        ys, aux = rounds_fn(seed, tids_raw.clamp(max=trials - 1))
+        ys, aux = fns[d](seed, tids_raw.clamp(max=trials - 1))
         if want_samples:
-            for nm, v in ys.items():
-                samples.setdefault(nm, []).append(v)
+            out[i] = ys
             continue
         ok = (tids_raw < trials)[None, :]
-        for nm, v in ys.items():
-            cum = _left_fold(v, 0)
-            parts.setdefault(nm, []).append(torch.stack([
-                _tree_sum(torch.where(ok, x, 0.0).T)
-                for x in (v, v * v, cum, cum * cum)]))
-        for nm, a in _chunk_aux(aux, ok, k).items():
-            for key, x in a.items():
-                aux_parts.setdefault(nm, {}).setdefault(key, []).append(x)
+        out[i] = (_chunk_sums(ys, ok), _chunk_aux(aux, ok, k))
 
     if want_samples:
-        return ({nm: torch.cat(v, dim=1)[:, :trials].T
-                 for nm, v in samples.items()}, None)
+        return ({nm: torch.cat([ys[nm].to(devs[0]) for ys in out],
+                               dim=1)[:, :trials].T
+                 for nm in out[0]}, None)
+    parts: Dict[str, list] = {}
+    aux_parts: Dict[str, Dict[str, list]] = {}
+    for sums, aux in out:
+        for nm, x in sums.items():
+            parts.setdefault(nm, []).append(x)
+        for nm, a in aux.items():
+            for key, x in a.items():
+                aux_parts.setdefault(nm, {}).setdefault(key, []).append(x)
 
     def moments(p0, p1):
         mu = p0.sum(axis=0) / trials
@@ -1652,14 +1715,14 @@ def _run_rounds(specs, process, n, *, rounds: int, k: int, trials: int,
     per_round, stderr, wallclock, wc_stderr = {}, {}, {}, {}
     for nm, v in parts.items():
         # per-chunk float32 partials -> float64 in global chunk order
-        p = torch.stack(v).cpu().numpy().astype(np.float64)  # (nc, 4, R)
+        p = _to_host(v).astype(np.float64)                    # (nc, 4, R)
         per_round[nm], stderr[nm] = moments(p[:, 0], p[:, 1])
         wallclock[nm], wc_stderr[nm] = moments(p[:, 2], p[:, 3])
     degr = None
     if deadline is not None:
         degr = {nm: {("realized_k" if key == "realized" else key):
-                     torch.stack(v).cpu().numpy().astype(np.float64).sum(0)
-                     / trials for key, v in a.items()}
+                     _to_host(v).astype(np.float64).sum(0) / trials
+                     for key, v in a.items()}
                 for nm, a in aux_parts.items()}
     return per_round, stderr, wallclock, wc_stderr, degr, None
 
@@ -1748,8 +1811,8 @@ def sweep_rounds(specs: Sequence[SchemeSpec], process, n: int, *,
     ``censored_feedback`` restricts it to messages that beat the scheme's
     own round close) and, with ``rebalance=True``, re-balance whole slots
     between workers.  ``k`` is the single computation target; ``seed``
-    (below 2**32), ``trials`` and ``chunk`` as in ``sweep``; ``devices``
-    the one device (``None`` = the CUDA card).
+    (below 2**32), ``trials``, ``chunk`` and ``devices`` as in
+    ``sweep``.
 
     ``record_trace``: also capture the realized per-(round, trial, worker,
     slot) tables as the result's ``trace`` (two passes: capture, then score

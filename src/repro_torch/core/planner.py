@@ -47,9 +47,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from .. import sharding
 from . import montecarlo as mc
 from . import theory
-from .grid import GridSpec, _cell_name, _device_name, _family_spec, _jsonable
+from .grid import GridSpec, _cell_name, _family_spec, _jsonable
 from .spec import RoundConfig
 
 __all__ = ["plan", "PlanResult", "PLAN_FORMAT_VERSION"]
@@ -285,13 +286,13 @@ def plan(grid: GridSpec, model, *, k: Optional[int] = None,
     threshold in paired-gap sigmas, also the survivors' tie report.
     ``theory_prune`` / ``prune_slack``: the closed-form stage (only where
     ``theory.delay_model_pdfs(model)`` knows the marginals and coded cells
-    anchor it).  ``devices``: the one device (``None`` = the CUDA card).
+    anchor it).  ``devices`` shards every rung's sweep, as in ``sweep``.
 
     The race runs in all-k mode (one sort a trial serves every target),
     one resumable sweep a load, and compares points by paired per-trial
     differences."""
     t0 = time.perf_counter()
-    dev = mc._single_device(devices)
+    devs = sharding.trial_devices(devices)
     n = grid.n
     k_default = n if k is None else int(k)
     if not 1 <= k_default <= n:
@@ -343,7 +344,7 @@ def plan(grid: GridSpec, model, *, k: Optional[int] = None,
         if nm in needed:
             by_load.setdefault(sp.load, []).append(sp)
     sweeps = [mc.resumable_sweep(grp, model, n, seed=grid.seed, chunk=chunk,
-                                 ks=None, devices=dev, keep_samples=True)
+                                 ks=None, devices=devs, keep_samples=True)
               for grp in by_load.values()]
     trajectory: list[dict] = []
     spec_trials: Dict[str, int] = {}
@@ -434,7 +435,7 @@ def plan(grid: GridSpec, model, *, k: Optional[int] = None,
     lb_sp = mc.lb_spec(winner.r, messages=winner.messages,
                        comm_eps=winner.comm_eps)
     lb_res = mc.sweep([lb_sp], model, n, trials=grid.trials,
-                      seed=grid.seed, chunk=chunk, ks=None, devices=dev)
+                      seed=grid.seed, chunk=chunk, ks=None, devices=devs)
     # a coded winner recovers the full gradient at its decode threshold,
     # so the comparable oracle target is k = n (the threshold can exceed n)
     lb_mean = lb_res.at_k("lb", n if winner.coded else winner.k)
@@ -465,7 +466,7 @@ def plan(grid: GridSpec, model, *, k: Optional[int] = None,
         "exhaustive_cells": exhaustive_cells,
         "ties": ties,
         "seconds": time.perf_counter() - t0,
-        "devices": _device_name(dev),
+        "devices": sharding.device_label(devs),
     }
     return PlanResult(
         winner=winner.name, predicted_mean=w_mean, predicted_stderr=w_se,

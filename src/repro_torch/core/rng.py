@@ -60,16 +60,22 @@ def philox4x32(c0, c1, c2, c3, k0: int, k1: int):
 
 
 def random_bits(seed: int, tids: torch.Tensor, stream: int,
-                count: int) -> torch.Tensor:
+                count: int, *, start: int = 0) -> torch.Tensor:
     """``count`` random 32-bit words per trial, shape ``(len(tids), count)``
     (``int64`` holding values in ``[0, 2**32)``), on ``tids``'s device.
     Word ``e`` of trial ``t`` is output word ``e % 4`` of Philox at counter
-    ``(e // 4, t mod 2**32, stream, t >> 32)``."""
-    seed = int(seed)
+    ``(e // 4, t mod 2**32, stream, t >> 32)``; the words returned are
+    ``start .. start + count - 1`` (``start`` a multiple of 4), so a long
+    stream can be drawn slab by slab."""
+    seed, start = int(seed), int(start)
     if not 0 <= seed < 2 ** 64:
         raise ValueError(f"seed must be in [0, 2**64), got {seed}")
+    if start < 0 or start % 4:
+        raise ValueError(f"start must be a non-negative multiple of 4, got "
+                         f"{start}")
     tids = tids.to(torch.int64).reshape(-1, 1)
-    blocks = torch.arange(math.ceil(count / 4), dtype=torch.int64,
+    blocks = torch.arange(start // 4, start // 4 + math.ceil(count / 4),
+                          dtype=torch.int64,
                           device=tids.device).reshape(1, -1)
     out = philox4x32(blocks, tids & _MASK32,
                      torch.full_like(blocks, int(stream) & _MASK32),
@@ -89,13 +95,14 @@ def uniform(seed: int, tids: torch.Tensor, stream: int,
 
 
 def normal(seed: int, tids: torch.Tensor, stream: int,
-           shape) -> torch.Tensor:
+           shape, *, start: int = 0) -> torch.Tensor:
     """Per-trial float32 standard normals, shape ``(len(tids), *shape)``:
     ``sqrt(2) * erfinv(2u - 1)`` with ``u`` the top 23 bits of each word
     placed at the centres of their bins, ``(b + 0.5) * 2**-23``, so ``u``
-    lies in the open interval (0, 1) and ``2u - 1`` is exact."""
+    lies in the open interval (0, 1) and ``2u - 1`` is exact.  ``start``
+    as in ``random_bits``."""
     shape = tuple(int(s) for s in shape)
-    bits = random_bits(seed, tids, stream, math.prod(shape))
+    bits = random_bits(seed, tids, stream, math.prod(shape), start=start)
     v = ((bits >> 9) * 2 + 1).to(torch.float32) * (2.0 ** -23) - 1.0
     z = math.sqrt(2.0) * torch.erfinv(v)
     return z.reshape((bits.shape[0],) + shape)

@@ -15,7 +15,9 @@ The grid comes from a ``GridSpec``, as a JSON document (``--spec``, the
       --model ec2 --device cpu
 
 It runs on the CUDA card unless given ``--device cpu``.  ``--devices N``
-takes 1: multi-device sharding waits for ``ROADMAP.md`` queue 1 item 5.
+shards the trial axis over the first N cards (``--device cuda``) or over N
+blocks on the named device (``--device cpu --devices 4``), bit-equal to one
+device.
 ``--window`` (alias ``--pipeline``) sets how many fused dispatches stay in
 flight (2: double buffering).  The racing planner (``python -m
 repro_torch.launch.plan``) finds the same winner without streaming the
@@ -31,6 +33,7 @@ import sys
 from ..core.delays import ec2_like, scenario1, scenario2
 from ..core.grid import FAMILIES, GridSpec, stream_grid
 from ..core.montecarlo import cache_stats
+from ..sharding import cli_devices
 
 MODELS = ("scenario1", "scenario2", "ec2")
 
@@ -50,15 +53,6 @@ def _axis(vals, cast):
     return tuple(None if str(v).lower() == "none" else cast(v) for v in vals)
 
 
-def _one_device(args) -> str:
-    """``--device``, after refusing ``--devices`` past one."""
-    if args.devices is not None and args.devices != 1:
-        raise SystemExit(
-            f"--devices {args.devices}: the port runs on one device; "
-            f"multi-device sharding waits for ROADMAP.md queue 1 item 5")
-    return args.device
-
-
 def add_common_args(ap: argparse.ArgumentParser) -> None:
     """The grid axes and run options the grid and plan CLIs share."""
     ap.add_argument("--spec", default=None,
@@ -76,8 +70,8 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--chunk", type=int, default=None)
     ap.add_argument("--model", default="scenario1", choices=list(MODELS))
     ap.add_argument("--devices", type=int, default=None,
-                    help="number of devices: 1 (multi-device sharding waits "
-                         "for ROADMAP.md queue 1 item 5)")
+                    help="shard trials over the first N cards (--device "
+                         "cuda) or N blocks on the named device")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default cuda; cpu on request)")
 
@@ -106,7 +100,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = _one_device(args)
+    device = cli_devices(args.device, args.devices)
     if args.spec is not None:
         with open(args.spec) as fh:
             gs = GridSpec.from_json(json.load(fh))

@@ -14,10 +14,10 @@ document (``--spec``) or as inline axes:
       --emit-config out/round_config.json
 
 It runs on the CUDA card unless given ``--device cpu``; ``--devices N``
-takes 1 (``ROADMAP.md`` queue 1 item 5).  ``--emit-config`` also writes the
-winner's ``RoundConfig`` JSON when the winner is a TO-matrix family (cs /
-ss / ra); ``RoundConfig.load`` of either package reads it.  ``--trials``
-is the last rung's count, so the argmin carries the exhaustive grid's
+shards the racing sweeps as the grid CLI does.  ``--emit-config`` also
+writes the winner's ``RoundConfig`` JSON when the winner is a TO-matrix
+family (cs / ss / ra); ``RoundConfig.load`` of either package reads it.
+``--trials`` is the last rung's count, so the argmin carries the exhaustive grid's
 confidence at that budget.
 """
 from __future__ import annotations
@@ -29,7 +29,8 @@ import sys
 
 from ..core.grid import GridSpec
 from ..core.planner import plan
-from .grid import _axis, _build_model, _one_device, add_common_args
+from ..sharding import cli_devices
+from .grid import _axis, _build_model, add_common_args
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +61,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    device = _one_device(args)
+    device = cli_devices(args.device, args.devices)
     if args.spec is not None:
         with open(args.spec) as fh:
             gs = GridSpec.from_json(json.load(fh))

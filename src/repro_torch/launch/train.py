@@ -195,7 +195,8 @@ def main(argv=None) -> TrainResult:
     if args.mesh != "local":
         raise SystemExit(
             f"--mesh {args.mesh}: the port trains on one device; meshes "
-            f"over several cards are ROADMAP.md queue 1, item 5")
+            f"over several cards are ROADMAP.md queue 1, item 8 (its mesh "
+            f"sub-item)")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
@@ -207,7 +208,8 @@ def main(argv=None) -> TrainResult:
             raise SystemExit(
                 f"{cfg.name}: {need} bytes of weights, gradients and AdamW "
                 f"moments exceed the {have} bytes of one card (training "
-                f"over several cards is ROADMAP.md queue 1, item 5)")
+                f"over several cards is ROADMAP.md queue 1, item 8, its "
+                f"mesh sub-item)")
     if args.log_delays:
         # fail fast on an unwritable destination
         out_dir = os.path.dirname(os.path.abspath(args.log_delays))

@@ -12,6 +12,12 @@ recorded; the other attention paths, and that one under autograd, are
 torch ops, as the JAX package computes them in jnp.  KV caches are
 updated in place (the JAX package returns new arrays); ``pos`` is a host
 integer.
+
+Initialisation (``init_weights_``) is the JAX package's scales drawn from
+the port's counter-based Philox (``core/rng.py``): parameter ``i`` of
+``named_parameters()`` takes the words of trial ``i``, stream
+``INIT_STREAM``, under the model's seed, so the weights are a function of
+(config, seed) alone, the same on the card as on the CPU.
 """
 from __future__ import annotations
 
@@ -22,12 +28,22 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..core import rng
 from ..kernels import ops
 from .config import ModelConfig
 
 __all__ = ["dense", "rms_norm", "rope_freqs", "apply_rope", "attention_core",
            "repeat_kv", "gqa_init", "gqa_apply", "gqa_cache_init", "swiglu",
-           "Dense", "RMSNorm", "Attention", "SwiGLU"]
+           "Dense", "RMSNorm", "Attention", "SwiGLU", "init_weights_"]
+
+#: the Philox stream of the initial weights, one that no other draw of the
+#: port uses (the delay models take 0-4, the processes 5-8, the fault layers
+#: 9 and up, the LM data 0-3), so a model's weights share no words with the
+#: tokens or delays drawn under the same seed
+INIT_STREAM = 0x494E4954
+#: words a parameter is drawn in at a time: no index tensor of a whole
+#: embedding (671 M elements in gemma3-4b) is ever made
+INIT_SLAB = 1 << 24
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -170,11 +186,6 @@ class Dense(nn.Module):
         self.b = (nn.Parameter(torch.empty((d_out,), dtype=dtype,
                                            device=device)) if bias else None)
 
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.w.normal_(0.0, self.init_scale, generator=generator)
-        if self.b is not None:
-            self.b.zero_()
-
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dense(x, self.w, self.b)
 
@@ -188,9 +199,6 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.scale = nn.Parameter(torch.empty((d,), dtype=dtype,
                                               device=device))
-
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        self.scale.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, self.scale, self.eps)
@@ -240,16 +248,57 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
 # GQA attention (full / sliding-window) with optional KV cache
 # --------------------------------------------------------------------------
 
-def gqa_init(cfg: ModelConfig, *, generator: Optional[torch.Generator] = None,
+def gqa_init(cfg: ModelConfig, *, seed: Optional[int] = None,
              device=None) -> Attention:
-    """An ``Attention`` module, initialised from ``generator`` (left
-    uninitialised without one, e.g. on the ``meta`` device); serving
-    weights, without gradients."""
+    """An ``Attention`` module, initialised by ``init_weights_`` under
+    ``seed`` (left uninitialised without one, e.g. on the ``meta``
+    device); serving weights, without gradients."""
     attn = Attention(cfg, device=device).requires_grad_(False)
-    if generator is not None:
-        for m in (attn.wq, attn.wk, attn.wv, attn.wo):
-            m.reset_parameters(generator)
+    if seed is not None:
+        init_weights_(attn, seed)
     return attn
+
+
+@torch.no_grad()
+def _draw_normal_(p: torch.Tensor, seed: int, index: int,
+                  scale: float) -> None:
+    """``p`` <- ``scale`` x N(0, 1) from Philox trial ``index``, in float32
+    and then cast (the JAX package's ``normal(...) * scale``), slab by
+    slab."""
+    flat = p.view(-1)
+    tid = torch.tensor([index], dtype=torch.int64, device=p.device)
+    for lo in range(0, flat.numel(), INIT_SLAB):
+        m = min(INIT_SLAB, flat.numel() - lo)
+        z = rng.normal(seed, tid, INIT_STREAM, (m,), start=lo)[0]
+        flat[lo:lo + m] = (z * scale).to(p.dtype)
+
+
+@torch.no_grad()
+def init_weights_(module: nn.Module, seed: int,
+                  scales: Optional[dict] = None) -> nn.Module:
+    """The JAX package's initialisation of every parameter of ``module``,
+    device-independent: projections N(0, 1/d_in) (``Dense.init_scale``),
+    biases zero, norm scales one, and any parameter in ``scales``
+    (parameter -> standard deviation) normal at that scale.  Parameter
+    ``i`` of ``named_parameters()`` is drawn from Philox trial ``i``, so
+    each is a function of (seed, its index) alone."""
+    std = dict(scales or {})
+    const = {}
+    for m in module.modules():
+        if isinstance(m, Dense):
+            std[m.w] = m.init_scale
+            if m.b is not None:
+                const[m.b] = 0.0
+        elif isinstance(m, RMSNorm):
+            const[m.scale] = 1.0
+    for i, (name, p) in enumerate(module.named_parameters()):
+        if p in const:
+            p.fill_(const[p])
+        elif p in std:
+            _draw_normal_(p, seed, i, std[p])
+        else:
+            raise ValueError(f"no initialisation rule for parameter {name}")
+    return module
 
 
 def _records_grad(*ts: torch.Tensor) -> bool:

@@ -142,17 +142,6 @@ class Transformer(nn.Module):
                         L.Dense(cfg.d_model, cfg.padded_vocab, dtype=dt,
                                 device=device))
 
-    @torch.no_grad()
-    def reset_parameters(self, generator: torch.Generator) -> None:
-        """The JAX package's initialisation, drawn from ``generator``:
-        embeddings N(0, 1/d), projections N(0, 1/d_in) (``wo`` and
-        ``w_down`` scaled by their input width), biases zero, norm scales
-        one."""
-        self.embed.normal_(0.0, self.cfg.d_model ** -0.5, generator=generator)
-        for m in self.modules():
-            if isinstance(m, (L.Dense, L.RMSNorm)):
-                m.reset_parameters(generator)
-
     def forward(self, tokens: torch.Tensor, *, cache: Optional[dict] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
         """tokens (B, T) -> (logits (B, T, V_pad), aux_loss, new_cache);
@@ -191,14 +180,16 @@ class Transformer(nn.Module):
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                 trainable: bool = False) -> Transformer:
-    """A ``Transformer`` with random weights drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``; on the ``meta``
-    device only the shapes exist.  Serving weights take no gradients;
+    """A ``Transformer`` with the JAX package's initialisation (embeddings
+    N(0, 1/d), projections N(0, 1/d_in), biases zero, norm scales one)
+    drawn by ``layers.init_weights_`` under ``seed``: a function of (cfg,
+    seed) alone, the same weights on every device.  On the ``meta`` device
+    only the shapes exist.  Serving weights take no gradients;
     ``trainable=True`` gives weights that do (``train.init_train_state``)."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     if dev.type != "meta":
-        model.reset_parameters(torch.Generator(device=dev).manual_seed(seed))
+        L.init_weights_(model, seed, {model.embed: cfg.d_model ** -0.5})
     return model.requires_grad_(trainable)
 
 

@@ -13,12 +13,14 @@ on the card equal to the CPU's), the swa_attention kernels against their plain v
 route each call takes (float32 on its TF32 tensor-core kernel, bfloat16
 on the wgmma kernel at dh 64-256 and on the CUDA cores at dh 16 / 32), the
 float32 kernel's error against a float64 evaluation (at most 10x the plain
-float32 version's own), their launch counters and input checks, the engines' per-trial samples and trajectories
-on the card against their own CPU runs, the grid engine's fused cells
+float32 version's own), their launch counters and input checks, sharded
+sweeps on the card repeated against one device, the engines' per-trial
+samples and trajectories on the card against their own CPU runs, the grid engine's fused cells
 against per-cell sweeps on the card bit for bit, a resumable sweep's
 extension against a fresh card sweep, a cached rounds function's second
 call, the live cluster's static and adaptive runs (the master on the card)
-against the CPU's on a shared trace, the LM's logits on the card against the CPU with the swa route's
+against the CPU's on a shared trace, ``init_params``' weights on the card
+against the CPU's (within 4 ulps: float32 erfinv), the LM's logits on the card against the CPU with the swa route's
 launch counts, and training: the swa kernels refuse a call autograd would
 record, a bfloat16 straggler-scheduled step on the card against the CPU
 (the round exact, loss rel 3e-2, weights within AdamW's reach), and the
@@ -45,7 +47,7 @@ from repro_torch.core import (DelayTrace, GridCell, GridSpec,
                               scenario1, staircase_to_matrix, stream_grid,
                               sweep, sweep_rounds, to_spec,
                               trajectory_samples)
-from repro_torch.core import montecarlo
+from repro_torch.core import montecarlo, rng
 from repro_torch.configs import get_config
 from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.data import TaskPartition, lm_task_batches
@@ -57,6 +59,9 @@ from repro_torch.optim import adamw
 from repro_torch.train import init_train_state, make_straggler_train_step
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 3e-2}
+#: float32 erfinv on the card and on the CPU part by at most this many
+#: units in the last place (the bound init_params' normals are held to)
+INIT_ERFINV_ULPS = 4
 
 
 @pytest.fixture
@@ -557,10 +562,11 @@ def test_cached_rounds_function_same_bits_on_card(cuda):
     proc = MarkovRegimeProcess(base=scenario1(), persistence=0.9)
     specs = (adaptive_spec("adapt", cyclic_to_matrix(n, r)),
              to_spec("cs", cyclic_to_matrix(n, r)))
-    args = (specs, proc, n, r, 9, 4, 0.7, 0.5, True, None, cuda, 2e-3,
+    args = (specs, proc, n, r, 9, 4, 0.7, 0.5, True, None, (cuda,), 2e-3,
             "reissue")
-    fn = montecarlo._get_rounds_exec(*args)
-    assert montecarlo._get_rounds_exec(*args) is fn
+    fns = montecarlo._get_rounds_exec(*args)
+    assert montecarlo._get_rounds_exec(*args) is fns
+    fn = fns[cuda]
     tids = torch.arange(500, device=cuda)
     ops.reset_launch_counts()
     a_times, a_aux = fn(3, tids)
@@ -744,6 +750,47 @@ def test_lm_on_card_matches_cpu_and_counts_launches(cuda):
     assert ops.LAUNCHES["swa_attention_f32"] == before_f32 + 12
 
 
+def test_sharded_sweep_forms_on_card(cuda):
+    """The int form of ``devices`` (the first N cards), a sequence naming
+    cuda:0 and the card repeated three times (7 chunks, padded to 9) give
+    one result bit for bit, statistics and per-trial samples."""
+    specs = [to_spec("cs", cyclic_to_matrix(8, 3)), lb_spec(3)]
+    kw = dict(trials=3300, chunk=500, seed=1)
+    a = sweep(specs, scenario1(), 8, devices=1, **kw)
+    for devs in (["cuda:0"], [torch.device("cuda", 0)] * 3):
+        b = sweep(specs, scenario1(), 8, devices=devs, **kw)
+        for name in a.means:
+            assert np.array_equal(a.means[name], b.means[name])
+            assert np.array_equal(a.stderr[name], b.stderr[name])
+    s1 = completion_samples(specs[0], scenario1(), 8, k=6, devices=1, **kw)
+    s3 = completion_samples(specs[0], scenario1(), 8, k=6,
+                            devices=["cuda:0"] * 3, **kw)
+    assert s3.device.type == "cuda" and torch.equal(s1, s3)
+
+
+def test_init_params_equal_on_card_and_cpu(cuda):
+    """``init_params`` of gemma3-4b's smoke config is a function of (cfg,
+    seed): the card's weights equal the CPU's.  The Philox words are the
+    same integers on both devices; the one transcendental, float32
+    ``erfinv``, may part in its last bits, so each element is held within
+    ``INIT_ERFINV_ULPS`` units in the last place of the CPU's value, and
+    biases and norm scales exactly."""
+    cfg = get_config("gemma3-4b").smoke()
+    tid = torch.tensor([0, 3, 2 ** 33])
+    assert torch.equal(rng.random_bits(7, tid.to(cuda), 0, 4096).cpu(),
+                       rng.random_bits(7, tid, 0, 4096))
+    a = init_params(cfg, seed=7, device=cuda)
+    b = init_params(cfg, seed=7, device="cpu")
+    inf = torch.tensor(float("inf"))
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        p = p.detach().cpu()
+        assert p.dtype == q.dtype and p.shape == q.shape, name
+        ulp = torch.nextafter(q.abs(), inf) - q.abs()
+        assert ((p - q).abs() <= INIT_ERFINV_ULPS * ulp).all(), name
+        if name.endswith("scale") or name.endswith(".b"):
+            assert torch.equal(p, q), name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_swa_kernels_refuse_calls_autograd_would_record(cuda, dtype):
     """The kernels write through raw pointers, so their output has no
@@ -805,7 +852,8 @@ def test_bf16_train_step_on_card_matches_cpu(cuda):
     start = [p.detach().float().clone() for p in first.params.parameters()]
     for dev in ("cpu", cuda):
         state = init_train_state(cfg, opt, seed=0, device=dev)
-        # the CPU's weights on both (a Generator draws others on the card)
+        # one start, bit for bit (float32 erfinv may part in the last bits
+        # between the devices, test_init_params_equal_on_card_and_cpu)
         state.params.load_state_dict(first.params.state_dict())
         step = make_straggler_train_step(cfg, opt, rc, TraceProcess(trace))
         cl, hist = None, []

@@ -216,8 +216,14 @@ def test_stream_grid_refusals():
         tg.stream_grid([cell], pipeline=0, devices=CPU)
     with pytest.raises(ValueError, match="at least one"):
         tg.stream_grid([], devices=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tg.stream_grid([cell], devices=["cpu", "cpu"])
+    with pytest.raises(ValueError, match="mix"):
+        tg.stream_grid([cell], devices=["cpu", "cuda"])
+    # two devices are no refusal: the same cell, bit for bit
+    two = tg.stream_grid([cell], devices=["cpu", "cpu"])
+    one = tg.stream_grid([cell], devices=CPU)
+    assert two.meta["devices"] == "cpu,cpu"
+    np.testing.assert_array_equal(two.cell("a")["means"]["x"],
+                                  one.cell("a")["means"]["x"])
 
 
 @pytest.mark.parametrize("pipeline", [1, 2, 5])
@@ -401,10 +407,11 @@ def test_cached_rounds_function_carries_no_state():
     specs = (tm.adaptive_spec("adapt", js.cyclic_to_matrix(n, r)),
              tm.to_spec("cs", js.cyclic_to_matrix(n, r)))
     args = (specs, proc, n, r, 4, 3, 0.7, 0.5, True, None,
-            torch.device("cpu"), 3e-3, "reissue")
+            (torch.device("cpu"),), 3e-3, "reissue")
     before = tm.cache_stats()["rounds"]
-    fn = tm._get_rounds_exec(*args)
-    assert tm._get_rounds_exec(*args) is fn
+    fns = tm._get_rounds_exec(*args)
+    assert tm._get_rounds_exec(*args) is fns
+    fn = fns[torch.device("cpu")]
     assert tm.cache_stats()["rounds"]["hits"] - before["hits"] == 1
     tids = torch.arange(50)
     a_times, a_aux = fn(5, tids)
@@ -470,9 +477,13 @@ def test_grid_cli_spec_file_pipeline_alias_and_devices(tmp_path):
     res = tg.GridResult.load(out)
     assert res.meta["spec"] == gs.to_json()
     assert list(res.cells) == ["ss/r2"] and res.meta["window"] == 4
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        grid_cli.main(["--spec", spec_path, "--out", out, "--device", "cpu",
-                       "--devices", "2"])
+    out2 = str(tmp_path / "res2.json")
+    assert grid_cli.main(["--spec", spec_path, "--out", out2, "--device",
+                          "cpu", "--devices", "2"]) == 0
+    res2 = tg.GridResult.load(out2)
+    assert res2.meta["devices"] == "cpu,cpu"
+    np.testing.assert_array_equal(res2.means("ss/r2", "ss"),
+                                  res.means("ss/r2", "ss"))
 
 
 def test_grid_cli_runs_on_the_card_unless_asked(tmp_path):

@@ -24,6 +24,7 @@ from repro.models import layers as JL
 from repro.models import model as jmodel
 from repro_torch import convert
 from repro_torch import configs as tconfigs
+from repro_torch.core import rng
 from repro_torch.models import config as tcfgmod
 from repro_torch.models import layers as TL
 from repro_torch.models import model as tmodel
@@ -345,3 +346,86 @@ def test_variants_outside_the_slice_raise(change):
                               **change)
     with pytest.raises(NotImplementedError):
         tmodel.init_params(cfg, device="meta")
+
+
+#: sampling standard errors within which a leaf's std matches the
+#: reference's
+INIT_STD_Z = 5.0
+
+
+def _assert_init_like_the_reference(cfg, model):
+    """Every parameter of the port's ``init_params`` model against the
+    matching leaf of the reference's ``init_params`` on the same config
+    (carried over by ``convert.lm_params``): the same constant leaves (all
+    zeros, all ones) exactly, and for a drawn leaf of N elements the same
+    std within ``INIT_STD_Z`` standard errors of the difference of two
+    sample stds of N normals (sigma / sqrt(N)), and a mean within
+    ``INIT_STD_Z`` sigma / sqrt(N / 2)."""
+    jcfg = jcfgmod.ModelConfig(**dataclasses.asdict(cfg))
+    ref = convert.lm_params(jax.tree_util.tree_map(
+        np.asarray, j_init_params(jax.random.PRNGKey(11), jcfg)), cfg)
+    got = dict(model.named_parameters())
+    assert got.keys() == ref.keys()
+    for name, p in got.items():
+        p, q = p.detach().double().flatten(), ref[name].double().flatten()
+        assert p.shape == q.shape, name
+        for const in (0.0, 1.0):
+            assert bool((p == const).all()) == bool((q == const).all()), name
+        if bool((q == q[0]).all()):
+            assert torch.equal(p, q), name
+            continue
+        sigma, m = q.std().item(), p.numel()
+        assert abs(p.std().item() - sigma) <= INIT_STD_Z * sigma / m ** 0.5, \
+            (name, p.std().item(), sigma)
+        assert abs(p.mean().item() - q.mean().item()) <= \
+            INIT_STD_Z * sigma * (2 / m) ** 0.5, name
+
+
+def test_init_params_scales_match_the_reference_gemma3_smoke():
+    """gemma3-4b's smoke width at two layers (qk norms, a sliding-window
+    and a global layer, tied embeddings as the config has them): each
+    leaf's scale and constants as the reference draws them."""
+    cfg = dataclasses.replace(tconfigs.get_config("gemma3-4b").smoke(),
+                              n_layers=2)
+    _assert_init_like_the_reference(
+        cfg, tmodel.init_params(cfg, seed=3, device="cpu"))
+
+
+def test_init_params_is_a_function_of_cfg_and_seed(monkeypatch):
+    """``init_params`` draws parameter i of ``named_parameters()`` from
+    Philox keyed by (seed, i) (``core/rng.py``, the same integers on every
+    device), slab by slab with the same bits for any slab size: the same
+    weights whatever was drawn before and whatever torch's global
+    generator holds, other weights under another seed, the reference's
+    scales and constants (embeddings N(0, 1/d), projections N(0, 1/d_in),
+    biases zero, norm scales one), held to the reference's own draw;
+    ``gqa_init`` under a seed draws the same way."""
+    cfg = _mk("init", qkv_bias=True)
+    a = tmodel.init_params(cfg, seed=5, device="cpu")
+    tmodel.init_params(cfg, seed=9, device="cpu")
+    torch.manual_seed(123)
+    torch.randn(7)
+    b = tmodel.init_params(cfg, seed=5, device="cpu")
+    c = tmodel.init_params(cfg, seed=6, device="cpu")
+    d = cfg.d_model
+    for (name, p), q, r in zip(a.named_parameters(), b.parameters(),
+                               c.parameters()):
+        assert torch.equal(p, q), name
+        if name.endswith(".b"):
+            assert not p.any(), name
+        elif name.endswith("scale"):
+            assert bool((p == 1).all()), name
+        else:
+            assert not torch.equal(p, r), name
+    _assert_init_like_the_reference(cfg, a)
+    z = rng.normal(5, torch.tensor([0]), TL.INIT_STREAM,
+                   (a.embed.numel(),))[0]
+    assert torch.equal(a.embed.flatten(), (z * d ** -0.5).to(a.embed.dtype))
+    monkeypatch.setattr(TL, "INIT_SLAB", 1 << 10)
+    for p, q in zip(a.parameters(),
+                    tmodel.init_params(cfg, seed=5, device="cpu").parameters()):
+        assert torch.equal(p, q)
+    attn = TL.gqa_init(cfg, seed=5, device="cpu")
+    again = TL.gqa_init(cfg, seed=5, device="cpu")
+    for (name, p), q in zip(attn.named_parameters(), again.parameters()):
+        assert torch.equal(p, q), name

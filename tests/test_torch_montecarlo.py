@@ -202,7 +202,7 @@ def test_sample_shapes_and_ragged_tau():
     (lambda M, m: M.sweep([M.pc_spec(2)], m, N, trials=5, ks=N + 1,
                           devices="cpu"), ValueError),
     (lambda M, m: M.sweep([M.lb_spec(2)], m, N, trials=5,
-                          devices=["cpu", "cpu"]), NotImplementedError),
+                          devices=0), ValueError),
 ])
 def test_sweep_validation(bad, err):
     with pytest.raises(err):

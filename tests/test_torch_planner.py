@@ -116,9 +116,13 @@ def test_extension_must_grow_and_other_refusals():
         rs.samples()
     with pytest.raises(ValueError, match="chunk must be"):
         tm.resumable_sweep(_specs(False), MODEL, N, chunk=0, devices=CPU)
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        tm.resumable_sweep(_specs(False), MODEL, N, chunk=8,
-                           devices=["cpu", "cpu"])
+    # two devices: the same extensions, bit for bit
+    rs2 = tm.resumable_sweep(_specs(False), MODEL, N, chunk=8,
+                             devices=["cpu", "cpu"])
+    rs1 = tm.resumable_sweep(_specs(False), MODEL, N, chunk=8, devices=CPU)
+    for total in (24, 64):
+        _assert_same_result(rs2.extend_trials(total),
+                            rs1.extend_trials(total))
 
 
 def test_narrow_keeps_the_survivors_bitwise():
@@ -433,9 +437,18 @@ def test_plan_cli_writes_what_the_reference_reads(tmp_path, capsys):
     assert loaded.to_json() == port.config.to_json()
     assert RoundConfig.load(cfg) == port.config
     assert cfg.read_text() == port.config.to_json() + "\n"
-    with pytest.raises(SystemExit, match="queue 1 item 5"):
-        plan_cli.main(["--n", "4", "--devices", "4", "--device", "cpu",
-                       "--out", str(out)])
+    # --devices 4 on the CPU: four blocks, the same race and winner
+    out4 = tmp_path / "plan4.json"
+    assert plan_cli.main([
+        "--n", str(N), "--families", "cs", "ss", "lb", "pc",
+        "--loads", "2", "4", "8", "--trials", "1024",
+        "--base-trials", "256", "--k", str(N), "--device", "cpu",
+        "--devices", "4", "--out", str(out4)]) == 0
+    port4 = tp.PlanResult.load(str(out4))
+    assert port4.meta["devices"] == "cpu,cpu,cpu,cpu"
+    assert port4.winner == port.winner and port4.savings == port.savings
+    assert port4.predicted_mean == port.predicted_mean
+    assert port4.points == port.points
 
 
 @pytest.mark.parametrize("kind,r,messages,eps", [("cs", 4, None, 0.0),

@@ -124,7 +124,7 @@ def test_resume_equals_a_straight_run(capsys, tmp_path):
 
 
 def test_mesh_other_than_local_is_refused(capsys):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 5"):
+    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 8"):
         _run(["--mesh", "pod"], capsys)
 
 
