@@ -58,7 +58,15 @@ run's recorded delays (bit-equal rounds; the log equal to the engine's
 trial-0 tables), 10 steps under the reissue deadline policy (need rows on
 the launches after rounds that left a task undelivered), and at the smoke
 config the card against the CPU, each from ``init_params`` under one seed
-on its own device, and a resume against a straight run.
+on its own device, and a resume against a straight run.  Then the
+families phase: whisper-base (6 + 6 layers, eight requests over the full
+1 500 encoder frames) and rwkv6-1.6b (24 layers, two 2048-token prompts)
+served at full size through ``repro_torch.launch.serve``, each decode held
+to the full forward in bfloat16 and the smoke configs on the card to the
+CPU (rwkv6's recurrent state too), whisper-base trained 10 steps through
+``make_straggler_train_step`` with its encoder frames as ``extras`` and
+rwkv6-1.6b 10 steps through the trainer CLI (the loss falls; one
+greedy_assign launch a step; no swa_attention launch in either family).
 
 Run from the repository root on a machine with a card:
 
@@ -100,7 +108,7 @@ from repro_torch.core import (DelayTrace, GridCell,  # noqa: E402
                               resumable_sweep, scenario1, staircase_to_matrix,
                               stream_grid, sweep, sweep_rounds,
                               theorem1_mean_mc, to_spec, trajectory_samples)
-from repro_torch.core import montecarlo  # noqa: E402
+from repro_torch.core import AdaptiveScheduler, montecarlo  # noqa: E402
 from repro_torch.core.scheduling import _greedy_matrices  # noqa: E402
 from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
@@ -110,6 +118,9 @@ from repro_torch.launch import serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.cluster import build_cluster  # noqa: E402
 from repro_torch.live import run_live, sample_delay_tables  # noqa: E402
+from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
+from repro_torch.train import (init_train_state,  # noqa: E402
+                               make_serve_step, make_straggler_train_step)
 from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
                                 layer_specs)
 
@@ -2319,6 +2330,324 @@ def train_phase():
             "card_vs_cpu": d, "seconds": secs}
 
 
+#: the encoder-decoder and the recurrent family at full size:
+#: whisper-base transcribing eight 30-second windows at once (the full
+#: 1 500 encoder frames each), rwkv6-1.6b at gemma3-4b's serve shape
+FAMILY_SERVE = {"whisper-base": dict(batch=8, prompt_len=4, gen=128),
+                "rwkv6-1.6b": dict(batch=2, prompt_len=2048, gen=32)}
+#: (decoder layers, encoder layers, parameters) at full size
+FAMILY_SIZE = {"whisper-base": (6, 6, 114_358_784),
+               "rwkv6-1.6b": (24, 0, 1_835_550_720)}
+#: decode against the full forward on the card in bfloat16: max abs logit
+#: difference over the max abs logit, at the bfloat16 tolerance of the swa
+#: and training checks; card against CPU at the smoke configs in float32
+#: at the gemma check's rel 1e-4
+FAMILY_BF16_REL = 3e-2
+FAMILY_F32_REL = 1e-4
+FAMILY_TRAIN_STEPS = 10
+#: rwkv6-1.6b through the trainer CLI with train leg A's round, optimiser
+#: and data (16 x 64 tokens a slot) at ten times its peak learning rate:
+#: at 3e-4 the loss on each step's fresh batch does not fall in 10 or 20
+#: steps (PERF.md section 6).  At init the gradient's global norm is in
+#: the thousands (the embedding and the first block), so the clip to 1.0
+#: puts 99 % of the LM head's clipped gradient below AdamW's eps: only the
+#: rows of the batch's own tokens move (benchmarks_torch/lm_grad_scale.py)
+RWKV_TRAIN_ARGV = ["--arch", "rwkv6-1.6b", "--steps", str(FAMILY_TRAIN_STEPS)
+                   ] + TRAIN_ARGV[4:] + ["--lr", "3e-3"]
+
+
+def _swa_launches(launches):
+    return sum(v for k, v in launches.items() if k.startswith("swa"))
+
+
+@torch.inference_mode()
+def decode_profile(cfg, batch, steps=8):
+    """Kernel launches and busy share of a decode step of ``cfg``: a
+    16-token prefill (with encoder frames where the model has an encoder),
+    one warm step, then ``steps`` greedy steps under the profiler."""
+    model = init_params(cfg, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch, 16), generator=gen,
+                         device=DEV)
+    frames = (torch.randn((batch, cfg.encoder_seq, cfg.frontend_dim),
+                          generator=gen, device=DEV)
+              if cfg.encoder_layers else None)
+    cache = init_cache(cfg, batch, 16 + steps + 8, device=DEV)
+    logits, _, cache = forward(model, cfg, toks, cache=cache,
+                               enc_frames=frames)
+    nxt = logits[:, -1:].argmax(-1)
+    step = make_serve_step(cfg)
+    nxt, cache, _ = step(model, cache, nxt)
+
+    def run():
+        nonlocal nxt, cache
+        for _ in range(steps):
+            nxt, cache, _ = step(model, cache, nxt)
+
+    wall, dev_s, count = profiled(run)
+    return (None if count is None else count / steps,
+            None if dev_s is None else dev_s / wall)
+
+
+def family_serve(arch):
+    """``arch`` at full size, bf16, random weights from seed 0 on the card,
+    through the serve CLI: a warm-up run (one decode step), then the
+    measured run with the launch counts set to 0 just before it; then the
+    kernel launches and busy share of a decode step under the profiler
+    (``decode_profile``).  Every logit finite, tokens in range, no
+    swa_attention launch."""
+    cfg = get_config(arch)
+    n_params = sum(p.numel() for p in init_params(cfg, device="meta")
+                   .parameters())
+    check((cfg.n_layers, cfg.encoder_layers, n_params) == FAMILY_SIZE[arch]
+          and cfg.param_dtype == "bfloat16",
+          f"{arch} config: {cfg.n_layers} + {cfg.encoder_layers} layers, "
+          f"{n_params} parameters")
+    B, P, G = (FAMILY_SERVE[arch][k] for k in ("batch", "prompt_len", "gen"))
+    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
+            "--seed", "0", "--device", str(DEV)]
+    _free_cuda()
+    ops.reset_launch_counts()
+    serve.main(argv + ["--gen", "2"])                          # warm-up
+    warm = dict(ops.LAUNCHES)
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = serve.main(argv + ["--gen", str(G)])
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check(res.finite, f"serve {arch}: non-finite logits")
+    check(tuple(res.tokens.shape) == (B, G)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"serve {arch}: tokens {tuple(res.tokens.shape)} out of range")
+    check(_swa_launches(launches) == 0 and _swa_launches(warm) == 0,
+          f"serve {arch}: swa_attention launched {launches} {warm}")
+    dec_launches, busy = decode_profile(cfg, B)
+    out = {"batch": B, "prompt_len": P, "gen": G,
+           "encoder_frames": cfg.encoder_seq if cfg.encoder_layers else 0,
+           "prefill_ms": res.prefill_s * 1e3,
+           "prefill_tok_per_s": B * P / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / (G - 1),
+           "decode_tok_per_s": B * (G - 1) / res.decode_s,
+           "peak_mem_bytes": peak, "mem_before_bytes": base,
+           "decode_launches_per_step": dec_launches,
+           "decode_busy_share_profiled": busy,
+           "swa_launches": _swa_launches(launches)}
+    print(f"serve {arch} {cfg.n_layers}+{cfg.encoder_layers} layers bf16 "
+          f"batch={B} prompt={P} gen={G}"
+          f"{f' frames={cfg.encoder_seq}' if cfg.encoder_layers else ''}: "
+          f"prefill {out['prefill_ms']:.3f} ms "
+          f"({out['prefill_tok_per_s']:.1f} tok/s), decode "
+          f"{out['decode_ms_per_step']:.4f} ms/step "
+          f"({out['decode_tok_per_s']:.1f} tok/s), peak memory {peak} bytes "
+          f"({base} allocated before the run); kernel launches a decode "
+          f"step {dec_launches} at a busy share of {busy} (profiled); "
+          f"swa_attention launches 0")
+    return out
+
+
+@torch.inference_mode()
+def family_consistency(arch):
+    """(1) ``arch`` at full width and depth in bfloat16 on the card: the
+    full forward against a 16-token prefill plus 8 decode steps at the same
+    positions (counts set to 0 just before, read after: no swa_attention
+    launch).  (2) its smoke config in float32, the card against the same
+    weights on the CPU: forward, prefill plus decode, and rwkv6's state
+    ``S`` after the last step."""
+    cfg = get_config(arch)
+    V = cfg.vocab_size
+    model = init_params(cfg, seed=1, device=DEV)
+    B, P, steps = 2, 16, 8
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, V, (B, P + steps), generator=gen, device=DEV)
+    frames = (torch.randn((B, cfg.encoder_seq, cfg.frontend_dim),
+                          generator=gen, device=DEV)
+              if cfg.encoder_layers else None)
+    ops.reset_launch_counts()
+    full = forward(model, cfg, toks, enc_frames=frames)[0][:, P:, :V].float()
+    cache = init_cache(cfg, B, P + steps + 8, device=DEV)
+    _, _, cache = forward(model, cfg, toks[:, :P], cache=cache,
+                          enc_frames=frames)
+    worst = 0.0
+    for t in range(steps):
+        lg, _, cache = forward(model, cfg, toks[:, P + t:P + t + 1],
+                               cache=cache)
+        worst = max(worst, (lg[:, 0, :V].float() - full[:, t]).abs()
+                    .max().item())
+    launches = dict(ops.LAUNCHES)
+    rel_dec = worst / full.abs().max().item()
+    check(np.isfinite(rel_dec) and rel_dec <= FAMILY_BF16_REL
+          and _swa_launches(launches) == 0,
+          f"{arch} bf16 decode vs full rel {rel_dec:.3e} (bound "
+          f"{FAMILY_BF16_REL}), swa launches {launches}")
+    del model, full, cache
+    _free_cuda()
+
+    small = get_config(arch).smoke()
+    cpu_model = init_params(small, seed=2, device="cpu")
+    gpu_model = init_params(small, seed=2, device="cpu").to(DEV)
+    rng_ = np.random.default_rng(2)
+    toks = torch.as_tensor(rng_.integers(0, small.vocab_size, (2, 24)))
+    fr = (torch.as_tensor(rng_.standard_normal(
+        (2, small.encoder_seq, small.frontend_dim), dtype=np.float32))
+        if small.encoder_layers else None)
+
+    def both(tk, cache_a=None, cache_b=None, frames=None):
+        a = forward(gpu_model, small, tk.to(DEV), cache=cache_a,
+                    enc_frames=None if frames is None else frames.to(DEV))
+        b = forward(cpu_model, small, tk, cache=cache_b, enc_frames=frames)
+        rel = ((a[0].cpu() - b[0]).abs().max() / b[0].abs().max()).item()
+        return rel, a[2], b[2]
+
+    rel_full, _, _ = both(toks, frames=fr)
+    ca = init_cache(small, 2, 32, device=DEV)
+    cb = init_cache(small, 2, 32, device="cpu")
+    rel_step, ca, cb = both(toks[:, :16], ca, cb, frames=fr)
+    for t in range(16, 24):
+        r, ca, cb = both(toks[:, t:t + 1], ca, cb)
+        rel_step = max(rel_step, r)
+    rel_S = max((((a["ssm"]["S"].cpu() - b["ssm"]["S"]).abs().max()
+                  / b["ssm"]["S"].abs().max()).item()
+                 for a, b in zip(ca["layers"], cb["layers"])
+                 if "ssm" in a), default=None)
+    check(rel_full < FAMILY_F32_REL and rel_step < FAMILY_F32_REL
+          and (rel_S is None or rel_S < FAMILY_F32_REL),
+          f"{small.name} card vs CPU rel {rel_full:.2e} (full), "
+          f"{rel_step:.2e} (prefill + decode), S {rel_S}")
+    print(f"consistency {arch} full size bf16: prefill {P} + {steps} decode "
+          f"steps vs the full forward rel {rel_dec:.3e} (bound "
+          f"{FAMILY_BF16_REL}); {small.name} f32 card vs CPU rel "
+          f"{rel_full:.3e} (full), {rel_step:.3e} (prefill 16 + 8 decode "
+          f"steps), S {rel_S}; swa_attention launches 0")
+    return {"decode_vs_full_bf16_rel": rel_dec, "card_vs_cpu_full": rel_full,
+            "card_vs_cpu_decode": rel_step, "card_vs_cpu_S": rel_S,
+            "swa_launches": _swa_launches(launches)}
+
+
+def _train_summary(arch, lr, losses, secs, greedy, launches, peak, base,
+                   params):
+    check(len(losses) == FAMILY_TRAIN_STEPS and all(np.isfinite(losses)),
+          f"train {arch}: losses {losses}")
+    check(losses[-1] < losses[0],
+          f"train {arch}: loss {losses[0]:.4f} -> {losses[-1]:.4f} did not "
+          f"fall")
+    check(greedy == [1] * FAMILY_TRAIN_STEPS,
+          f"train {arch}: greedy_assign launches a step {greedy}")
+    check(_swa_launches(launches) == 0,
+          f"train {arch}: swa_attention launched {launches}")
+    steady = secs[1:]
+    out = {"steps": FAMILY_TRAIN_STEPS, "params": params, "peak_lr": lr,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "step_s_first": secs[0],
+           "step_s_mean": float(np.mean(steady)),
+           "step_s_median": float(np.median(steady)),
+           "tok_per_s": 2 * 16 * 64 / float(np.mean(steady)),
+           "peak_mem_bytes": peak, "mem_before_bytes": base,
+           "greedy_launches": launches["greedy_assign"],
+           "swa_launches": _swa_launches(launches)}
+    print(f"train {arch} {params} params bf16, {FAMILY_TRAIN_STEPS} steps "
+          f"n=8 r=2 k=6 ss+adaptive markov, 16 x 64 tokens a slot, AdamW "
+          f"peak lr {lr:g}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f}; {out['step_s_mean']:.4f} "
+          f"s/step after step 0 (median {out['step_s_median']:.4f}, step 0 "
+          f"{secs[0]:.3f}), {out['tok_per_s']:.1f} tok/s, peak memory "
+          f"{peak} bytes ({base} before); greedy_assign launches "
+          f"{launches['greedy_assign']} (one a step), swa_attention 0")
+    return out
+
+
+def train_whisper():
+    """whisper-base at full size through ``make_straggler_train_step`` with
+    ``extras={"enc_frames": ...}``: AdamW (cosine, lr 3e-4, warm-up 5),
+    ``RoundConfig(n=8, k=6, kind="ss", r=2)`` on leg A's cluster with
+    adaptive rows, 2 bigram sequences of 64 tokens a worker and slot, each
+    task with its own 1 500 frames (drawn once, gathered by the round's
+    matrix as its tokens are).  Counts set to 0 just before, read after."""
+    cfg = get_config("whisper-base")
+    steps = FAMILY_TRAIN_STEPS
+    rc = RoundConfig(n=8, k=6, kind="ss", r=2)
+    opt = adamw(cosine_schedule(3e-4, steps, warmup=5))
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    state = init_train_state(cfg, opt, seed=0, device=DEV)
+    step = make_straggler_train_step(
+        cfg, opt, rc, ec2_cluster(8, spread=3.0, persistence=0.95, seed=0))
+    base_C = rc.to_matrix()
+    sched = AdaptiveScheduler(base_C, device=DEV)
+    part = TaskPartition(n=8, global_batch=16, seq_len=64,
+                         vocab=cfg.vocab_size, source="bigram", seed=0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    frames = torch.randn((int(base_C.max()) + 1, part.task_batch,
+                          cfg.encoder_seq, cfg.frontend_dim), generator=gen,
+                         device=DEV).to(torch.bfloat16)
+    cluster, losses, secs, greedy = None, [], [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        before = ops.LAUNCHES["greedy_assign"]
+        C = sched.matrix()
+        row = sched.row_of_worker()
+        toks, labs = lm_task_batches(part, C, i, device=DEV)
+        fr = frames[torch.as_tensor(C.T, device=DEV)]   # (r, n, b, T, D)
+        state, m, cluster = step(state, toks, labs, 7, cluster, row,
+                                 extras={"enc_frames": fr})
+        sched.observe(m["worker_t1"].cpu().numpy())
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        greedy.append(ops.LAUNCHES["greedy_assign"] - before)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in state.params.parameters())
+    del state, frames
+    return _train_summary("whisper-base", 3e-4, losses, secs, greedy,
+                          launches, peak, base, n_params)
+
+
+def train_rwkv6():
+    """rwkv6-1.6b at full size through the trainer CLI with leg A's round,
+    optimiser and data, 10 steps at a peak learning rate of 3e-3
+    (``RWKV_TRAIN_ARGV``).  Counts set to 0 just before, read after."""
+    _free_cuda()
+    base = torch.cuda.memory_allocated()
+    ops.reset_launch_counts()
+    res = train_cli.main(RWKV_TRAIN_ARGV + ["--device", str(DEV)])
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    n_params = sum(p.numel() for p in res.state.params.parameters())
+    check(res.state.params.cfg == get_config("rwkv6-1.6b")
+          and n_params == FAMILY_SIZE["rwkv6-1.6b"][2],
+          f"train rwkv6: {res.state.params.cfg.name} {n_params} params")
+    losses = [h["loss"] for h in res.history]
+    greedy = _launches_per_step(res, "greedy_assign")
+    secs = res.step_seconds
+    del res
+    return _train_summary("rwkv6-1.6b", 3e-3, losses, secs, greedy,
+                          launches, peak, base, n_params)
+
+
+def families_phase():
+    """whisper-base and rwkv6-1.6b at full size on the card, after the
+    train phase has freed gemma3-4b: serving, consistency (decode against
+    the full forward, the card against the CPU) and training."""
+    t_phase = time.perf_counter()
+    legs = [(arch, "serve", lambda arch=arch: family_serve(arch))
+            for arch in FAMILY_SERVE]
+    legs += [(arch, "consistency", lambda arch=arch: family_consistency(arch))
+             for arch in FAMILY_SERVE]
+    legs += [("whisper-base", "train", train_whisper),
+             ("rwkv6-1.6b", "train", train_rwkv6)]
+    out = {arch: {} for arch in FAMILY_SERVE}
+    for arch, leg, fn in legs:
+        res, secs = _timed(fn)
+        out[arch][leg] = {**res, "seconds": secs}
+        print(f"families {arch} {leg}: {secs:.2f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"families phase wall seconds={out['seconds']:.4f}")
+    return out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2355,6 +2684,7 @@ def main():
     gate = gate_phase()
     shard = shard_phase(card)
     train = train_phase()
+    families = families_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -2422,6 +2752,10 @@ def main():
             "live_adaptive": live["adaptive"]["greedy_launches"],
             "live_wide": live["wide"]["greedy_launches"],
             "train": train["full"]["greedy_launches"],
+            "train_whisper": families["whisper-base"]["train"][
+                "greedy_launches"],
+            "train_rwkv6": families["rwkv6-1.6b"]["train"][
+                "greedy_launches"],
             "shard_fig8": shard["fig8"]["greedy_launches"],
             "gate_fig8": gate["greedy_launches"],
             "train_reissue": train["reissue"]["greedy_launches"]},
@@ -2501,7 +2835,8 @@ def main():
         "faults": faults,
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency, "grid": grid, "live": live,
-        "gate": gate, "shard": shard, "train": train}))
+        "gate": gate, "shard": shard, "train": train,
+        "families": families}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -163,14 +163,18 @@ def _unstack(params: dict, cfg: ModelConfig) -> dict:
     """The JAX LM parameter tree as {port name: numpy array}: each
     segment's (reps, ...) leaves are unstacked into one block per layer,
     in ``layer_specs`` order (rep-major, then the position in the period),
-    for the periodic and the run-length plan alike."""
-    extra = set(params) - {"embed", "final_norm", "lm_head", "segments"}
+    for the periodic and the run-length plan alike; the encoder's stacked
+    (encoder_layers, ...) blocks (a 1-tuple) into ``encoder.blocks.<l>``."""
+    extra = set(params) - {"embed", "final_norm", "lm_head", "segments",
+                           "pos_embed", "frontend_proj", "encoder"}
     if extra:
         raise NotImplementedError(
-            f"parameters {sorted(extra)} belong to encoders or frontends, "
-            f"which the port does not run yet (ROADMAP.md)")
+            f"parameters {sorted(extra)} belong to layers the port does not "
+            f"run yet (ROADMAP.md)")
     out = {"embed": np.asarray(params["embed"])}
-    for top in ("final_norm", "lm_head"):
+    if "pos_embed" in params:
+        out["pos_embed"] = np.asarray(params["pos_embed"])
+    for top in ("final_norm", "lm_head", "frontend_proj"):
         if top in params:
             out.update((n, np.asarray(a)) for n, a in _flatten(
                 params[top], top + "."))
@@ -182,6 +186,14 @@ def _unstack(params: dict, cfg: ModelConfig) -> dict:
                 for name, leaf in _flatten(stacked[j], f"blocks.{layer}."):
                     out[name] = np.asarray(leaf)[rep]
                 layer += 1
+    if "encoder" in params:
+        enc = params["encoder"]
+        (stacked,) = enc["blocks"]
+        for layer in range(cfg.encoder_layers):
+            for name, leaf in _flatten(stacked, f"encoder.blocks.{layer}."):
+                out[name] = np.asarray(leaf)[layer]
+        out.update((n, np.asarray(a)) for n, a in _flatten(
+            enc["final_norm"], "encoder.final_norm."))
     return out
 
 

@@ -2,7 +2,8 @@
 (counterpart of ``repro.launch.serve``).  Prefill goes through
 ``forward(..., cache=...)``, then ``gen - 1`` greedy decode steps; prints
 the prefill and decode times.  Weights are random, drawn on the device from
-``--seed``.  Runs on the CUDA card unless given ``--device cpu``:
+``--seed``; an encoder-decoder (whisper) also draws its encoder frames
+(B, encoder_seq, frontend_dim) from it, for the prefill only.  Runs on the CUDA card unless given ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
       --batch 2 --prompt-len 2048 --gen 32
@@ -44,8 +45,9 @@ def _sync(dev: torch.device) -> None:
 @torch.inference_mode()
 def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         seed: int = 0, device=None) -> ServeResult:
-    """Prefill a random prompt of ``prompt_len`` tokens per request, then
-    decode greedily to ``gen`` tokens.  Times end in a device
+    """Prefill a random prompt of ``prompt_len`` tokens per request (with
+    random encoder frames where the model has an encoder), then decode
+    greedily to ``gen`` tokens.  Times end in a device
     synchronisation; the prefill time stops before the finiteness check,
     and each decode step adds one min/max reduction of its logits.  On a
     card, raises if the weights alone exceed its memory."""
@@ -65,9 +67,13 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     gen_ = torch.Generator(device=dev).manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                            generator=gen_, device=dev)
+    frames = (torch.randn((batch, cfg.encoder_seq, cfg.frontend_dim),
+                          generator=gen_, device=dev)
+              if cfg.encoder_layers else None)
     _sync(dev)
     t0 = time.perf_counter()
-    logits, _, cache = forward(model, cfg, prompt, cache=cache)
+    logits, _, cache = forward(model, cfg, prompt, cache=cache,
+                               enc_frames=frames)
     nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)
     _sync(dev)
     prefill_s = time.perf_counter() - t0

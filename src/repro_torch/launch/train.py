@@ -200,6 +200,11 @@ def main(argv=None) -> TrainResult:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
+    if cfg.frontend_seq or cfg.encoder_layers:
+        # the reference's refusal (repro/launch/train.py:198-200)
+        raise SystemExit("use text archs for this launcher; whisper "
+                         "training goes through train.make_straggler_"
+                         "train_step with extras={'enc_frames': ...}")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         need = state_bytes(cfg)

@@ -1,9 +1,9 @@
 """The LM stack of the port (counterpart of ``repro.models``): the shared
-``ModelConfig``, the dense layers and the ``Transformer``."""
+``ModelConfig``, the layers and the ``Transformer``."""
 from .config import LayerSpec, ModelConfig, find_period, layer_specs
-from .model import (Segment, Transformer, block_apply, forward, init_cache,
-                    init_params, num_params, plan_segments)
+from .model import (Segment, Transformer, block_apply, encode, forward,
+                    init_cache, init_params, num_params, plan_segments)
 
 __all__ = ["LayerSpec", "ModelConfig", "find_period", "layer_specs",
-           "Segment", "Transformer", "block_apply", "forward", "init_cache",
-           "init_params", "num_params", "plan_segments"]
+           "Segment", "Transformer", "block_apply", "encode", "forward",
+           "init_cache", "init_params", "num_params", "plan_segments"]

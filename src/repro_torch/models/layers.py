@@ -1,7 +1,9 @@
-"""Dense layers of the port's LM stack (counterpart of the dense subset of
-``repro.models.layers``): projections, RMS norm, rotary embeddings, the
-attention core, grouped-query attention with its KV cache (full or ring
-buffer) and the SwiGLU feed-forward.
+"""Layers of the port's LM stack (counterpart of ``repro.models.layers``
+for the dense, audio and RWKV families): projections, RMS and layer norm,
+rotary embeddings, the attention core, grouped-query attention with its KV
+cache (full or ring buffer) and cross-attention, the SwiGLU and GELU
+feed-forwards, and the RWKV-6 time-mix and channel-mix with their token
+shift and recurrent state.
 
 Weights keep the JAX layout (a ``dense`` weight is ``(d_in, d_out)`` and is
 used as ``x @ w``) and the JAX names, so ``repro_torch.convert.lm_params``
@@ -9,7 +11,9 @@ is a copy.  The attention of a sliding-window (``swa``) layer over a chunk
 of fresh tokens, with no cache or into an empty ring, is the
 ``swa_attention`` kernel (``kernels/ops.py``) when no gradient is
 recorded; the other attention paths, and that one under autograd, are
-torch ops, as the JAX package computes them in jnp.  KV caches are
+torch ops, as the JAX package computes them in jnp.  The RWKV-6
+recurrence is a step loop in torch ops, as the JAX package's is a
+``lax.scan`` (no Pallas kernel).  KV caches are
 updated in place (the JAX package returns new arrays); ``pos`` is a host
 integer.
 
@@ -32,9 +36,12 @@ from ..core import rng
 from ..kernels import ops
 from .config import ModelConfig
 
-__all__ = ["dense", "rms_norm", "rope_freqs", "apply_rope", "attention_core",
-           "repeat_kv", "gqa_init", "gqa_apply", "gqa_cache_init", "swiglu",
-           "Dense", "RMSNorm", "Attention", "SwiGLU", "init_weights_"]
+__all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
+           "attention_core", "repeat_kv", "gqa_init", "gqa_apply",
+           "gqa_cache_init", "swiglu", "gelu_mlp", "token_shift",
+           "cmix_apply", "wkv6", "rwkv6_apply", "rwkv6_state_init",
+           "Dense", "RMSNorm", "LayerNorm", "make_norm", "Attention",
+           "SwiGLU", "GeluMLP", "CMix", "RWKV6", "init_weights_"]
 
 #: the Philox stream of the initial weights, one that no other draw of the
 #: port uses (the delay models take 0-4, the processes 5-8, the fault layers
@@ -59,6 +66,17 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     xf = x.float()
     var = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """Layer norm over the last axis, computed in float32 as the JAX
+    package writes it (the mean of squared deviations), then cast back."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
 # --------------------------------------------------------------------------
@@ -204,6 +222,31 @@ class RMSNorm(nn.Module):
         return rms_norm(x, self.scale, self.eps)
 
 
+class LayerNorm(nn.Module):
+    """Layer norm with a learned ``scale`` (one) and ``bias`` (zero) of
+    ``shape``, in float32."""
+
+    def __init__(self, shape, eps: float, *, dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.empty(shape, dtype=dtype,
+                                              device=device))
+        self.bias = nn.Parameter(torch.empty(shape, dtype=dtype,
+                                             device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self.scale, self.bias, self.eps)
+
+
+def make_norm(cfg: ModelConfig, *, device=None) -> nn.Module:
+    """The config's norm over d_model (``norm_init``): a layer norm for
+    the audio family, an RMS norm otherwise."""
+    cls = LayerNorm if cfg.arch_type == "audio" else RMSNorm
+    return cls(cfg.d_model, cfg.norm_eps,
+               dtype=getattr(torch, cfg.param_dtype), device=device)
+
+
 class Attention(nn.Module):
     """Grouped-query attention's projections ``wq``, ``wk``, ``wv``, ``wo``;
     ``forward`` is ``gqa_apply``."""
@@ -244,6 +287,164 @@ def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
 
 
+class GeluMLP(nn.Module):
+    """Whisper's feed-forward: ``w_down(gelu(w_up x))``, both with
+    biases."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.w_up = Dense(cfg.d_model, cfg.d_ff, bias=True, **kw)
+        self.w_down = Dense(cfg.d_ff, cfg.d_model, bias=True,
+                            scale=1.0 / math.sqrt(cfg.d_ff), **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return gelu_mlp(self, x)
+
+
+def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu's default is the tanh approximation
+    return p.w_down(F.gelu(p.w_up(x), approximate="tanh"))
+
+
+# --------------------------------------------------------------------------
+# RWKV: token shift, channel-mix, the RWKV-6 time-mix
+# --------------------------------------------------------------------------
+
+def token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]
+                ) -> torch.Tensor:
+    """x (B, T, d) shifted right by one along T; position 0 gets ``prev``
+    (B, d), or zeros."""
+    first = (torch.zeros_like(x[:, :1]) if prev is None
+             else prev[:, None, :].to(x.dtype))
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+class CMix(nn.Module):
+    """The RWKV channel-mix (a squared-ReLU MLP on the token-shifted input
+    with a receptance gate).  No configuration of the repo reaches it: its
+    layers take SwiGLU (``config.layer_specs``)."""
+
+    INIT_CONST = {"mu_k": 0.5, "mu_r": 0.5}
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d, d_ff = cfg.d_model, cfg.d_ff
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.mu_k = nn.Parameter(torch.empty((d,), **kw))
+        self.mu_r = nn.Parameter(torch.empty((d,), **kw))
+        self.w_k = Dense(d, d_ff, **kw)
+        self.w_v = Dense(d_ff, d, scale=1.0 / math.sqrt(d_ff), **kw)
+        self.w_r = Dense(d, d, **kw)
+
+
+def cmix_apply(p: CMix, x: torch.Tensor, prev: Optional[torch.Tensor] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, d) -> (y, x[:, -1], the next call's ``prev``)."""
+    xs = token_shift(x, prev)
+    xk = x + (xs - x) * p.mu_k.to(x.dtype)
+    xr = x + (xs - x) * p.mu_r.to(x.dtype)
+    k = torch.square(F.relu(p.w_k(xk)))
+    r = torch.sigmoid(p.w_r(xr))
+    return r * p.w_v(k), x[:, -1]
+
+
+class RWKV6(nn.Module):
+    """The RWKV-6 (Finch) time-mix: token-shift mixes ``mu`` (r, k, v, w, g),
+    projections, the data-dependent decay ``exp(-exp(w0 + lora(x)))``, the
+    bonus ``u``, a per-head group norm ``ln_out`` and ``w_o``.  ``w0``,
+    ``u`` and ``ln_out`` are float32 in every model, as in the JAX
+    package."""
+
+    INIT_CONST = {"mu": 0.5, "w0": -6.0}
+    INIT_STD = {"u": 0.1}
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        d, H = cfg.d_model, cfg.n_heads
+        dh = d // H
+        lora = max(32, d // 32)
+        f32 = dict(dtype=torch.float32, device=device)
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.mu = nn.Parameter(torch.empty((5, d), **kw))
+        self.w_r = Dense(d, d, **kw)
+        self.w_k = Dense(d, d, **kw)
+        self.w_v = Dense(d, d, **kw)
+        self.w_g = Dense(d, d, **kw)
+        self.w0 = nn.Parameter(torch.empty((d,), **f32))
+        self.w_lora_a = Dense(d, lora, **kw)
+        self.w_lora_b = Dense(lora, d, scale=0.01, **kw)
+        self.u = nn.Parameter(torch.empty((H, dh), **f32))
+        self.ln_out = LayerNorm((H, dh), 1e-5, **f32)
+        self.w_o = Dense(d, d, scale=1.0 / math.sqrt(d), **kw)
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, w: torch.Tensor,
+         u: torch.Tensor, S: torch.Tensor
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV-6 recurrence in float32.  r, k, v, w (B, T, H, dh), u (H,
+    dh), S (B, H, dh, dh); returns (y (B, T, H, dh), S after the last
+    token).  Per token, as the JAX package's ``lax.scan`` step:
+
+        y_t = r_t (S + diag(u) k_t v_tᵀ),   S <- diag(w_t) S + k_t v_tᵀ
+
+    The bonus term r_t diag(u) k_t v_tᵀ = (r_t · u k_t) v_t is taken for
+    every token at once; the loop is then three launches a token (``r_t
+    S``, ``w_t S``, the rank-one update), with nothing read back to the
+    host."""
+    B, T, H, dh = r.shape
+    bonus = (r * u * k).sum(-1, keepdim=True) * v
+
+    def steps(a, last):                       # (T, B*H, ...) step-major
+        return a.permute(1, 0, 2, 3).reshape((T, B * H) + last)
+
+    rs, ks = steps(r, (1, dh)), steps(k, (dh, 1))
+    vs, ws = steps(v, (1, dh)), steps(w, (dh, 1))
+    S = S.reshape(B * H, dh, dh)
+    ys = []
+    for t in range(T):
+        ys.append(torch.bmm(rs[t], S))
+        S = torch.baddbmm(S * ws[t], ks[t], vs[t])
+    y = torch.cat(ys, dim=1).reshape(B, H, T, dh).transpose(1, 2)
+    return y + bonus, S.reshape(B, H, dh, dh)
+
+
+def rwkv6_apply(p: RWKV6, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x (B, T, d) -> (y, new state); ``state`` = {"S" (B, H, dh, dh)
+    float32, "x_prev" (B, d): the last input of the previous call}, or
+    None (zeros, and no state returned)."""
+    B, T, d = x.shape
+    H = cfg.n_heads
+    dh = d // H
+    xs = token_shift(x, None if state is None else state["x_prev"])
+    mu = p.mu.to(x.dtype)
+    xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
+    r = p.w_r(xr).reshape(B, T, H, dh)
+    k = p.w_k(xk).reshape(B, T, H, dh)
+    v = p.w_v(xv).reshape(B, T, H, dh)
+    g = F.silu(p.w_g(xg))
+    wl = p.w_lora_b(torch.tanh(p.w_lora_a(xw)))
+    w = torch.exp(-torch.exp(p.w0 + wl.float())).reshape(B, T, H, dh)
+    S0 = (torch.zeros((B, H, dh, dh), device=x.device) if state is None
+          else state["S"])
+    y, S = wkv6(r.float(), k.float(), v.float(), w, p.u, S0)
+    y = p.ln_out(y)              # per-head group norm (population variance)
+    out = p.w_o(y.reshape(B, T, d).to(x.dtype) * g)
+    return out, None if state is None else {"S": S, "x_prev": x[:, -1]}
+
+
+def rwkv6_state_init(cfg: ModelConfig, batch: int, *, device=None) -> dict:
+    """A layer's recurrent state: S zeros (B, H, dh, dh) float32, x_prev
+    zeros (B, d)."""
+    dh = cfg.d_model // cfg.n_heads
+    return {"S": torch.zeros((batch, cfg.n_heads, dh, dh), device=device),
+            "x_prev": torch.zeros((batch, cfg.d_model),
+                                  dtype=getattr(torch, cfg.dtype),
+                                  device=device)}
+
+
 # --------------------------------------------------------------------------
 # GQA attention (full / sliding-window) with optional KV cache
 # --------------------------------------------------------------------------
@@ -278,10 +479,12 @@ def init_weights_(module: nn.Module, seed: int,
                   scales: Optional[dict] = None) -> nn.Module:
     """The JAX package's initialisation of every parameter of ``module``,
     device-independent: projections N(0, 1/d_in) (``Dense.init_scale``),
-    biases zero, norm scales one, and any parameter in ``scales``
-    (parameter -> standard deviation) normal at that scale.  Parameter
-    ``i`` of ``named_parameters()`` is drawn from Philox trial ``i``, so
-    each is a function of (seed, its index) alone."""
+    biases zero, norm scales one and layer-norm biases zero, a module's
+    ``INIT_CONST`` (name -> value) and ``INIT_STD`` (name -> standard
+    deviation) leaves, and any parameter in ``scales`` (parameter ->
+    standard deviation) normal at that scale.  Parameter ``i`` of
+    ``named_parameters()`` is drawn from Philox trial ``i``, so each is a
+    function of (seed, its index) alone."""
     std = dict(scales or {})
     const = {}
     for m in module.modules():
@@ -289,8 +492,14 @@ def init_weights_(module: nn.Module, seed: int,
             std[m.w] = m.init_scale
             if m.b is not None:
                 const[m.b] = 0.0
-        elif isinstance(m, RMSNorm):
+        elif isinstance(m, (RMSNorm, LayerNorm)):
             const[m.scale] = 1.0
+            if isinstance(m, LayerNorm):
+                const[m.bias] = 0.0
+        for name, val in getattr(m, "INIT_CONST", {}).items():
+            const[getattr(m, name)] = val
+        for name, val in getattr(m, "INIT_STD", {}).items():
+            std[getattr(m, name)] = val
     for i, (name, p) in enumerate(module.named_parameters()):
         if p in const:
             p.fill_(const[p])
@@ -310,11 +519,20 @@ def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
               window: Optional[int] = None,
               positions: Optional[torch.Tensor] = None,
               cache: Optional[dict] = None, use_rope: bool = True,
-              causal: bool = True) -> Tuple[torch.Tensor, Optional[dict]]:
+              causal: bool = True,
+              xattn_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
     """x (B, T, d) -> (y (B, T, d), new_cache).  ``cache`` = {"k", "v"
-    (B, K, S, dh), "pos" (int)}; its tensors are written in place."""
+    (B, K, S, dh), "pos" (int)}; its tensors are written in place.
+    ``xattn_kv`` = (k, v) (B, H, T_enc, dh): cross-attention over these
+    precomputed keys and values, not causal, without RoPE and without a
+    cache write (the cache is returned as given)."""
     B, T, _ = x.shape
     dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    if xattn_kv is not None:
+        q = p.wq(x).reshape(B, T, H, dh).transpose(1, 2)
+        out = attention_core(q, *xattn_kv, causal=False, q_offset=0)
+        return p.wo(out.transpose(1, 2).reshape(B, T, H * dh)), cache
     if window is not None and cfg.attn_logit_softcap:
         raise NotImplementedError(
             "a sliding-window layer with attn_logit_softcap: the JAX ring "

@@ -7,14 +7,19 @@ scans each over stacked weights.  Eager PyTorch needs no scan: the
 segments into those layers.  ``remat`` recomputes each block in backward
 (``torch.utils.checkpoint``); ``scan_layers`` changes nothing here.
 
-Weights: ``embed`` (V_pad, d), ``blocks.<l>.{norm1, mixer, norm2, ffn}``,
-``final_norm``, ``lm_head`` (absent with tied embeddings), under the JAX
-names.  Cache: ``{"layers": [{"attn": {"k", "v", "pos"}}, ...], "pos"}``
-with host-integer positions.
+Weights: ``embed`` (V_pad, d), ``blocks.<l>.{norm1, mixer, norm2, ffn}``
+(plus ``norm_x``, ``xattn`` in a decoder layer with cross-attention),
+``final_norm``, ``lm_head`` (absent with tied embeddings), and for whisper
+``pos_embed``, ``frontend_proj`` and ``encoder.{blocks.<l>, final_norm}``,
+under the JAX names.  Cache: ``{"layers": [...], "pos"}`` with
+host-integer positions; a layer holds ``attn`` {"k", "v", "pos"} or, for
+rwkv6, ``ssm`` {"S", "x_prev"}, plus ``cmix_prev`` and ``xk``/``xv``
+where its layer has them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Tuple
 
 import torch
@@ -26,11 +31,16 @@ from ..device import resolve_device
 from . import layers as L
 from .config import LayerSpec, ModelConfig, find_period, layer_specs
 
-__all__ = ["Segment", "plan_segments", "Block", "Transformer", "block_apply",
-           "init_params", "forward", "init_cache", "num_params"]
+__all__ = ["Segment", "plan_segments", "Block", "Encoder", "Transformer",
+           "block_apply", "block_cache_init", "sinusoid",
+           "init_params", "forward", "encode", "init_cache", "num_params",
+           "ENC_SPEC"]
 
 _OUTSIDE = ("ROADMAP.md queue 1, item 8 (the rest of the LM stack): the "
-            "port's LM slice has dense gqa/swa attention and SwiGLU only")
+            "port's LM slice has dense gqa/swa attention with SwiGLU, the "
+            "whisper encoder-decoder and the RWKV-6 time-mix")
+#: the layers of whisper's encoder (repro/models/model.py:329)
+ENC_SPEC = LayerSpec(mixer="gqa", ffn="gelu", cross_attn=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,14 +82,14 @@ def _check_slice(cfg: ModelConfig) -> None:
         if getattr(cfg, name):
             raise NotImplementedError(f"{cfg.name}: mesh variant {name}; "
                                       f"{_OUTSIDE}")
-    if cfg.encoder_layers or cfg.arch_type == "audio":
-        raise NotImplementedError(f"{cfg.name}: encoders and cross-attention;"
-                                  f" {_OUTSIDE}")
-    if cfg.frontend:
+    if cfg.frontend not in (None, "audio_stub"):
         raise NotImplementedError(f"{cfg.name}: modality frontend "
                                   f"{cfg.frontend!r}; {_OUTSIDE}")
+    if cfg.arch_type == "hybrid":
+        raise NotImplementedError(f"{cfg.name}: hybrid stacks; {_OUTSIDE}")
     for spec in layer_specs(cfg):
-        if spec.mixer not in ("gqa", "swa") or spec.ffn != "swiglu":
+        if spec.mixer not in ("gqa", "swa", "rwkv6") or \
+                spec.ffn not in ("swiglu", "gelu", "cmix"):
             raise NotImplementedError(
                 f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}); {_OUTSIDE}")
         if spec.mixer == "swa" and cfg.attn_logit_softcap:
@@ -89,43 +99,149 @@ def _check_slice(cfg: ModelConfig) -> None:
                 f"applies; ROADMAP.md section 3)")
 
 
+_FFNS = {"swiglu": L.SwiGLU, "gelu": L.GeluMLP, "cmix": L.CMix}
+
+
 class Block(nn.Module):
-    """One pre-norm transformer block: x + mixer(norm1(x)), then
-    x + ffn(norm2(x))."""
+    """One pre-norm block: x + mixer(norm1(x)), then (decoder layers of an
+    encoder-decoder) x + xattn(norm_x(x)), then x + ffn(norm2(x))."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, *, device=None):
         super().__init__()
         self.cfg, self.spec = cfg, spec
-        dt = getattr(torch, cfg.param_dtype)
-        self.norm1 = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dt,
-                               device=device)
-        self.mixer = L.Attention(cfg, device=device)
-        self.norm2 = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dt,
-                               device=device)
-        self.ffn = L.SwiGLU(cfg, device=device)
+        self.norm1 = L.make_norm(cfg, device=device)
+        self.mixer = (L.RWKV6(cfg, device=device) if spec.mixer == "rwkv6"
+                      else L.Attention(cfg, device=device))
+        self.norm2 = L.make_norm(cfg, device=device)
+        self.ffn = _FFNS[spec.ffn](cfg, device=device)
+        if spec.cross_attn:
+            self.norm_x = L.make_norm(cfg, device=device)
+            self.xattn = L.Attention(cfg, device=device)
 
-    def forward(self, x, *, positions, cache=None):
+    def forward(self, x, *, positions, cache=None, **kw):
         return block_apply(self, self.cfg, self.spec, x, positions=positions,
-                           cache=cache)
+                           cache=cache, **kw)
+
+
+def _cross_kv(p: Block, cfg: ModelConfig, enc_out: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention keys and values of ``enc_out`` (B, T_enc, d),
+    repeated to the query heads: (B, H, T_enc, dh) each."""
+    B, K, dh = enc_out.shape[0], cfg.n_kv_heads, cfg.head_dim
+    kv = [f(enc_out).reshape(B, -1, K, dh).transpose(1, 2)
+          for f in (p.xattn.wk, p.xattn.wv)]
+    return tuple(L.repeat_kv(a, cfg.n_heads // K) for a in kv)
 
 
 def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
-                *, positions: torch.Tensor, cache: Optional[dict] = None
+                *, positions: torch.Tensor, cache: Optional[dict] = None,
+                causal: bool = True, use_rope: bool = True,
+                enc_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Returns (x, new_cache).  The JAX block also returns an auxiliary
-    loss, which only MoE layers make; the port has none."""
-    window = cfg.sliding_window if spec.mixer == "swa" else None
-    mc = None if cache is None else cache["attn"]
-    h, mc = L.gqa_apply(p.mixer, cfg, p.norm1(x), window=window,
-                        positions=positions, cache=mc)
+    loss, which only MoE layers make; the port has none.  A cross-attention
+    layer takes its keys and values from ``enc_out`` when given (and stores
+    them in the cache as ``xk``/``xv``), else from the cache."""
+    new = None if cache is None else dict(cache)
+    h = p.norm1(x)
+    if spec.mixer == "rwkv6":
+        h, st = L.rwkv6_apply(p.mixer, cfg, h,
+                              state=None if cache is None else cache["ssm"])
+        if new is not None:
+            new["ssm"] = st
+    else:
+        window = cfg.sliding_window if spec.mixer == "swa" else None
+        h, mc = L.gqa_apply(p.mixer, cfg, h, window=window,
+                            positions=positions,
+                            cache=None if cache is None else cache["attn"],
+                            use_rope=use_rope, causal=causal)
+        if new is not None:
+            new["attn"] = mc
     x = x + h
-    x = x + p.ffn(p.norm2(x))
-    return x, None if cache is None else {**cache, "attn": mc}
+    if spec.cross_attn:
+        if enc_out is not None:
+            kv = _cross_kv(p, cfg, enc_out)
+            if new is not None:
+                new["xk"], new["xv"] = kv
+        elif cache is not None and cache["xk"] is not None:
+            kv = cache["xk"], cache["xv"]
+        else:
+            # the reference would attend to the zeros its init_cache
+            # allocates (ROADMAP.md section 3)
+            raise ValueError("cross-attention needs enc_frames, or a cache "
+                             "whose prefill was given them")
+        h, _ = L.gqa_apply(p.xattn, cfg, p.norm_x(x), xattn_kv=kv)
+        x = x + h
+    h = p.norm2(x)
+    if spec.ffn == "cmix":
+        h, last = L.cmix_apply(p.ffn, h,
+                               prev=None if cache is None
+                               else cache["cmix_prev"])
+        if new is not None:
+            new["cmix_prev"] = last
+    else:
+        h = p.ffn(h)
+    return x + h, new
+
+
+def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                     max_len: int, *, device=None) -> dict:
+    """A layer's cache: the KV cache of an attention layer (a ring of
+    min(window, max_len) slots for swa), the recurrent state of an rwkv6
+    layer, the channel-mix's last input, and the cross-attention keys and
+    values (None until a prefill with ``enc_frames`` sets them)."""
+    c: dict = {}
+    if spec.mixer == "rwkv6":
+        c["ssm"] = L.rwkv6_state_init(cfg, batch, device=device)
+    else:
+        c["attn"] = L.gqa_cache_init(
+            cfg, batch, max_len, device=device,
+            window=cfg.sliding_window if spec.mixer == "swa" else None)
+    if spec.ffn == "cmix":
+        c["cmix_prev"] = torch.zeros((batch, cfg.d_model),
+                                     dtype=getattr(torch, cfg.dtype),
+                                     device=device)
+    if spec.cross_attn:
+        c["xk"] = c["xv"] = None
+    return c
+
+
+def sinusoid(seq: int, d: int, *, device=None) -> torch.Tensor:
+    """The encoder's fixed positions (seq, d) float32: sin in the even
+    columns, cos in the odd ones (interleaved, not halves)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32, device=device)
+                    * (-math.log(1e4) / d))
+    pe = torch.zeros((seq, d), device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+class Encoder(nn.Module):
+    """Whisper's encoder stack: ``encoder_layers`` blocks of (gqa, gelu),
+    not causal and without RoPE, and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(Block(cfg, ENC_SPEC, device=device)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = L.make_norm(cfg, device=device)
+
+
+def _run(block: Block, x: torch.Tensor, remat: bool, **kw):
+    """``block(x, **kw)``, its activations recomputed in backward when
+    ``remat`` (no cache then)."""
+    if remat:
+        return checkpoint(block, x, use_reentrant=False, **kw)
+    return block(x, **kw)
 
 
 class Transformer(nn.Module):
-    """The decoder LM: token embedding, one ``Block`` per layer in
-    ``layer_specs`` order, final RMS norm and the LM head."""
+    """The LM: token embedding (plus the learned ``pos_embed`` of the audio
+    family), one ``Block`` per layer in ``layer_specs`` order, final norm
+    and the LM head; with ``encoder_layers``, the ``frontend_proj`` of the
+    frames and the ``encoder``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -136,16 +252,48 @@ class Transformer(nn.Module):
             (cfg.padded_vocab, cfg.d_model), dtype=dt, device=device))
         self.blocks = nn.ModuleList(Block(cfg, spec, device=device)
                                     for spec in layer_specs(cfg))
-        self.final_norm = L.RMSNorm(cfg.d_model, cfg.norm_eps, dtype=dt,
-                                    device=device)
+        self.final_norm = L.make_norm(cfg, device=device)
         self.lm_head = (None if cfg.tie_embeddings else
                         L.Dense(cfg.d_model, cfg.padded_vocab, dtype=dt,
                                 device=device))
+        self.pos_embed = (nn.Parameter(torch.empty(
+            (cfg.max_seq_len, cfg.d_model), dtype=dt, device=device))
+            if cfg.arch_type == "audio" else None)
+        self.frontend_proj = (L.Dense(cfg.frontend_dim, cfg.d_model,
+                                      bias=True, dtype=dt, device=device)
+                              if cfg.frontend else None)
+        self.encoder = (Encoder(cfg, device=device) if cfg.encoder_layers
+                        else None)
 
-    def forward(self, tokens: torch.Tensor, *, cache: Optional[dict] = None
+    def _remat(self, cache) -> bool:
+        # cfg.remat: recompute each block's activations in backward, as the
+        # JAX package checkpoints each layer group
+        # (repro/models/model.py:278); here the encoder's blocks too,
+        # which the reference keeps (memory only: the same numbers)
+        return (self.cfg.remat and cache is None and torch.is_grad_enabled()
+                and self.embed.requires_grad)
+
+    def encode(self, frames: torch.Tensor) -> torch.Tensor:
+        """Frame embeddings (B, T_enc, frontend_dim) -> (B, T_enc, d):
+        ``frontend_proj``, plus the sinusoid, through the encoder blocks and
+        its final norm."""
+        x = self.frontend_proj(frames.to(getattr(torch, self.cfg.dtype)))
+        x = x + sinusoid(x.shape[1], self.cfg.d_model,
+                         device=x.device).to(x.dtype)[None]
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        remat = self._remat(None)
+        for block in self.encoder.blocks:
+            x, _ = _run(block, x, remat, positions=positions, causal=False,
+                        use_rope=False)
+        return self.encoder.final_norm(x)
+
+    def forward(self, tokens: torch.Tensor, *, cache: Optional[dict] = None,
+                enc_frames: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
         """tokens (B, T) -> (logits (B, T, V_pad), aux_loss, new_cache);
-        the auxiliary loss is zero (no MoE layers)."""
+        the auxiliary loss is zero (no MoE layers).  ``enc_frames`` (B,
+        T_enc, frontend_dim) runs the encoder; its keys and values go into
+        the cache when one is given, so decode steps need no frames."""
         cfg = self.cfg
         # F.embedding's backward sums a row's gradients in a fixed order
         # (indexing's index_put_ accumulates in a racy one on the CPU)
@@ -153,18 +301,25 @@ class Transformer(nn.Module):
         T = x.shape[1]
         pos0 = 0 if cache is None else cache["pos"]
         positions = pos0 + torch.arange(T, device=x.device)[None, :]
-        # cfg.remat: recompute each block's activations in backward, as the
-        # JAX package checkpoints each layer group (repro/models/model.py:278)
-        remat = cfg.remat and cache is None and torch.is_grad_enabled() \
-            and self.embed.requires_grad
+        if self.pos_embed is not None:
+            if pos0 + T > self.pos_embed.shape[0]:
+                # lax.dynamic_slice_in_dim (repro/models/model.py:370)
+                # would clamp the start and reuse earlier positions
+                # (ROADMAP.md section 3)
+                raise ValueError(
+                    f"{cfg.name}: positions up to {pos0 + T} past the "
+                    f"{self.pos_embed.shape[0]} learned ones (max_seq_len)")
+            x = x + self.pos_embed[pos0:pos0 + T].to(x.dtype)[None]
+        enc_out = (self.encode(enc_frames)
+                   if enc_frames is not None and self.encoder is not None
+                   else None)
+        remat = self._remat(cache)
+        kw = dict(positions=positions, use_rope=cfg.arch_type != "audio",
+                  enc_out=enc_out)
         new_layers = []
         for i, block in enumerate(self.blocks):
-            c = None if cache is None else cache["layers"][i]
-            if remat:
-                x, c = checkpoint(block, x, positions=positions,
-                                  use_reentrant=False)
-            else:
-                x, c = block(x, positions=positions, cache=c)
+            x, c = _run(block, x, remat, cache=None if cache is None
+                        else cache["layers"][i], **kw)
             new_layers.append(c)
         x = self.final_norm(x)
         logits = (x @ self.embed.to(x.dtype).T if self.lm_head is None
@@ -181,36 +336,50 @@ class Transformer(nn.Module):
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                 trainable: bool = False) -> Transformer:
     """A ``Transformer`` with the JAX package's initialisation (embeddings
-    N(0, 1/d), projections N(0, 1/d_in), biases zero, norm scales one)
-    drawn by ``layers.init_weights_`` under ``seed``: a function of (cfg,
-    seed) alone, the same weights on every device.  On the ``meta`` device
-    only the shapes exist.  Serving weights take no gradients;
-    ``trainable=True`` gives weights that do (``train.init_train_state``)."""
+    N(0, 1/d), the audio family's ``pos_embed`` N(0, 0.01^2), projections
+    N(0, 1/d_in), biases zero, norm scales one, the RWKV leaves' constants
+    and scales) drawn by ``layers.init_weights_`` under ``seed``: a
+    function of (cfg, seed) alone, the same weights on every device.  On
+    the ``meta`` device only the shapes exist.  Serving weights take no
+    gradients; ``trainable=True`` gives weights that do
+    (``train.init_train_state``)."""
     dev = resolve_device(device)
     model = Transformer(cfg, device=dev)
     if dev.type != "meta":
-        L.init_weights_(model, seed, {model.embed: cfg.d_model ** -0.5})
+        scales = {model.embed: cfg.d_model ** -0.5}
+        if model.pos_embed is not None:
+            scales[model.pos_embed] = 0.01
+        L.init_weights_(model, seed, scales)
     return model.requires_grad_(trainable)
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[dict] = None):
+            cache: Optional[dict] = None,
+            enc_frames: Optional[torch.Tensor] = None):
     """The JAX package's ``forward``: (logits, aux_loss, new_cache)."""
     if cfg != params.cfg:
         raise ValueError(f"config {cfg.name} is not the model's "
                          f"({params.cfg.name})")
-    return params(tokens, cache=cache)
+    return params(tokens, cache=cache, enc_frames=enc_frames)
+
+
+def encode(params: Transformer, cfg: ModelConfig,
+           frames: torch.Tensor) -> torch.Tensor:
+    """The JAX package's ``encode``: (B, T_enc, frontend_dim) frames ->
+    (B, T_enc, d)."""
+    if cfg != params.cfg:
+        raise ValueError(f"config {cfg.name} is not the model's "
+                         f"({params.cfg.name})")
+    return params.encode(frames)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
                device=None) -> dict:
-    """Per-layer KV caches (a ring of min(window, max_len) slots for swa
-    layers) and the host position 0."""
+    """Per-layer caches (``block_cache_init``) and the host position 0."""
     dev = resolve_device(device)
-    return {"layers": [{"attn": L.gqa_cache_init(
-        cfg, batch, max_len, device=dev,
-        window=cfg.sliding_window if spec.mixer == "swa" else None)}
-        for spec in layer_specs(cfg)], "pos": 0}
+    return {"layers": [block_cache_init(cfg, spec, batch, max_len,
+                                        device=dev)
+                       for spec in layer_specs(cfg)], "pos": 0}
 
 
 def num_params(params: nn.Module) -> int:

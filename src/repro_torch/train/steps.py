@@ -24,7 +24,7 @@ optimizer then walks the tensors one at a time (``Optimizer.step_``).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,11 +86,13 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
 
 
 def lm_loss_per_seq(params: Transformer, cfg: ModelConfig,
-                    tokens: torch.Tensor, labels: torch.Tensor
+                    tokens: torch.Tensor, labels: torch.Tensor, *,
+                    enc_frames: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sequence next-token cross-entropy (B,), in float32; returns
-    (losses, aux)."""
-    logits, aux, _ = forward(params, cfg, tokens)
+    (losses, aux).  ``enc_frames`` (B, T_enc, frontend_dim) feed the
+    encoder of an encoder-decoder (whisper)."""
+    logits, aux, _ = forward(params, cfg, tokens, enc_frames=enc_frames)
     lp = torch.log_softmax(logits.float(), dim=-1)
     del logits
     ll = lp.gather(-1, labels[..., None].long())[..., 0]
@@ -98,9 +100,12 @@ def lm_loss_per_seq(params: Transformer, cfg: ModelConfig,
 
 
 def lm_loss(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
-            labels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            labels: torch.Tensor, *,
+            enc_frames: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token cross-entropy; returns (loss, aux)."""
-    losses, aux = lm_loss_per_seq(params, cfg, tokens, labels)
+    losses, aux = lm_loss_per_seq(params, cfg, tokens, labels,
+                                  enc_frames=enc_frames)
     return losses.mean(), aux
 
 
@@ -123,9 +128,10 @@ def _apply_grads(state: TrainState, opt: Optimizer) -> torch.Tensor:
 
 def make_train_step(cfg: ModelConfig, opt: Optimizer):
     """Plain synchronous data-parallel step (the baseline, k = n, r = 1):
-    ``step(state, tokens, labels) -> (state, metrics)``."""
-    def step(state: TrainState, tokens, labels):
-        l, aux = lm_loss(state.params, cfg, tokens, labels)
+    ``step(state, tokens, labels, extras=None) -> (state, metrics)``;
+    ``extras`` are keyword inputs of the loss (``enc_frames``)."""
+    def step(state: TrainState, tokens, labels, extras=None):
+        l, aux = lm_loss(state.params, cfg, tokens, labels, **(extras or {}))
         (l + cfg.router_aux_coef * aux).backward()
         gnorm = _apply_grads(state, opt)
         return state, {"loss": l.detach(), "aux": aux.detach(),
@@ -139,7 +145,7 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
     """The paper's scheduled round as an SGD step:
 
         step(state, slot_tokens, slot_labels, seed, cluster=None,
-             row_of_worker=None) -> (state, metrics, cluster)
+             row_of_worker=None, extras=None) -> (state, metrics, cluster)
 
     ``slot_tokens``/``slot_labels`` (r, n, b, S) come from
     ``data.lm_task_batches``; ``seed`` (below 2**32) keys the run's delays
@@ -147,7 +153,9 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
     round's process state (``None`` starts a fresh cluster); the optional
     ``row_of_worker`` permutation re-assigns the base matrix's rows to
     workers (adaptive schedules: the data must then come from
-    ``C[row_of_worker]``).  ``metrics`` holds ``loss``, ``aux``,
+    ``C[row_of_worker]``); ``extras`` are slot-major modality inputs of
+    the loss, e.g. ``enc_frames`` (r, n, b, T_enc, D) for whisper, each
+    slot's flattened worker-major like its tokens.  ``metrics`` holds ``loss``, ``aux``,
     ``grad_norm``, the round's ``completion_time`` (eq. 6), ``winners``,
     ``realized_k``, ``delivered_tasks``, ``deadline_missed``, the
     per-worker mean compute delays ``worker_t1`` (adaptive feedback), the
@@ -185,7 +193,7 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
         return s if layout is None else apply_row_layout(s, layout)
 
     def step(state: TrainState, slot_tokens, slot_labels, seed: int,
-             cluster=None, row_of_worker=None):
+             cluster=None, row_of_worker=None, extras=None):
         model = state.params
         dev = model.embed.device
         if dev not in plans:
@@ -227,7 +235,9 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
         for slot in range(r):
             toks = slot_tokens[slot].reshape(n * b, -1)      # worker-major
             labs = slot_labels[slot].reshape(n * b, -1)
-            losses, a = lm_loss_per_seq(model, cfg, toks, labs)
+            kw = {key: v[slot].reshape((n * b,) + v.shape[3:])
+                  for key, v in (extras or {}).items()}
+            losses, a = lm_loss_per_seq(model, cfg, toks, labs, **kw)
             w_seq = weights[:, slot].repeat_interleave(b) / (wsum * b)
             l_s = (w_seq * losses).sum()                     # eq. (61)
             a_s = a * (weights[:, slot].sum() / wsum)

@@ -70,9 +70,10 @@ def test_configs_and_layer_plans_match(arch):
 
 def test_port_archs_and_unknown_arch():
     assert set(tconfigs.ARCH_IDS) == {"gemma3-4b", "mistral-nemo-12b",
-                                      "qwen2-72b", "phi4-mini-3.8b"}
+                                      "qwen2-72b", "phi4-mini-3.8b",
+                                      "whisper-base", "rwkv6-1.6b"}
     with pytest.raises(ValueError, match="unknown arch"):
-        tconfigs.get_config("whisper-base")
+        tconfigs.get_config("jamba-v0.1-52b")
 
 
 def test_gemma3_4b_parameter_shapes_at_full_size():

@@ -91,7 +91,8 @@ def test_serve_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "gemma3-4b", "--smoke", "--gen", "2"])
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "whisper-base", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device",
+                    "cpu"])
 
 
 def test_serve_redundant_example_runs_on_cpu():
