@@ -67,6 +67,18 @@ CPU (rwkv6's recurrent state too), whisper-base trained 10 steps through
 ``make_straggler_train_step`` with its encoder frames as ``extras`` and
 rwkv6-1.6b 10 steps through the trainer CLI (the loss falls; one
 greedy_assign launch a step; no swa_attention launch in either family).
+Last, the wide phase: the MoE, MLA and vision-stub families at published
+widths, bf16 (``wide_phase``): deepseek-v3 cut to 4 layers (3 dense, 1 MoE
+of 256 experts) on the naive and the absorbed MLA path and
+llama4-maverick cut to 2 (1 dense, 1 MoE of 128 experts) served at
+gemma3-4b's shape through ``serve.run``, llava-next-34b served at full
+size (60 layers) through the serve CLI; decode held to the full forward
+(llava with 1 024 patch embeddings; the MoE families at capacity_factor
+E/K, where no call drops a pair; deepseek's absorbed decode to its naive
+one), the smoke configs on the card to the CPU in float32 at the default
+capacity, and deepseek-v3 at 4 layers with 16 experts trained 10 steps
+through ``make_straggler_train_step`` (the loss falls, the MoE aux loss
+finite and non-zero; one greedy_assign launch a step).
 
 Run from the repository root on a machine with a card:
 
@@ -123,6 +135,7 @@ from repro_torch.train import (init_train_state,  # noqa: E402
                                make_serve_step, make_straggler_train_step)
 from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
                                 layer_specs)
+from repro_torch.models import layers as model_layers  # noqa: E402
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "benchmarks_torch"))
 import fig8_convergence as fig8  # noqa: E402
@@ -2362,9 +2375,10 @@ def _swa_launches(launches):
 
 @torch.inference_mode()
 def decode_profile(cfg, batch, steps=8):
-    """Kernel launches and busy share of a decode step of ``cfg``: a
-    16-token prefill (with encoder frames where the model has an encoder),
-    one warm step, then ``steps`` greedy steps under the profiler."""
+    """Kernel launches and busy share of a decode step of ``cfg`` (weights
+    from seed 0): a 16-token prefill (with encoder frames where the model
+    has an encoder), one warm step, then ``steps`` greedy steps under the
+    profiler."""
     model = init_params(cfg, seed=0, device=DEV)
     gen = torch.Generator(device=DEV).manual_seed(0)
     toks = torch.randint(0, cfg.vocab_size, (batch, 16), generator=gen,
@@ -2389,43 +2403,55 @@ def decode_profile(cfg, batch, steps=8):
             None if dev_s is None else dev_s / wall)
 
 
-def family_serve(arch):
-    """``arch`` at full size, bf16, random weights from seed 0 on the card,
-    through the serve CLI: a warm-up run (one decode step), then the
-    measured run with the launch counts set to 0 just before it; then the
-    kernel launches and busy share of a decode step under the profiler
-    (``decode_profile``).  Every logit finite, tokens in range, no
+def family_serve(leg, cfg, shape, size, *, warm=True):
+    """``cfg`` in bf16 with random weights from seed 0 on the card: through
+    the serve CLI where ``cfg`` is its arch's own config, through
+    ``serve.run`` where its depth is cut.  A warm-up run (one decode step)
+    where ``warm``, then the measured run with the launch counts set to 0
+    just before it; then the kernel launches and busy share of a decode
+    step under the profiler (``decode_profile``).  ``size`` is (layers,
+    encoder layers, parameters).  Every logit finite, tokens in range, no
     swa_attention launch."""
-    cfg = get_config(arch)
     n_params = sum(p.numel() for p in init_params(cfg, device="meta")
                    .parameters())
-    check((cfg.n_layers, cfg.encoder_layers, n_params) == FAMILY_SIZE[arch]
+    check((cfg.n_layers, cfg.encoder_layers, n_params) == size
           and cfg.param_dtype == "bfloat16",
-          f"{arch} config: {cfg.n_layers} + {cfg.encoder_layers} layers, "
+          f"{leg} config: {cfg.n_layers} + {cfg.encoder_layers} layers, "
           f"{n_params} parameters")
-    B, P, G = (FAMILY_SERVE[arch][k] for k in ("batch", "prompt_len", "gen"))
-    argv = ["--arch", arch, "--batch", str(B), "--prompt-len", str(P),
-            "--seed", "0", "--device", str(DEV)]
+    B, P, G = (shape[k] for k in ("batch", "prompt_len", "gen"))
+
+    def go(gen):
+        if cfg == get_config(cfg.name):
+            return serve.main(["--arch", cfg.name, "--batch", str(B),
+                               "--prompt-len", str(P), "--gen", str(gen),
+                               "--seed", "0", "--device", str(DEV)])
+        return serve.run(cfg, batch=B, prompt_len=P, gen=gen, seed=0,
+                         device=DEV)
+
     _free_cuda()
     ops.reset_launch_counts()
-    serve.main(argv + ["--gen", "2"])                          # warm-up
-    warm = dict(ops.LAUNCHES)
-    _free_cuda()
+    if warm:
+        go(2)
+        _free_cuda()
+    warm_launches = dict(ops.LAUNCHES)
     base = torch.cuda.memory_allocated()
     ops.reset_launch_counts()
-    res = serve.main(argv + ["--gen", str(G)])
+    res = go(G)
     launches = dict(ops.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    check(res.finite, f"serve {arch}: non-finite logits")
+    check(res.finite, f"serve {leg}: non-finite logits")
     check(tuple(res.tokens.shape) == (B, G)
           and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
-          f"serve {arch}: tokens {tuple(res.tokens.shape)} out of range")
-    check(_swa_launches(launches) == 0 and _swa_launches(warm) == 0,
-          f"serve {arch}: swa_attention launched {launches} {warm}")
+          f"serve {leg}: tokens {tuple(res.tokens.shape)} out of range")
+    check(_swa_launches(launches) == 0 and _swa_launches(warm_launches) == 0,
+          f"serve {leg}: swa_attention launched {launches} {warm_launches}")
+    _free_cuda()
     dec_launches, busy = decode_profile(cfg, B)
-    out = {"batch": B, "prompt_len": P, "gen": G,
+    _free_cuda()
+    out = {"layers": cfg.n_layers, "params": n_params, "batch": B,
+           "prompt_len": P, "gen": G,
            "encoder_frames": cfg.encoder_seq if cfg.encoder_layers else 0,
-           "prefill_ms": res.prefill_s * 1e3,
+           "init_s": res.init_s, "prefill_ms": res.prefill_s * 1e3,
            "prefill_tok_per_s": B * P / res.prefill_s,
            "decode_ms_per_step": res.decode_s * 1e3 / (G - 1),
            "decode_tok_per_s": B * (G - 1) / res.decode_s,
@@ -2433,10 +2459,11 @@ def family_serve(arch):
            "decode_launches_per_step": dec_launches,
            "decode_busy_share_profiled": busy,
            "swa_launches": _swa_launches(launches)}
-    print(f"serve {arch} {cfg.n_layers}+{cfg.encoder_layers} layers bf16 "
-          f"batch={B} prompt={P} gen={G}"
+    print(f"serve {leg} {cfg.n_layers}+{cfg.encoder_layers} layers "
+          f"{n_params} params bf16 batch={B} prompt={P} gen={G}"
           f"{f' frames={cfg.encoder_seq}' if cfg.encoder_layers else ''}: "
-          f"prefill {out['prefill_ms']:.3f} ms "
+          f"init_params {res.init_s:.3f} s, prefill "
+          f"{out['prefill_ms']:.3f} ms "
           f"({out['prefill_tok_per_s']:.1f} tok/s), decode "
           f"{out['decode_ms_per_step']:.4f} ms/step "
           f"({out['decode_tok_per_s']:.1f} tok/s), peak memory {peak} bytes "
@@ -2446,82 +2473,155 @@ def family_serve(arch):
     return out
 
 
+def _frontend_inputs(cfg, batch, draw):
+    """``forward``'s extra inputs for ``cfg``, drawn by ``draw(shape)``:
+    encoder frames where the model has an encoder, patch embeddings (its
+    frontend_seq) where it has a frontend, else none."""
+    if cfg.encoder_layers:
+        return {"enc_frames": draw((batch, cfg.encoder_seq,
+                                    cfg.frontend_dim))}
+    if cfg.frontend_seq:
+        return {"embeds": draw((batch, cfg.frontend_seq, cfg.frontend_dim))}
+    return {}
+
+
+def _nudge(tree):
+    """Scales every float tensor of a cache subtree by 1 + 2^-4, in
+    place."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            _nudge(v)
+        elif torch.is_tensor(v) and v.is_floating_point():
+            v.mul_(1 + 2 ** -4)
+
+
+def _decode_vs_full(model, cfg, toks, steps, extras, *, nudge=False):
+    """Each of ``steps`` decode steps after a prefill of the rest of
+    ``toks`` (with ``extras``: encoder frames or patch embeddings) against
+    the full forward at the same positions: (max abs difference over the
+    max abs logit, the steps' logits (steps, B, V) float32, the full
+    forward's there).  ``nudge`` scales the first layer's cache after the
+    prefill (``_nudge``), the control of ``_moves_when_nudged``."""
+    V, B = cfg.vocab_size, toks.shape[0]
+    P = extras["embeds"].shape[1] if "embeds" in extras else 0
+    T0 = toks.shape[1] - steps
+    full = forward(model, cfg, toks, **extras)[0][:, P + T0:, :V]
+    full = full.float()
+    cache = init_cache(cfg, B, P + toks.shape[1] + 8, device=DEV)
+    _, _, cache = forward(model, cfg, toks[:, :T0], cache=cache, **extras)
+    if nudge:
+        _nudge(cache["layers"][0])
+    out, worst = [], 0.0
+    for t in range(steps):
+        lg, _, cache = forward(model, cfg, toks[:, T0 + t:T0 + t + 1],
+                               cache=cache)
+        out.append(lg[:, 0, :V].float())
+        worst = max(worst, (out[-1] - full[:, t]).abs().max().item())
+    return (worst / full.abs().max().item(), torch.stack(out),
+            full.transpose(0, 1))
+
+
+def _moves_when_nudged(model, cfg, toks, extras, what):
+    """The control of a decode-vs-full reading of exactly 0 (every bf16
+    product of the decode rounded as in the full forward): one decode step
+    after a prefill whose first layer's cache was scaled by 1 + 2^-4 must
+    read above 0, so the check sees the cache it names.  Returns that
+    reading."""
+    moved, _, _ = _decode_vs_full(model, cfg, toks, 1, extras, nudge=True)
+    check(np.isfinite(moved) and moved > 0,
+          f"{what}: decode vs full reads {moved} after a nudged cache")
+    return moved
+
+
+def _smoke_card_vs_cpu(cfg):
+    """The smoke config ``cfg`` in float32 (an MoE at its default capacity:
+    pairs are dropped, the same ones on both devices), each device's
+    weights from ``init_params(seed 2)`` on the CPU: the full forward and a
+    16-token prefill plus 8 decode steps (with encoder frames or patch
+    embeddings where the config takes them), max rel logit difference; the
+    aux losses' rel difference; rwkv6's state ``S`` after the last step.
+    All within ``FAMILY_F32_REL``."""
+    cpu_model = init_params(cfg, seed=2, device="cpu")
+    gpu_model = init_params(cfg, seed=2, device="cpu").to(DEV)
+    rng_ = np.random.default_rng(2)
+    toks = torch.as_tensor(rng_.integers(0, cfg.vocab_size, (2, 24)))
+    ext = _frontend_inputs(cfg, 2, lambda s: torch.as_tensor(
+        rng_.standard_normal(s, dtype=np.float32)))
+
+    def both(tk, cache_a=None, cache_b=None, extras=None):
+        extras = extras or {}
+        a = forward(gpu_model, cfg, tk.to(DEV), cache=cache_a,
+                    **{k: v.to(DEV) for k, v in extras.items()})
+        b = forward(cpu_model, cfg, tk, cache=cache_b, **extras)
+        aux = abs(a[1].item() - b[1].item()) / max(abs(b[1].item()), 1e-30)
+        return _rel_gap(a[0].cpu(), b[0]), aux, a[2], b[2]
+
+    rel_full, aux_rel, _, _ = both(toks, extras=ext)
+    n = 32 + (ext["embeds"].shape[1] if "embeds" in ext else 0)
+    ca = init_cache(cfg, 2, n, device=DEV)
+    cb = init_cache(cfg, 2, n, device="cpu")
+    rel_step, _, ca, cb = both(toks[:, :16], ca, cb, ext)
+    for t in range(16, 24):
+        r, _, ca, cb = both(toks[:, t:t + 1], ca, cb)
+        rel_step = max(rel_step, r)
+    rel_S = max((_rel_gap(a["ssm"]["S"].cpu(), b["ssm"]["S"])
+                 for a, b in zip(ca["layers"], cb["layers"]) if "ssm" in a),
+                default=None)
+    check(rel_full < FAMILY_F32_REL and rel_step < FAMILY_F32_REL
+          and aux_rel < FAMILY_F32_REL
+          and (rel_S is None or rel_S < FAMILY_F32_REL),
+          f"{cfg.name} card vs CPU rel {rel_full:.2e} (full), "
+          f"{rel_step:.2e} (prefill + decode), aux {aux_rel:.2e}, S {rel_S}")
+    return {"card_vs_cpu_full": rel_full, "card_vs_cpu_decode": rel_step,
+            "card_vs_cpu_aux": aux_rel, "card_vs_cpu_S": rel_S}
+
+
+def _card_vs_cpu_line(name, o):
+    return (f"{name} f32 card vs CPU rel {o['card_vs_cpu_full']:.3e} "
+            f"(full), {o['card_vs_cpu_decode']:.3e} (prefill 16 + 8 decode "
+            f"steps), aux {o['card_vs_cpu_aux']:.3e}, S {o['card_vs_cpu_S']}")
+
+
+def _rel_gap(a, b):
+    """max |a - b| over max |b|."""
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
 @torch.inference_mode()
 def family_consistency(arch):
     """(1) ``arch`` at full width and depth in bfloat16 on the card: the
     full forward against a 16-token prefill plus 8 decode steps at the same
-    positions (counts set to 0 just before, read after: no swa_attention
-    launch).  (2) its smoke config in float32, the card against the same
-    weights on the CPU: forward, prefill plus decode, and rwkv6's state
-    ``S`` after the last step."""
+    positions (``_decode_vs_full``; counts set to 0 just before, read
+    after: no swa_attention launch).  (2) its smoke config in float32, the
+    card against the same weights on the CPU (``_smoke_card_vs_cpu``)."""
     cfg = get_config(arch)
-    V = cfg.vocab_size
     model = init_params(cfg, seed=1, device=DEV)
     B, P, steps = 2, 16, 8
     gen = torch.Generator(device=DEV).manual_seed(1)
-    toks = torch.randint(0, V, (B, P + steps), generator=gen, device=DEV)
-    frames = (torch.randn((B, cfg.encoder_seq, cfg.frontend_dim),
-                          generator=gen, device=DEV)
-              if cfg.encoder_layers else None)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
+                         device=DEV)
+    ext = _frontend_inputs(cfg, B, lambda s: torch.randn(
+        s, generator=gen, device=DEV))
     ops.reset_launch_counts()
-    full = forward(model, cfg, toks, enc_frames=frames)[0][:, P:, :V].float()
-    cache = init_cache(cfg, B, P + steps + 8, device=DEV)
-    _, _, cache = forward(model, cfg, toks[:, :P], cache=cache,
-                          enc_frames=frames)
-    worst = 0.0
-    for t in range(steps):
-        lg, _, cache = forward(model, cfg, toks[:, P + t:P + t + 1],
-                               cache=cache)
-        worst = max(worst, (lg[:, 0, :V].float() - full[:, t]).abs()
-                    .max().item())
+    rel_dec, _, _ = _decode_vs_full(model, cfg, toks, steps, ext)
+    moved = (_moves_when_nudged(model, cfg, toks, ext, arch) if rel_dec == 0
+             else None)
     launches = dict(ops.LAUNCHES)
-    rel_dec = worst / full.abs().max().item()
     check(np.isfinite(rel_dec) and rel_dec <= FAMILY_BF16_REL
           and _swa_launches(launches) == 0,
           f"{arch} bf16 decode vs full rel {rel_dec:.3e} (bound "
           f"{FAMILY_BF16_REL}), swa launches {launches}")
-    del model, full, cache
+    del model
     _free_cuda()
-
-    small = get_config(arch).smoke()
-    cpu_model = init_params(small, seed=2, device="cpu")
-    gpu_model = init_params(small, seed=2, device="cpu").to(DEV)
-    rng_ = np.random.default_rng(2)
-    toks = torch.as_tensor(rng_.integers(0, small.vocab_size, (2, 24)))
-    fr = (torch.as_tensor(rng_.standard_normal(
-        (2, small.encoder_seq, small.frontend_dim), dtype=np.float32))
-        if small.encoder_layers else None)
-
-    def both(tk, cache_a=None, cache_b=None, frames=None):
-        a = forward(gpu_model, small, tk.to(DEV), cache=cache_a,
-                    enc_frames=None if frames is None else frames.to(DEV))
-        b = forward(cpu_model, small, tk, cache=cache_b, enc_frames=frames)
-        rel = ((a[0].cpu() - b[0]).abs().max() / b[0].abs().max()).item()
-        return rel, a[2], b[2]
-
-    rel_full, _, _ = both(toks, frames=fr)
-    ca = init_cache(small, 2, 32, device=DEV)
-    cb = init_cache(small, 2, 32, device="cpu")
-    rel_step, ca, cb = both(toks[:, :16], ca, cb, frames=fr)
-    for t in range(16, 24):
-        r, ca, cb = both(toks[:, t:t + 1], ca, cb)
-        rel_step = max(rel_step, r)
-    rel_S = max((((a["ssm"]["S"].cpu() - b["ssm"]["S"]).abs().max()
-                  / b["ssm"]["S"].abs().max()).item()
-                 for a, b in zip(ca["layers"], cb["layers"])
-                 if "ssm" in a), default=None)
-    check(rel_full < FAMILY_F32_REL and rel_step < FAMILY_F32_REL
-          and (rel_S is None or rel_S < FAMILY_F32_REL),
-          f"{small.name} card vs CPU rel {rel_full:.2e} (full), "
-          f"{rel_step:.2e} (prefill + decode), S {rel_S}")
+    small = cfg.smoke()
+    out = {"decode_vs_full_bf16_rel": rel_dec, "nudged_bf16_rel": moved,
+           **_smoke_card_vs_cpu(small),
+           "swa_launches": _swa_launches(launches)}
     print(f"consistency {arch} full size bf16: prefill {P} + {steps} decode "
           f"steps vs the full forward rel {rel_dec:.3e} (bound "
-          f"{FAMILY_BF16_REL}); {small.name} f32 card vs CPU rel "
-          f"{rel_full:.3e} (full), {rel_step:.3e} (prefill 16 + 8 decode "
-          f"steps), S {rel_S}; swa_attention launches 0")
-    return {"decode_vs_full_bf16_rel": rel_dec, "card_vs_cpu_full": rel_full,
-            "card_vs_cpu_decode": rel_step, "card_vs_cpu_S": rel_S,
-            "swa_launches": _swa_launches(launches)}
+          f"{FAMILY_BF16_REL}; with a nudged cache {moved}); "
+          f"{_card_vs_cpu_line(small.name, out)}; swa_attention launches 0")
+    return out
 
 
 def _train_summary(arch, lr, losses, secs, greedy, launches, peak, base,
@@ -2556,14 +2656,14 @@ def _train_summary(arch, lr, losses, secs, greedy, launches, peak, base,
     return out
 
 
-def train_whisper():
-    """whisper-base at full size through ``make_straggler_train_step`` with
-    ``extras={"enc_frames": ...}``: AdamW (cosine, lr 3e-4, warm-up 5),
-    ``RoundConfig(n=8, k=6, kind="ss", r=2)`` on leg A's cluster with
-    adaptive rows, 2 bigram sequences of 64 tokens a worker and slot, each
-    task with its own 1 500 frames (drawn once, gathered by the round's
-    matrix as its tokens are).  Counts set to 0 just before, read after."""
-    cfg = get_config("whisper-base")
+def train_straggler(name, cfg):
+    """``cfg`` through ``make_straggler_train_step``: AdamW (cosine, lr
+    3e-4, warm-up 5), ``RoundConfig(n=8, k=6, kind="ss", r=2)`` on leg A's
+    cluster with adaptive rows, 2 bigram sequences of 64 tokens a worker
+    and slot; where the model has an encoder, each task with its own
+    encoder frames as ``extras`` (drawn once, gathered by the round's
+    matrix as its tokens are).  Counts set to 0 just before, read after.
+    The summary also holds each step's aux loss and gradient norm."""
     steps = FAMILY_TRAIN_STEPS
     rc = RoundConfig(n=8, k=6, kind="ss", r=2)
     opt = adamw(cosine_schedule(3e-4, steps, warmup=5))
@@ -2577,11 +2677,13 @@ def train_whisper():
     sched = AdaptiveScheduler(base_C, device=DEV)
     part = TaskPartition(n=8, global_batch=16, seq_len=64,
                          vocab=cfg.vocab_size, source="bigram", seed=0)
-    gen = torch.Generator(device=DEV).manual_seed(0)
-    frames = torch.randn((int(base_C.max()) + 1, part.task_batch,
-                          cfg.encoder_seq, cfg.frontend_dim), generator=gen,
-                         device=DEV).to(torch.bfloat16)
-    cluster, losses, secs, greedy = None, [], [], []
+    frames = None
+    if cfg.encoder_layers:
+        gen = torch.Generator(device=DEV).manual_seed(0)
+        frames = torch.randn((int(base_C.max()) + 1, part.task_batch,
+                              cfg.encoder_seq, cfg.frontend_dim),
+                             generator=gen, device=DEV).to(torch.bfloat16)
+    cluster, losses, auxs, gnorms, secs, greedy = None, [], [], [], [], []
     for i in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2589,11 +2691,14 @@ def train_whisper():
         C = sched.matrix()
         row = sched.row_of_worker()
         toks, labs = lm_task_batches(part, C, i, device=DEV)
-        fr = frames[torch.as_tensor(C.T, device=DEV)]   # (r, n, b, T, D)
+        extras = (None if frames is None else   # (r, n, b, T, D)
+                  {"enc_frames": frames[torch.as_tensor(C.T, device=DEV)]})
         state, m, cluster = step(state, toks, labs, 7, cluster, row,
-                                 extras={"enc_frames": fr})
+                                 extras=extras)
         sched.observe(m["worker_t1"].cpu().numpy())
         losses.append(float(m["loss"]))
+        auxs.append(float(m["aux"]))
+        gnorms.append(float(m["grad_norm"]))
         torch.cuda.synchronize()
         secs.append(time.perf_counter() - t0)
         greedy.append(ops.LAUNCHES["greedy_assign"] - before)
@@ -2601,8 +2706,10 @@ def train_whisper():
     peak = torch.cuda.max_memory_allocated()
     n_params = sum(p.numel() for p in state.params.parameters())
     del state, frames
-    return _train_summary("whisper-base", 3e-4, losses, secs, greedy,
-                          launches, peak, base, n_params)
+    out = _train_summary(name, 3e-4, losses, secs, greedy, launches, peak,
+                         base, n_params)
+    out.update(aux=auxs, grad_norms=gnorms)
+    return out
 
 
 def train_rwkv6():
@@ -2632,11 +2739,14 @@ def families_phase():
     train phase has freed gemma3-4b: serving, consistency (decode against
     the full forward, the card against the CPU) and training."""
     t_phase = time.perf_counter()
-    legs = [(arch, "serve", lambda arch=arch: family_serve(arch))
-            for arch in FAMILY_SERVE]
+    legs = [(arch, "serve", lambda arch=arch: family_serve(
+        arch, get_config(arch), FAMILY_SERVE[arch], FAMILY_SIZE[arch]))
+        for arch in FAMILY_SERVE]
     legs += [(arch, "consistency", lambda arch=arch: family_consistency(arch))
              for arch in FAMILY_SERVE]
-    legs += [("whisper-base", "train", train_whisper),
+    legs += [("whisper-base", "train",
+              lambda: train_straggler("whisper-base",
+                                      get_config("whisper-base"))),
              ("rwkv6-1.6b", "train", train_rwkv6)]
     out = {arch: {} for arch in FAMILY_SERVE}
     for arch, leg, fn in legs:
@@ -2645,6 +2755,277 @@ def families_phase():
         print(f"families {arch} {leg}: {secs:.2f} s")
     out["seconds"] = time.perf_counter() - t_phase
     print(f"families phase wall seconds={out['seconds']:.4f}")
+    return out
+
+
+#: the MoE, MLA and vision-stub families at published widths.  deepseek-v3
+#: and llama4-maverick exceed one card at full depth (671 B and 400 B
+#: parameters), so their depth is cut: deepseek-v3 to its 3 dense-prefix
+#: layers and 1 MoE layer (MLA throughout; 256 routed experts top-8, 1
+#: shared), llama4-maverick to 1 dense and 1 MoE layer (128 experts top-1,
+#: 1 shared), both at gemma3-4b's serve shape through ``serve.run``, text
+#: only (llama4's config has frontend_seq 0).  llava-next-34b runs at full
+#: size (60 layers) through the serve CLI at batch 1: at batch 2 its 68.8
+#: GB of weights leave too little of the card
+WIDE_CUT = {"deepseek-v3": ("deepseek-v3-671b", dict(n_layers=4)),
+            "deepseek-v3-absorbed": ("deepseek-v3-671b",
+                                     dict(n_layers=4, mla_absorb=True)),
+            "llama4-maverick": ("llama4-maverick-400b-a17b",
+                                dict(n_layers=2)),
+            "llava-next-34b": ("llava-next-34b", {})}
+#: (layers, encoder layers, parameters) of each leg
+WIDE_SIZE = {"deepseek-v3": (4, 0, 15_111_101_440),
+             "deepseek-v3-absorbed": (4, 0, 15_111_101_440),
+             "llama4-maverick": (2, 0, 18_562_447_360),
+             "llava-next-34b": (60, 0, 34_396_264_448)}
+WIDE_SERVE = {"deepseek-v3": SERVE, "deepseek-v3-absorbed": SERVE,
+              "llama4-maverick": SERVE,
+              "llava-next-34b": dict(batch=1, prompt_len=2048, gen=32)}
+#: deepseek-v3 trained at full width, 4 layers, with 16 routed experts
+#: (top-8, the shared expert and capacity 1.25 kept): 4 539 735 040
+#: parameters, gemma3-4b's training size
+DEEPSEEK_TRAIN = dict(n_layers=4, n_experts=16)
+DEEPSEEK_TRAIN_PARAMS = 4_539_735_040
+#: the legs whose bf16 decode is held against twice the bf16 full
+#: forward's distance from the float32-activation forward of the same
+#: weights, not FAMILY_BF16_REL, and whose float32-activation decode is
+#: held to that forward within FAMILY_F32_REL: llava's 60 layers put its
+#: own bf16 error at about FAMILY_BF16_REL (PERF.md section 6; whisper
+#: and rwkv6, for which it was set, have 6 and 24)
+WIDE_TRUTH_HELD = ("llava-next-34b",)
+
+
+def wide_cfg(leg, **kw):
+    """The config of a leg of the wide phase, with ``kw`` on top."""
+    arch, cut = WIDE_CUT[leg]
+    return dataclasses.replace(get_config(arch), **{**cut, **kw})
+
+
+def no_drop_cfg(cfg):
+    """``cfg`` at capacity_factor E/K: C = ceil(T K / E x E / K) >= T in a
+    call of T tokens, and an expert takes at most one pair a token, so no
+    call drops a pair.  At the default 1.25 a decode step at B = 2, K = 8,
+    E = 256 has C = 1: the reference itself drops pairs there, and decode
+    does not equal the full forward."""
+    if not cfg.n_experts:
+        return cfg
+    return dataclasses.replace(
+        cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+
+
+def _same_weights(model, cfg):
+    """A model of ``cfg`` on ``model``'s own weight tensors, nothing drawn
+    or copied: ``cfg`` may differ from the model's in fields that change
+    no weight (the activation dtype, ``mla_absorb``, ``capacity_factor``)."""
+    other = init_params(cfg, device="meta")
+    state = model.state_dict()
+    other.load_state_dict({k: state[k] for k in other.state_dict()},
+                          assign=True)
+    return other
+
+
+class RouteTape:
+    """Within ``with``, records the ``Routing`` of every MoE call
+    (``moe_route``) in ``calls``; or, given an earlier tape, hands out its
+    recorded routings in call order in place of the run's own, and counts
+    the routed tokens whose own top-K experts differ from the recorded ones
+    (``flipped`` of ``routed``)."""
+
+    def __init__(self, replay=None):
+        self.replay = None if replay is None else list(replay.calls)
+        self.calls, self.flipped, self.routed = [], 0, 0
+
+    def _route(self, x2d, router_w, cfg):
+        own = self._own(x2d, router_w, cfg)
+        if self.replay is None:
+            self.calls.append(own)
+            return own
+        rec = self.replay.pop(0)
+        check(rec.top_i.shape == own.top_i.shape,
+              f"routing replay: a call of {tuple(own.top_i.shape)} picks "
+              f"met a recording of {tuple(rec.top_i.shape)}")
+        differ = (own.top_i.sort(-1).values
+                  != rec.top_i.sort(-1).values).any(-1)
+        self.flipped += int(differ.sum())
+        self.routed += differ.numel()
+        return rec
+
+    def __enter__(self):
+        self._own = model_layers.moe_route
+        model_layers.moe_route = self._route
+        return self
+
+    def __exit__(self, *exc):
+        model_layers.moe_route = self._own
+        if exc[0] is None and self.replay:
+            check(False, f"routing replay: {len(self.replay)} recorded "
+                         f"calls left over")
+
+
+@torch.inference_mode()
+def wide_consistency(family):
+    """(1) ``family`` at published widths in bf16 on the card (deepseek-v3
+    and llama4-maverick at their serve cuts, llava-next-34b at full size),
+    at capacity_factor E/K (``no_drop_cfg``): the full forward against a
+    16-token prefill plus 8 decode steps at the same positions, within
+    ``FAMILY_BF16_REL``; llava prefills its 1 024 patch embeddings (its
+    frontend_seq) with the text.  llava (``WIDE_TRUTH_HELD``): the same
+    decode with float32 activations on the same bf16 weights is held to
+    its float32 full forward within ``FAMILY_F32_REL``, and the bf16
+    decode to the full forward within twice the bf16 full forward's own
+    distance from that float32 forward, as is its distance from it.
+    deepseek-v3 decodes on the naive MLA path, recording its routing, then
+    on the absorbed path with that routing replayed (``RouteTape``, which
+    counts the tokens whose own top-K would differ): the absorbed decode is
+    held to the full forward and to the naive decode within
+    ``FAMILY_BF16_REL``.  Every variant runs on one draw of the weights
+    (``_same_weights``).  Counts set to 0 just before, read after: no
+    swa_attention launch.  (2) the family's smoke config in float32 at its
+    default capacity, the card against the CPU (``_smoke_card_vs_cpu``;
+    deepseek-v3 on both MLA paths)."""
+    legs = (["deepseek-v3", "deepseek-v3-absorbed"] if family == "deepseek-v3"
+            else [family])
+    B, P, steps = 2, 16, 8
+    cfg = no_drop_cfg(wide_cfg(legs[0]))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
+                         device=DEV)
+    ext = _frontend_inputs(cfg, B, lambda s: torch.randn(
+        s, generator=gen, device=DEV))
+    out, decs, tape = {}, {}, None
+    ops.reset_launch_counts()
+    model = init_params(cfg, seed=1, device=DEV)
+    for leg in legs:
+        cfg = no_drop_cfg(wide_cfg(leg))
+        # the absorbed path replays the naive path's routing
+        tape = RouteTape(tape if leg == "deepseek-v3-absorbed" else None)
+        with tape:
+            rel, decs[leg], full = _decode_vs_full(
+                _same_weights(model, cfg), cfg, toks, steps, ext)
+        o = out[leg] = {"decode_vs_full_bf16_rel": rel,
+                        "capacity_factor": cfg.capacity_factor,
+                        "patch_embeddings": ext["embeds"].shape[1]
+                        if "embeds" in ext else 0,
+                        "nudged_bf16_rel": None}
+        if rel == 0:
+            o["nudged_bf16_rel"] = _moves_when_nudged(
+                _same_weights(model, cfg), cfg, toks, ext, leg)
+        bound = FAMILY_BF16_REL
+        if leg in WIDE_TRUTH_HELD:
+            c32 = dataclasses.replace(cfg, dtype="float32")
+            rel32, _, truth = _decode_vs_full(_same_weights(model, c32), c32,
+                                              toks, steps, ext)
+            bound = 2 * _rel_gap(full, truth)
+            o.update(f32_decode_vs_full_rel=rel32,
+                     full_vs_f32_bf16_rel=bound / 2,
+                     decode_vs_f32_bf16_rel=_rel_gap(decs[leg], truth))
+            check(rel32 <= FAMILY_F32_REL
+                  and o["decode_vs_f32_bf16_rel"] <= bound,
+                  f"{leg}: float32-activation decode vs full rel "
+                  f"{rel32:.3e} (bound {FAMILY_F32_REL}), bf16 decode vs "
+                  f"the float32-activation forward "
+                  f"{o['decode_vs_f32_bf16_rel']:.3e} (bound {bound:.3e})")
+        if tape.replay is not None:
+            o.update(routing_replayed=True, flipped_tokens=tape.flipped,
+                     routed_tokens=tape.routed,
+                     absorbed_vs_naive_bf16_rel=_rel_gap(
+                         decs[leg], decs["deepseek-v3"]))
+            check(o["absorbed_vs_naive_bf16_rel"] <= FAMILY_BF16_REL,
+                  f"{leg}: decode vs the naive decode rel "
+                  f"{o['absorbed_vs_naive_bf16_rel']:.3e} (bound "
+                  f"{FAMILY_BF16_REL})")
+        o["decode_vs_full_bound"] = bound
+        del full
+        check(np.isfinite(rel) and rel <= bound,
+              f"{leg} bf16 decode vs full rel {rel:.3e} (bound {bound:.3e})")
+    del model, decs
+    _free_cuda()
+    launches = dict(ops.LAUNCHES)
+    check(_swa_launches(launches) == 0,
+          f"{family} consistency: swa_attention launched {launches}")
+    for leg in legs:
+        small = get_config(WIDE_CUT[leg][0]).smoke()
+        if WIDE_CUT[leg][1].get("mla_absorb"):
+            small = dataclasses.replace(small, mla_absorb=True)
+        o = out[leg]
+        o.update(_smoke_card_vs_cpu(small))
+        extra = ""
+        if "f32_decode_vs_full_rel" in o:
+            extra = (f": twice the full forward's "
+                     f"{o['full_vs_f32_bf16_rel']:.3e} from the "
+                     f"float32-activation forward, decode's "
+                     f"{o['decode_vs_f32_bf16_rel']:.3e}; the "
+                     f"float32-activation decode vs its full forward "
+                     f"{o['f32_decode_vs_full_rel']:.3e} (bound "
+                     f"{FAMILY_F32_REL})")
+        if o.get("routing_replayed"):
+            extra = (f"; the naive decode's routing replayed ("
+                     f"{o['flipped_tokens']} of {o['routed_tokens']} routed "
+                     f"tokens would pick other experts), decode vs the "
+                     f"naive decode rel {o['absorbed_vs_naive_bf16_rel']:.3e}"
+                     f" (bound {FAMILY_BF16_REL})")
+        print(f"consistency {leg} full width bf16"
+              + (f" ({o['patch_embeddings']} patch embeddings)"
+                 if o["patch_embeddings"] else "")
+              + f": prefill {P} + {steps} decode steps vs the full forward "
+              f"rel {o['decode_vs_full_bf16_rel']:.3e} (bound "
+              f"{o['decode_vs_full_bound']:.3e}{extra}; with a nudged cache "
+              f"{o['nudged_bf16_rel']}; capacity_factor "
+              f"{o['capacity_factor']:g}); "
+              f"{_card_vs_cpu_line(small.name, o)}; swa_attention launches 0")
+    return out
+
+
+def train_deepseek():
+    """deepseek-v3 at full width (4 layers, 16 routed experts) through
+    ``train_straggler``: the loss falls; the MoE aux loss is finite and
+    non-zero every step."""
+    out = train_straggler("deepseek-v3",
+                          wide_cfg("deepseek-v3", **DEEPSEEK_TRAIN))
+    check(out["params"] == DEEPSEEK_TRAIN_PARAMS,
+          f"train deepseek-v3: {out['params']} params")
+    auxs = out["aux"]
+    check(all(np.isfinite(a) and a > 0 for a in auxs),
+          f"train deepseek-v3: aux {auxs}")
+    print(f"train deepseek-v3: aux {auxs[0]:.6f} -> {auxs[-1]:.6f} (one MoE "
+          f"layer: 1 at an even load), grad norm {out['grad_norms'][0]:.4f} "
+          f"at step 0")
+    return out
+
+
+def _warm_wide():
+    """The wide phase's code paths once at the smoke widths in bf16 (MLA on
+    both paths, MoE, the frontend's projection) through ``serve.run``, so
+    that the first full-size leg's times hold no first-call costs."""
+    for leg in WIDE_CUT:
+        cfg = dataclasses.replace(wide_cfg(leg).smoke(),
+                                  param_dtype="bfloat16", dtype="bfloat16")
+        serve.run(cfg, batch=2, prompt_len=64, gen=3, device=DEV)
+
+
+def wide_phase():
+    """deepseek-v3 (naive and absorbed MLA) and llama4-maverick at
+    published widths with their depth cut, and llava-next-34b at full
+    size, after the families phase has freed whisper and rwkv6: serving
+    (no warm-up at full size: ``_warm_wide`` ran the same code at the smoke
+    widths, and each draw of the weights costs seconds), consistency
+    (decode against the full forward, the card against the CPU) and
+    deepseek-v3's training."""
+    t_phase = time.perf_counter()
+    _warm_wide()
+    legs = [(leg, "serve", lambda leg=leg: family_serve(
+        leg, wide_cfg(leg), WIDE_SERVE[leg], WIDE_SIZE[leg], warm=False))
+        for leg in WIDE_SERVE]
+    legs += [(fam, "consistency", lambda fam=fam: wide_consistency(fam))
+             for fam in ("deepseek-v3", "llama4-maverick", "llava-next-34b")]
+    legs += [("deepseek-v3", "train", train_deepseek)]
+    out = {leg: {} for leg in WIDE_SERVE}
+    for leg, kind, fn in legs:
+        res, secs = _timed(fn)
+        out[leg][kind] = {**res, "seconds": secs}
+        print(f"wide {leg} {kind}: {secs:.2f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"wide phase wall seconds={out['seconds']:.4f}")
     return out
 
 
@@ -2685,6 +3066,7 @@ def main():
     shard = shard_phase(card)
     train = train_phase()
     families = families_phase()
+    wide = wide_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -2755,6 +3137,8 @@ def main():
             "train_whisper": families["whisper-base"]["train"][
                 "greedy_launches"],
             "train_rwkv6": families["rwkv6-1.6b"]["train"][
+                "greedy_launches"],
+            "train_deepseek_v3": wide["deepseek-v3"]["train"][
                 "greedy_launches"],
             "shard_fig8": shard["fig8"]["greedy_launches"],
             "gate_fig8": gate["greedy_launches"],
@@ -2836,7 +3220,7 @@ def main():
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency, "grid": grid, "live": live,
         "gate": gate, "shard": shard, "train": train,
-        "families": families}))
+        "families": families, "wide": wide}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

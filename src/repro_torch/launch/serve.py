@@ -3,10 +3,15 @@
 ``forward(..., cache=...)``, then ``gen - 1`` greedy decode steps; prints
 the prefill and decode times.  Weights are random, drawn on the device from
 ``--seed``; an encoder-decoder (whisper) also draws its encoder frames
-(B, encoder_seq, frontend_dim) from it, for the prefill only.  Runs on the CUDA card unless given ``--device cpu``:
+(B, encoder_seq, frontend_dim) from it, for the prefill only.  Prompts
+are text: a vision-stub model (llava-next-34b, llama4-maverick) runs
+without patch embeddings, as the reference's serve CLI runs it.  Runs on
+the CUDA card unless given ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
       --batch 2 --prompt-len 2048 --gen 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llava-next-34b \\
+      --batch 1 --prompt-len 2048 --gen 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
       --smoke --device cpu
 """
@@ -35,6 +40,7 @@ class ServeResult:
     decode_s: float               # wall seconds of the gen - 1 decode steps
     finite: bool                  # every prefill and decode logit finite
     launches_after_prefill: dict  # ops.LAUNCHES right after the prefill
+    init_s: float                 # wall seconds of init_params
 
 
 def _sync(dev: torch.device) -> None:
@@ -47,10 +53,11 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
         seed: int = 0, device=None) -> ServeResult:
     """Prefill a random prompt of ``prompt_len`` tokens per request (with
     random encoder frames where the model has an encoder), then decode
-    greedily to ``gen`` tokens.  Times end in a device
-    synchronisation; the prefill time stops before the finiteness check,
-    and each decode step adds one min/max reduction of its logits.  On a
-    card, raises if the weights alone exceed its memory."""
+    greedily to ``gen`` tokens.  Weights are drawn from ``seed`` (timed as
+    ``init_s``).  Times end in a device synchronisation; the prefill time
+    stops before the finiteness check, and each decode step adds one
+    min/max reduction of its logits.  On a card, raises if the weights
+    alone exceed its memory."""
     if min(batch, prompt_len, gen) < 1:
         raise ValueError("batch, prompt_len and gen must be >= 1")
     dev = resolve_device(device)
@@ -62,7 +69,11 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
             raise ValueError(f"{cfg.name}: {need} bytes of weights exceed the "
                              f"{have} bytes of one card (multi-GPU serving "
                              f"is a later slice, ROADMAP.md)")
+    _sync(dev)
+    t0 = time.perf_counter()
     model = init_params(cfg, seed=seed, device=dev)
+    _sync(dev)
+    init_s = time.perf_counter() - t0
     cache = init_cache(cfg, batch, prompt_len + gen + 8, device=dev)
     gen_ = torch.Generator(device=dev).manual_seed(seed)
     prompt = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
@@ -92,7 +103,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, gen: int,
     decode_s = time.perf_counter() - t0
     finite = bool(torch.isfinite(torch.stack(extremes)).all())
     return ServeResult(torch.cat(out, dim=1).cpu(), prefill_s, decode_s,
-                       finite, launches)
+                       finite, launches, init_s)
 
 
 def main(argv=None) -> ServeResult:
@@ -118,7 +129,8 @@ def main(argv=None) -> ServeResult:
           f"{res.prefill_s * 1e3:.1f} ms "
           f"({B * args.prompt_len / max(res.prefill_s, 1e-9):.1f} tok/s); "
           f"{steps} decode steps in {res.decode_s * 1e3:.1f} ms "
-          f"({steps * B / max(res.decode_s, 1e-9):.1f} tok/s batch={B})")
+          f"({steps * B / max(res.decode_s, 1e-9):.1f} tok/s batch={B}); "
+          f"weights drawn in {res.init_s:.2f} s")
     for b in range(min(B, 2)):
         print(f"  req{b}: {res.tokens[b, :16].tolist()}...")
     return res

@@ -202,9 +202,10 @@ def main(argv=None) -> TrainResult:
         cfg = cfg.smoke()
     if cfg.frontend_seq or cfg.encoder_layers:
         # the reference's refusal (repro/launch/train.py:198-200)
-        raise SystemExit("use text archs for this launcher; whisper "
-                         "training goes through train.make_straggler_"
-                         "train_step with extras={'enc_frames': ...}")
+        raise SystemExit("use text archs for this launcher; whisper and "
+                         "llava training go through train.make_straggler_"
+                         "train_step with extras={'enc_frames': ...} or "
+                         "{'embeds': ...}")
     dev = resolve_device(args.device)
     if dev.type == "cuda":
         need = state_bytes(cfg)
@@ -296,7 +297,7 @@ def main(argv=None) -> TrainResult:
         missed += int(bool(m["deadline_missed"]))
         realized_sum += float(m["realized_k"])
         history.append({
-            "step": i, "loss": float(m["loss"]),
+            "step": i, "loss": float(m["loss"]), "aux": float(m["aux"]),
             "grad_norm": float(m["grad_norm"]),
             "completion_time": float(m["completion_time"]),
             "winners": int(m["winners"]), "realized_k": float(m["realized_k"]),

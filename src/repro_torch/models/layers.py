@@ -1,9 +1,10 @@
 """Layers of the port's LM stack (counterpart of ``repro.models.layers``
-for the dense, audio and RWKV families): projections, RMS and layer norm,
-rotary embeddings, the attention core, grouped-query attention with its KV
-cache (full or ring buffer) and cross-attention, the SwiGLU and GELU
-feed-forwards, and the RWKV-6 time-mix and channel-mix with their token
-shift and recurrent state.
+for every family but Mamba's): projections, RMS and layer norm, rotary
+embeddings, the attention core, grouped-query attention with its KV cache
+(full or ring buffer) and cross-attention, DeepSeek's multi-head latent
+attention (MLA) with its compressed cache, the SwiGLU and GELU
+feed-forwards, the capacity-based mixture of experts (MoE), and the RWKV-6
+time-mix and channel-mix with their token shift and recurrent state.
 
 Weights keep the JAX layout (a ``dense`` weight is ``(d_in, d_out)`` and is
 used as ``x @ w``) and the JAX names, so ``repro_torch.convert.lm_params``
@@ -13,7 +14,8 @@ of fresh tokens, with no cache or into an empty ring, is the
 recorded; the other attention paths, and that one under autograd, are
 torch ops, as the JAX package computes them in jnp.  The RWKV-6
 recurrence is a step loop in torch ops, as the JAX package's is a
-``lax.scan`` (no Pallas kernel).  KV caches are
+``lax.scan``, and the MoE expert products are ``bmm``, as the JAX
+package's are ``einsum`` (no Pallas kernel in either).  KV caches are
 updated in place (the JAX package returns new arrays); ``pos`` is a host
 integer.
 
@@ -26,7 +28,7 @@ the port's counter-based Philox (``core/rng.py``): parameter ``i`` of
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -41,7 +43,9 @@ __all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
            "gqa_cache_init", "swiglu", "gelu_mlp", "token_shift",
            "cmix_apply", "wkv6", "rwkv6_apply", "rwkv6_state_init",
            "Dense", "RMSNorm", "LayerNorm", "make_norm", "Attention",
-           "SwiGLU", "GeluMLP", "CMix", "RWKV6", "init_weights_"]
+           "SwiGLU", "GeluMLP", "CMix", "RWKV6", "init_weights_", "MLA",
+           "mla_apply", "mla_cache_init", "MoE", "Routing", "moe_capacity",
+           "moe_route", "moe_local", "moe_apply"]
 
 #: the Philox stream of the initial weights, one that no other draw of the
 #: port uses (the delay models take 0-4, the processes 5-8, the fault layers
@@ -268,11 +272,13 @@ class Attention(nn.Module):
 
 
 class SwiGLU(nn.Module):
-    """``w_down(silu(w_gate x) * w_up x)``."""
+    """``w_down(silu(w_gate x) * w_up x)``, of width ``d_ff`` (default
+    ``cfg.d_ff``; an MoE layer's shared experts take their own)."""
 
-    def __init__(self, cfg: ModelConfig, *, device=None):
+    def __init__(self, cfg: ModelConfig, *, d_ff: Optional[int] = None,
+                 device=None):
         super().__init__()
-        d_ff = cfg.d_ff
+        d_ff = d_ff or cfg.d_ff
         kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
         self.w_gate = Dense(cfg.d_model, d_ff, **kw)
         self.w_up = Dense(cfg.d_model, d_ff, **kw)
@@ -639,3 +645,258 @@ def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
     shape = (batch, cfg.n_kv_heads, S, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device), "pos": 0}
+
+
+# --------------------------------------------------------------------------
+# MLA: DeepSeek-V3 multi-head latent attention (compressed KV cache)
+# --------------------------------------------------------------------------
+
+class MLA(nn.Module):
+    """Multi-head latent attention's projections (``mla_init``): the
+    query's low-rank pair ``w_dq``/``q_norm``/``w_uq`` (``w_uq`` alone
+    without ``q_lora_rank``), the key/value compression ``w_dkv`` with
+    ``kv_norm``, its decompression ``w_uk`` (the nope keys and the values
+    of every head), the shared rotary key ``w_kr`` and ``wo``;
+    ``forward`` is ``mla_apply``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        H, R, d = cfg.n_heads, cfg.kv_lora_rank, cfg.d_model
+        nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.w_dkv = Dense(d, R, **kw)
+        self.kv_norm = RMSNorm(R, cfg.norm_eps, **kw)
+        self.w_uk = Dense(R, H * (nd + vd), **kw)
+        self.w_kr = Dense(d, rd, **kw)
+        self.wo = Dense(H * vd, d, **kw)
+        if cfg.q_lora_rank:
+            self.w_dq = Dense(d, cfg.q_lora_rank, **kw)
+            self.q_norm = RMSNorm(cfg.q_lora_rank, cfg.norm_eps, **kw)
+            self.w_uq = Dense(cfg.q_lora_rank, H * (nd + rd), **kw)
+        else:
+            self.w_dq = self.q_norm = None
+            self.w_uq = Dense(d, H * (nd + rd), **kw)
+
+    def forward(self, x, **kw):
+        return mla_apply(self, self.cfg, x, **kw)
+
+
+def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor, *,
+              positions: Optional[torch.Tensor] = None,
+              cache: Optional[dict] = None
+              ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x (B, T, d) -> (y (B, T, d), new_cache).  ``cache`` = {"c_kv" (B, S,
+    R), "k_rope" (B, S, rd), "pos" (int)}, written in place.  The naive
+    path decompresses the latents of positions [0, pos + T) through
+    ``w_uk`` (the reference decompresses all S and masks those past pos +
+    T: the same numbers) and attends with q/k heads of nd + rd and value
+    heads of vd; with ``cfg.mla_absorb`` and a cache, the scores are taken
+    in the latent space in float32 and the context is projected out
+    through ``w_uk``'s value half (repro/models/layers.py:500-525)."""
+    B, T, _ = x.shape
+    H = cfg.n_heads
+    nd, rd, vd = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    if positions is None:
+        positions = torch.arange(T, device=x.device)[None, :]
+    ql = x if p.w_dq is None else p.q_norm(p.w_dq(x))
+    q = p.w_uq(ql).reshape(B, T, H, nd + rd)
+    q_nope = q[..., :nd]
+    q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
+    c_kv = p.kv_norm(p.w_dkv(x))                             # (B, T, R)
+    k_rope = apply_rope(p.w_kr(x), positions, cfg.rope_theta)  # (B, T, rd)
+    if cache is None:
+        q_offset, new_cache = 0, None
+    else:
+        pos, S = cache["pos"], cache["c_kv"].shape[1]
+        if pos + T > S:
+            # the reference's dynamic_update_slice would clamp the write
+            # (ROADMAP.md section 3)
+            raise ValueError(f"MLA cache overflow: {pos} + {T} tokens into "
+                             f"a cache of {S}")
+        cache["c_kv"][:, pos:pos + T] = c_kv
+        cache["k_rope"][:, pos:pos + T] = k_rope
+        c_kv = cache["c_kv"][:, :pos + T]
+        k_rope = cache["k_rope"][:, :pos + T]
+        q_offset, new_cache = pos, {**cache, "pos": pos + T}
+    S_ = c_kv.shape[1]
+
+    if cfg.mla_absorb and cache is not None:
+        R = cfg.kv_lora_rank
+        wk = p.w_uk.w.to(x.dtype).reshape(R, H, nd + vd)
+        w_uk_k, w_uk_v = wk[..., :nd], wk[..., nd:]
+        q_lat = torch.einsum("bthn,rhn->bthr", q_nope, w_uk_k)
+        # preferred_element_type=float32: products of the activation dtype
+        # summed in float32
+        s = torch.einsum("bthr,bsr->bhts", q_lat.float(), c_kv.float())
+        s = s + torch.einsum("bthr,bsr->bhts", q_rope.float(),
+                             k_rope.float())
+        s = s / math.sqrt(nd + rd)
+        qpos = q_offset + torch.arange(T, device=x.device)
+        seen = torch.arange(S_, device=x.device)[None, :] <= qpos[:, None]
+        pr = torch.softmax(s.masked_fill(~seen, float("-inf")), dim=-1)
+        ctx = torch.einsum("bhts,bsr->bthr", pr.to(x.dtype), c_kv)
+        out_h = torch.einsum("bthr,rhv->bthv", ctx, w_uk_v)
+        return p.wo(out_h.reshape(B, T, H * vd)), new_cache
+
+    kv = p.w_uk(c_kv).reshape(B, S_, H, nd + vd)
+    k = torch.cat([kv[..., :nd],
+                   k_rope[:, :, None, :].expand(B, S_, H, rd)], dim=-1)
+    qh = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    out = attention_core(qh, k.transpose(1, 2), kv[..., nd:].transpose(1, 2),
+                         causal=True, q_offset=q_offset,
+                         kv_len=None if cache is None else q_offset + T)
+    return p.wo(out.transpose(1, 2).reshape(B, T, H * vd)), new_cache
+
+
+def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
+                   device=None) -> dict:
+    """An MLA layer's cache: the latents ``c_kv`` (B, S, R) and the shared
+    rotary keys ``k_rope`` (B, S, rd), zeros of the activation dtype."""
+    dt = getattr(torch, cfg.dtype)
+    return {"c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                                dtype=dt, device=device),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim),
+                                  dtype=dt, device=device),
+            "pos": 0}
+
+
+# --------------------------------------------------------------------------
+# MoE: capacity-based grouped GEMM
+# --------------------------------------------------------------------------
+
+class MoE(nn.Module):
+    """Routed experts with a float32 ``router`` (d, E), the experts'
+    ``w_gate``/``w_up`` (E, d, f) and ``w_down`` (E, f, d), and the
+    ``shared`` experts as one SwiGLU of width f x n_shared_experts
+    (``moe_init``); ``forward`` is ``moe_apply``."""
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        E, d = cfg.n_experts, cfg.d_model
+        f = cfg.d_ff_expert or cfg.d_ff
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        # the router stays float32 in every model, for a stable top-k
+        self.router = nn.Parameter(torch.empty((d, E), dtype=torch.float32,
+                                               device=device))
+        self.w_gate = nn.Parameter(torch.empty((E, d, f), **kw))
+        self.w_up = nn.Parameter(torch.empty((E, d, f), **kw))
+        self.w_down = nn.Parameter(torch.empty((E, f, d), **kw))
+        self.shared = (SwiGLU(cfg, d_ff=f * cfg.n_shared_experts,
+                              device=device)
+                       if cfg.n_shared_experts else None)
+        s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+        self.INIT_STD = {"router": s_in, "w_gate": s_in, "w_up": s_in,
+                         "w_down": s_out}
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return moe_apply(self, self.cfg, x)
+
+
+class Routing(NamedTuple):
+    """One call's routing (``moe_route``); the pair arrays run over the T x
+    K (token, k) pairs in the stable order of their local expert."""
+    top_w: torch.Tensor     # (T, K) float32 gate weights, renormalised
+    top_i: torch.Tensor     # (T, K) int64 experts, best first
+    aux: torch.Tensor       # () float32 load-balance loss E sum f_e P_e
+    order: torch.Tensor     # (T K,) the pairs sorted by expert
+    slot: torch.Tensor      # (T K,) buffer row e C + c, E C if dropped
+    ok: torch.Tensor        # (T K,) bool, kept within capacity
+    counts: torch.Tensor    # (E,) pairs per expert
+    capacity: int           # C
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int) -> int:
+    """C = max(1, ceil(T K / E x capacity_factor)) for the T tokens of one
+    call, in Python floats as the reference computes it."""
+    return max(1, math.ceil(tokens * cfg.experts_per_token / cfg.n_experts
+                            * cfg.capacity_factor))
+
+
+def moe_route(x2d: torch.Tensor, router_w: torch.Tensor,
+              cfg: ModelConfig) -> Routing:
+    """The reference's routing (repro/models/layers.py:648-668) over all E
+    experts on one device: softmax of the float32 logits,
+    the top K (the lower expert first among equal probabilities, as
+    ``lax.top_k`` orders them: a stable descending sort, since
+    ``torch.topk`` promises no order for ties), weights renormalised by
+    max(sum, 1e-9), the aux loss, and a stable sort of the pairs by
+    expert whose first C of each expert are kept.  Counts are integer
+    scatter-adds: exact, and no host synchronisation."""
+    T = x2d.shape[0]
+    E, K = cfg.n_experts, cfg.experts_per_token
+    C = moe_capacity(cfg, T)
+    dev = x2d.device
+    probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = srt.values[:, :K], srt.indices[:, :K]
+    top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
+    flat_i = top_i.reshape(-1)
+    ones = torch.ones_like(flat_i)
+    f_e = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
+        0, flat_i, ones).float() / (T * K)
+    # jnp.mean multiplies the sum by the float32 reciprocal of the count
+    P_e = probs.sum(0) * (1.0 / T)
+    aux = E * (f_e * P_e).sum()
+
+    skey, order = torch.sort(flat_i, stable=True)
+    counts = torch.zeros(E, dtype=torch.int64,
+                         device=dev).scatter_add_(0, skey, ones)
+    starts = counts.cumsum(0) - counts                      # exclusive
+    pos = torch.arange(T * K, device=dev) - starts[skey]
+    ok = pos < C
+    slot = torch.where(ok, skey * C + pos, E * C)
+    return Routing(top_w, top_i, aux, order, slot, ok, counts, C)
+
+
+def moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
+              w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
+              *, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_local`` with every expert local: x2d (T, d) -> (the routed
+    experts' contributions (T, d), aux).  Dispatch gathers the (E, C, d)
+    expert buffer: row (e,
+    c) holds the token of expert e's c-th kept pair, or zeros, so only
+    kept pairs are written (the reference's trash row is an artefact of its
+    scatter).  The expert products are ``bmm`` in the activation dtype.
+    Combine gathers each (token, k) pair's output back into (T, K, d) order,
+    scales it by its gate weight cast to the activation dtype and sums over
+    K: no float atomics, so a recomputation (remat) gives the same
+    numbers."""
+    T, d = x2d.shape
+    K = cfg.experts_per_token
+    E = cfg.n_experts
+    rt = moe_route(x2d, router_w, cfg)
+    C, dev = rt.capacity, x2d.device
+    c = torch.arange(C, device=dev)
+    starts = rt.counts.cumsum(0) - rt.counts
+    src = (starts[:, None] + c[None, :]).clamp(max=T * K - 1)
+    tok = torch.where(c[None, :] < rt.counts[:, None],
+                      rt.order[src] // K, T)                 # T: zero row
+    xz = torch.cat([x2d, x2d.new_zeros((1, d))])
+    eb = xz[tok]                                            # (E, C, d)
+    h = torch.bmm(eb, w_gate.to(eb.dtype))
+    u = torch.bmm(eb, w_up.to(eb.dtype))
+    y = torch.bmm(F.silu(h) * u, w_down.to(eb.dtype))
+    yz = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+    # each pair's row in original (token, k) order: the sort's inverse
+    # permutation (a scatter to distinct indices)
+    slot = torch.empty_like(rt.slot).scatter_(0, rt.order, rt.slot)
+    contrib = yz[slot] * rt.top_w.reshape(-1, 1).to(x2d.dtype)
+    return contrib.reshape(T, K, d).sum(1), rt.aux
+
+
+def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, T, d) -> (out, aux): the routed experts over the B T tokens of
+    this call plus the shared experts, every expert on one device.  The
+    reference's ``shard_map`` branch (experts sharded over a mesh's model
+    axis) is ROADMAP.md queue 1, item 8.8: a mesh context would select it
+    here."""
+    B, T, d = x.shape
+    out, aux = moe_local(x.reshape(B * T, d), p.router, p.w_gate, p.w_up,
+                         p.w_down, cfg=cfg)
+    out = out.reshape(B, T, d)
+    if p.shared is not None:
+        out = out + swiglu(p.shared, x)
+    return out, aux

@@ -9,12 +9,14 @@ segments into those layers.  ``remat`` recomputes each block in backward
 
 Weights: ``embed`` (V_pad, d), ``blocks.<l>.{norm1, mixer, norm2, ffn}``
 (plus ``norm_x``, ``xattn`` in a decoder layer with cross-attention),
-``final_norm``, ``lm_head`` (absent with tied embeddings), and for whisper
-``pos_embed``, ``frontend_proj`` and ``encoder.{blocks.<l>, final_norm}``,
-under the JAX names.  Cache: ``{"layers": [...], "pos"}`` with
-host-integer positions; a layer holds ``attn`` {"k", "v", "pos"} or, for
+``final_norm``, ``lm_head`` (absent with tied embeddings), for whisper
+``pos_embed`` and ``encoder.{blocks.<l>, final_norm}``, and with a
+modality frontend ``frontend_proj``, under the JAX names.  Cache:
+``{"layers": [...], "pos"}`` with host-integer positions; a layer holds
+``attn`` ({"k", "v", "pos"}, or for MLA {"c_kv", "k_rope", "pos"}) or, for
 rwkv6, ``ssm`` {"S", "x_prev"}, plus ``cmix_prev`` and ``xk``/``xv``
-where its layer has them.
+where its layer has them.  ``forward`` returns the MoE layers' summed
+load-balance loss beside the logits.
 """
 from __future__ import annotations
 
@@ -34,11 +36,12 @@ from .config import LayerSpec, ModelConfig, find_period, layer_specs
 __all__ = ["Segment", "plan_segments", "Block", "Encoder", "Transformer",
            "block_apply", "block_cache_init", "sinusoid",
            "init_params", "forward", "encode", "init_cache", "num_params",
-           "ENC_SPEC"]
+           "active_params", "ENC_SPEC"]
 
 _OUTSIDE = ("ROADMAP.md queue 1, item 8 (the rest of the LM stack): the "
-            "port's LM slice has dense gqa/swa attention with SwiGLU, the "
-            "whisper encoder-decoder and the RWKV-6 time-mix")
+            "port's LM slice has dense gqa/swa attention and MLA with SwiGLU "
+            "or MoE, the vision-stub frontend, the whisper encoder-decoder "
+            "and the RWKV-6 time-mix")
 #: the layers of whisper's encoder (repro/models/model.py:329)
 ENC_SPEC = LayerSpec(mixer="gqa", ffn="gelu", cross_attn=False)
 
@@ -76,20 +79,21 @@ def plan_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
 
 
 def _check_slice(cfg: ModelConfig) -> None:
-    """Raise for what the port's LM slice does not run."""
+    """Raise for what the port's LM slice does not run.  ``mla_absorb`` is
+    a single-device variant of MLA, not a mesh one, and runs."""
     for name in ("seq_shard_decode", "grouped_gqa",
-                 "attn_batch_shard_fallback", "mla_absorb"):
+                 "attn_batch_shard_fallback"):
         if getattr(cfg, name):
             raise NotImplementedError(f"{cfg.name}: mesh variant {name}; "
                                       f"{_OUTSIDE}")
-    if cfg.frontend not in (None, "audio_stub"):
+    if cfg.frontend not in (None, "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: modality frontend "
                                   f"{cfg.frontend!r}; {_OUTSIDE}")
     if cfg.arch_type == "hybrid":
         raise NotImplementedError(f"{cfg.name}: hybrid stacks; {_OUTSIDE}")
     for spec in layer_specs(cfg):
-        if spec.mixer not in ("gqa", "swa", "rwkv6") or \
-                spec.ffn not in ("swiglu", "gelu", "cmix"):
+        if spec.mixer not in ("gqa", "swa", "mla", "rwkv6") or \
+                spec.ffn not in ("swiglu", "gelu", "cmix", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}); {_OUTSIDE}")
         if spec.mixer == "swa" and cfg.attn_logit_softcap:
@@ -99,7 +103,9 @@ def _check_slice(cfg: ModelConfig) -> None:
                 f"applies; ROADMAP.md section 3)")
 
 
-_FFNS = {"swiglu": L.SwiGLU, "gelu": L.GeluMLP, "cmix": L.CMix}
+_MIXERS = {"gqa": L.Attention, "swa": L.Attention, "mla": L.MLA,
+           "rwkv6": L.RWKV6}
+_FFNS = {"swiglu": L.SwiGLU, "gelu": L.GeluMLP, "cmix": L.CMix, "moe": L.MoE}
 
 
 class Block(nn.Module):
@@ -110,8 +116,7 @@ class Block(nn.Module):
         super().__init__()
         self.cfg, self.spec = cfg, spec
         self.norm1 = L.make_norm(cfg, device=device)
-        self.mixer = (L.RWKV6(cfg, device=device) if spec.mixer == "rwkv6"
-                      else L.Attention(cfg, device=device))
+        self.mixer = _MIXERS[spec.mixer](cfg, device=device)
         self.norm2 = L.make_norm(cfg, device=device)
         self.ffn = _FFNS[spec.ffn](cfg, device=device)
         if spec.cross_attn:
@@ -137,18 +142,26 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                 *, positions: torch.Tensor, cache: Optional[dict] = None,
                 causal: bool = True, use_rope: bool = True,
                 enc_out: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Returns (x, new_cache).  The JAX block also returns an auxiliary
-    loss, which only MoE layers make; the port has none.  A cross-attention
-    layer takes its keys and values from ``enc_out`` when given (and stores
-    them in the cache as ``xk``/``xv``), else from the cache."""
+                ) -> Tuple[torch.Tensor, Optional[dict],
+                           Optional[torch.Tensor]]:
+    """Returns (x, new_cache, aux): ``aux`` is an MoE layer's load-balance
+    loss, None for any other layer (the reference's float32 zero, which
+    would cost two kernel launches a layer).  A cross-attention layer
+    takes its keys and values from ``enc_out`` when given (and stores them
+    in the cache as ``xk``/``xv``), else from the cache."""
     new = None if cache is None else dict(cache)
+    aux = None
     h = p.norm1(x)
     if spec.mixer == "rwkv6":
         h, st = L.rwkv6_apply(p.mixer, cfg, h,
                               state=None if cache is None else cache["ssm"])
         if new is not None:
             new["ssm"] = st
+    elif spec.mixer == "mla":
+        h, mc = L.mla_apply(p.mixer, cfg, h, positions=positions,
+                            cache=None if cache is None else cache["attn"])
+        if new is not None:
+            new["attn"] = mc
     else:
         window = cfg.sliding_window if spec.mixer == "swa" else None
         h, mc = L.gqa_apply(p.mixer, cfg, h, window=window,
@@ -179,20 +192,25 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                                else cache["cmix_prev"])
         if new is not None:
             new["cmix_prev"] = last
+    elif spec.ffn == "moe":
+        h, aux = L.moe_apply(p.ffn, cfg, h)
     else:
         h = p.ffn(h)
-    return x + h, new
+    return x + h, new, aux
 
 
 def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, *, device=None) -> dict:
     """A layer's cache: the KV cache of an attention layer (a ring of
-    min(window, max_len) slots for swa), the recurrent state of an rwkv6
-    layer, the channel-mix's last input, and the cross-attention keys and
-    values (None until a prefill with ``enc_frames`` sets them)."""
+    min(window, max_len) slots for swa), the latents and rotary keys of an
+    MLA layer, the recurrent state of an rwkv6 layer, the channel-mix's
+    last input, and the cross-attention keys and values (None until a
+    prefill with ``enc_frames`` sets them)."""
     c: dict = {}
     if spec.mixer == "rwkv6":
         c["ssm"] = L.rwkv6_state_init(cfg, batch, device=device)
+    elif spec.mixer == "mla":
+        c["attn"] = L.mla_cache_init(cfg, batch, max_len, device=device)
     else:
         c["attn"] = L.gqa_cache_init(
             cfg, batch, max_len, device=device,
@@ -240,8 +258,10 @@ def _run(block: Block, x: torch.Tensor, remat: bool, **kw):
 class Transformer(nn.Module):
     """The LM: token embedding (plus the learned ``pos_embed`` of the audio
     family), one ``Block`` per layer in ``layer_specs`` order, final norm
-    and the LM head; with ``encoder_layers``, the ``frontend_proj`` of the
-    frames and the ``encoder``."""
+    and the LM head; with a frontend, its ``frontend_proj`` (the encoder's
+    input with ``encoder_layers``, else the projection of the embeddings
+    that ``forward(embeds=)`` prepends); with ``encoder_layers``, the
+    ``encoder``."""
 
     def __init__(self, cfg: ModelConfig, *, device=None):
         super().__init__()
@@ -283,21 +303,32 @@ class Transformer(nn.Module):
         positions = torch.arange(x.shape[1], device=x.device)[None]
         remat = self._remat(None)
         for block in self.encoder.blocks:
-            x, _ = _run(block, x, remat, positions=positions, causal=False,
-                        use_rope=False)
+            x, _, _ = _run(block, x, remat, positions=positions,
+                           causal=False, use_rope=False)
         return self.encoder.final_norm(x)
 
     def forward(self, tokens: torch.Tensor, *, cache: Optional[dict] = None,
+                embeds: Optional[torch.Tensor] = None,
                 enc_frames: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, Optional[dict]]:
-        """tokens (B, T) -> (logits (B, T, V_pad), aux_loss, new_cache);
-        the auxiliary loss is zero (no MoE layers).  ``enc_frames`` (B,
-        T_enc, frontend_dim) runs the encoder; its keys and values go into
-        the cache when one is given, so decode steps need no frames."""
+        """tokens (B, T) -> (logits (B, P + T, V_pad), aux_loss, new_cache);
+        ``aux_loss`` is the float32 sum of the MoE layers' load-balance
+        losses (zero without MoE layers).  ``embeds`` (B, P, frontend_dim),
+        stub modality tokens, go through ``frontend_proj`` and are
+        prepended to the text, so positions (and a cache's ``pos``) cover
+        P + T.  ``enc_frames`` (B, T_enc, frontend_dim) runs the encoder;
+        its keys and values go into the cache when one is given, so decode
+        steps need no frames."""
         cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
         # F.embedding's backward sums a row's gradients in a fixed order
         # (indexing's index_put_ accumulates in a racy one on the CPU)
-        x = F.embedding(tokens, self.embed).to(getattr(torch, cfg.dtype))
+        x = F.embedding(tokens, self.embed).to(dt)
+        if embeds is not None:
+            if self.frontend_proj is None:
+                raise ValueError(f"{cfg.name} has no frontend to project "
+                                 f"embeds")
+            x = torch.cat([self.frontend_proj(embeds.to(dt)), x], dim=1)
         T = x.shape[1]
         pos0 = 0 if cache is None else cache["pos"]
         positions = pos0 + torch.arange(T, device=x.device)[None, :]
@@ -317,10 +348,13 @@ class Transformer(nn.Module):
         kw = dict(positions=positions, use_rope=cfg.arch_type != "audio",
                   enc_out=enc_out)
         new_layers = []
+        aux = torch.zeros((), device=x.device)
         for i, block in enumerate(self.blocks):
-            x, c = _run(block, x, remat, cache=None if cache is None
-                        else cache["layers"][i], **kw)
+            x, c, a = _run(block, x, remat, cache=None if cache is None
+                           else cache["layers"][i], **kw)
             new_layers.append(c)
+            if a is not None:
+                aux = aux + a
         x = self.final_norm(x)
         logits = (x @ self.embed.to(x.dtype).T if self.lm_head is None
                   else self.lm_head(x))
@@ -330,7 +364,7 @@ class Transformer(nn.Module):
             logits = logits.masked_fill(pad, -1e9)
         new_cache = (None if cache is None else
                      {"layers": new_layers, "pos": pos0 + T})
-        return logits, torch.zeros((), device=x.device), new_cache
+        return logits, aux, new_cache
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -354,13 +388,14 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
 
 
 def forward(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor, *,
-            cache: Optional[dict] = None,
-            enc_frames: Optional[torch.Tensor] = None):
+            embeds: Optional[torch.Tensor] = None,
+            enc_frames: Optional[torch.Tensor] = None,
+            cache: Optional[dict] = None):
     """The JAX package's ``forward``: (logits, aux_loss, new_cache)."""
     if cfg != params.cfg:
         raise ValueError(f"config {cfg.name} is not the model's "
                          f"({params.cfg.name})")
-    return params(tokens, cache=cache, enc_frames=enc_frames)
+    return params(tokens, cache=cache, embeds=embeds, enc_frames=enc_frames)
 
 
 def encode(params: Transformer, cfg: ModelConfig,
@@ -384,3 +419,48 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def num_params(params: nn.Module) -> int:
     return sum(p.numel() for p in params.parameters())
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """The reference's approximate active parameter count (an MoE layer
+    counts its top-K and shared experts and its router), for model FLOPs
+    6 N_active D (repro/models/model.py:411-458)."""
+    d, V = cfg.d_model, cfg.padded_vocab
+    total = V * d * (1 if cfg.tie_embeddings else 2)
+    gqa = d * cfg.head_dim * (cfg.n_heads * 2 + cfg.n_kv_heads * 2)
+    for s in layer_specs(cfg):
+        if s.mixer in ("gqa", "swa"):
+            total += gqa
+        elif s.mixer == "mla":
+            H, R = cfg.n_heads, cfg.kv_lora_rank
+            qk = cfg.qk_nope_dim + cfg.qk_rope_dim
+            total += d * R + R * H * (cfg.qk_nope_dim + cfg.v_head_dim)
+            total += d * cfg.qk_rope_dim
+            if cfg.q_lora_rank:
+                total += d * cfg.q_lora_rank + cfg.q_lora_rank * H * qk
+            else:
+                total += d * H * qk
+            total += H * cfg.v_head_dim * d
+        elif s.mixer == "mamba":
+            di = cfg.d_inner
+            dt_rank = max(1, math.ceil(d / 16))
+            total += d * 2 * di + cfg.d_conv * di + \
+                di * (dt_rank + 2 * cfg.d_state) + dt_rank * di + di * d
+        elif s.mixer == "rwkv6":
+            total += 6 * d * d
+        if s.cross_attn:
+            total += gqa
+        if s.ffn == "swiglu":
+            total += 3 * d * cfg.d_ff
+        elif s.ffn == "gelu":
+            total += 2 * d * cfg.d_ff
+        elif s.ffn == "cmix":
+            total += 2 * d * cfg.d_ff + d * d
+        elif s.ffn == "moe":
+            f = cfg.d_ff_expert or cfg.d_ff
+            total += 3 * d * f * (cfg.experts_per_token
+                                  + cfg.n_shared_experts)
+            total += d * cfg.n_experts
+    if cfg.encoder_layers:
+        total += cfg.encoder_layers * (gqa + 2 * d * cfg.d_ff)
+    return total

@@ -87,12 +87,18 @@ def init_train_state(cfg: ModelConfig, opt: Optimizer, *, seed: int = 0,
 
 def lm_loss_per_seq(params: Transformer, cfg: ModelConfig,
                     tokens: torch.Tensor, labels: torch.Tensor, *,
+                    embeds: Optional[torch.Tensor] = None,
                     enc_frames: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-sequence next-token cross-entropy (B,), in float32; returns
-    (losses, aux).  ``enc_frames`` (B, T_enc, frontend_dim) feed the
-    encoder of an encoder-decoder (whisper)."""
-    logits, aux, _ = forward(params, cfg, tokens, enc_frames=enc_frames)
+    (losses, aux).  ``embeds`` (B, P, frontend_dim) are prepended stub
+    modality tokens (the loss is taken on the text positions only);
+    ``enc_frames`` (B, T_enc, frontend_dim) feed the encoder of an
+    encoder-decoder (whisper)."""
+    logits, aux, _ = forward(params, cfg, tokens, embeds=embeds,
+                             enc_frames=enc_frames)
+    if embeds is not None:
+        logits = logits[:, embeds.shape[1]:]
     lp = torch.log_softmax(logits.float(), dim=-1)
     del logits
     ll = lp.gather(-1, labels[..., None].long())[..., 0]
@@ -101,11 +107,12 @@ def lm_loss_per_seq(params: Transformer, cfg: ModelConfig,
 
 def lm_loss(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
             labels: torch.Tensor, *,
+            embeds: Optional[torch.Tensor] = None,
             enc_frames: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean next-token cross-entropy; returns (loss, aux)."""
     losses, aux = lm_loss_per_seq(params, cfg, tokens, labels,
-                                  enc_frames=enc_frames)
+                                  embeds=embeds, enc_frames=enc_frames)
     return losses.mean(), aux
 
 
@@ -129,7 +136,8 @@ def _apply_grads(state: TrainState, opt: Optimizer) -> torch.Tensor:
 def make_train_step(cfg: ModelConfig, opt: Optimizer):
     """Plain synchronous data-parallel step (the baseline, k = n, r = 1):
     ``step(state, tokens, labels, extras=None) -> (state, metrics)``;
-    ``extras`` are keyword inputs of the loss (``enc_frames``)."""
+    ``extras`` are keyword inputs of the loss (``embeds``,
+    ``enc_frames``)."""
     def step(state: TrainState, tokens, labels, extras=None):
         l, aux = lm_loss(state.params, cfg, tokens, labels, **(extras or {}))
         (l + cfg.router_aux_coef * aux).backward()
@@ -154,9 +162,12 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
     ``row_of_worker`` permutation re-assigns the base matrix's rows to
     workers (adaptive schedules: the data must then come from
     ``C[row_of_worker]``); ``extras`` are slot-major modality inputs of
-    the loss, e.g. ``enc_frames`` (r, n, b, T_enc, D) for whisper, each
-    slot's flattened worker-major like its tokens.  ``metrics`` holds ``loss``, ``aux``,
-    ``grad_norm``, the round's ``completion_time`` (eq. 6), ``winners``,
+    the loss, e.g. ``enc_frames`` (r, n, b, T_enc, D) for whisper or
+    ``embeds`` (r, n, b, P, D) for a vision-stub model, each slot's
+    flattened worker-major like its tokens.  ``metrics`` holds ``loss``,
+    ``aux`` (the MoE load-balance loss, each slot's weighted by its share of
+    the round's winners), ``grad_norm``, the round's ``completion_time``
+    (eq. 6), ``winners``,
     ``realized_k``, ``delivered_tasks``, ``deadline_missed``, the
     per-worker mean compute delays ``worker_t1`` (adaptive feedback), the
     raw draws ``slot_t1``/``slot_t2`` (``launch/train.py --log-delays``)

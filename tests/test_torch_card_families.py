@@ -1,11 +1,17 @@
-"""whisper-base and rwkv6-1.6b on a CUDA card, at their smoke configs in
-float32: the logits of a full forward and of a prefill plus decode steps
-on the card against the same weights on the CPU (rel 1e-4, the gemma
-check's bound in tests/test_torch_card.py), rwkv6's recurrent state ``S``
-too; decode against the full forward on the card (2e-3,
-tests/test_models.py's bound); ``init_params`` on the card against the CPU
-(each element within 4 units in the last place of the CPU's value:
-float32 ``erfinv``; constant leaves exactly).
+"""whisper-base, rwkv6-1.6b, deepseek-v3 (naive and absorbed MLA),
+llama4-maverick and llava-next-34b on a CUDA card, at their smoke configs
+in float32: the logits of a full forward and of a prefill plus decode
+steps on the card against the same weights on the CPU (rel 1e-4, the
+gemma check's bound in tests/test_torch_card.py; llava with its patch
+embeddings, the MoE families at the default capacity, where pairs are
+dropped, the same ones on both devices), rwkv6's recurrent state ``S``
+too; an MoE layer whose router sends every token past one expert's
+capacity, its routing equal and its output within rel 1e-4; decode against
+the full forward on the card (2e-3, tests/test_models.py's bound; the MoE
+families at capacity_factor E/K, where no call drops a pair);
+``init_params`` on the card against the CPU (each element within 4 units
+in the last place of the CPU's value: float32 ``erfinv``; constant leaves
+exactly).
 
 Skipped without a card.  This file imports neither JAX nor the JAX
 package, so it also runs where only PyTorch is installed:
@@ -13,6 +19,8 @@ package, so it also runs where only PyTorch is installed:
     PYTHONPATH=src python -m pytest -q --noconftest \\
         tests/test_torch_card_families.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +28,12 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops
 from repro_torch.models import forward, init_cache, init_params
+from repro_torch.models import layers as TL
 
-ARCHS = ["whisper-base", "rwkv6-1.6b"]
+ARCHS = ["whisper-base", "rwkv6-1.6b", "deepseek-v3-671b",
+         "deepseek-v3-671b+absorb", "llama4-maverick-400b-a17b",
+         "llava-next-34b"]
+MOE_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b"]
 #: float32 erfinv on the card and on the CPU part by at most this many
 #: units in the last place (tests/test_torch_card.py's bound)
 INIT_ERFINV_ULPS = 4
@@ -35,17 +47,38 @@ def cuda():
     return torch.device("cuda")
 
 
+def _smoke(arch, *, no_drops=False):
+    """The smoke config of ``arch`` (``+absorb``: with ``mla_absorb``);
+    ``no_drops``: an MoE config at capacity_factor E/K."""
+    name, _, variant = arch.partition("+")
+    cfg = get_config(name).smoke()
+    if variant:
+        cfg = dataclasses.replace(cfg, mla_absorb=True)
+    if no_drops and cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.experts_per_token)
+    return cfg
+
+
 def _inputs(cfg, T=24, seed=2):
+    """Tokens (2, T), and the encoder frames (whisper) or the patch
+    embeddings (llava) of two requests, else None."""
     gen = np.random.default_rng(seed)
     toks = torch.as_tensor(gen.integers(0, cfg.vocab_size, (2, T)))
-    frames = (torch.as_tensor(gen.standard_normal(
-        (2, cfg.encoder_seq, cfg.frontend_dim), dtype=np.float32))
-        if cfg.encoder_layers else None)
-    return toks, frames
+    shape = ((2, cfg.encoder_seq, cfg.frontend_dim) if cfg.encoder_layers
+             else (2, cfg.frontend_seq, cfg.frontend_dim)
+             if cfg.frontend_seq else None)
+    extra = (None if shape is None else
+             torch.as_tensor(gen.standard_normal(shape, dtype=np.float32)))
+    return toks, extra
 
 
-def _to(x, dev):
-    return None if x is None else x.to(dev)
+def _kw(cfg, extra, dev):
+    """``forward``'s keyword for ``extra`` on ``dev``."""
+    if extra is None:
+        return {}
+    key = "enc_frames" if cfg.encoder_layers else "embeds"
+    return {key: extra.to(dev)}
 
 
 def _rel(a, b):
@@ -55,22 +88,23 @@ def _rel(a, b):
 @torch.inference_mode()
 @pytest.mark.parametrize("arch", ARCHS)
 def test_family_on_card_matches_cpu(cuda, arch):
-    cfg = get_config(arch).smoke()
+    cfg = _smoke(arch)
     cpu_model = init_params(cfg, seed=3, device="cpu")
     gpu_model = init_params(cfg, seed=3, device="cpu").to(cuda)
-    toks, fr = _inputs(cfg)
+    toks, ex = _inputs(cfg)
     before = dict(ops.LAUNCHES)
-    a, _, _ = forward(gpu_model, cfg, toks.to(cuda), enc_frames=_to(fr, cuda))
-    b, _, _ = forward(cpu_model, cfg, toks, enc_frames=fr)
+    a, aux_a, _ = forward(gpu_model, cfg, toks.to(cuda), **_kw(cfg, ex, cuda))
+    b, aux_b, _ = forward(cpu_model, cfg, toks, **_kw(cfg, ex, "cpu"))
     assert _rel(a, b) < 1e-4
-    ca = init_cache(cfg, 2, 32, device=cuda)
-    cb = init_cache(cfg, 2, 32, device="cpu")
+    assert abs(aux_a.item() - aux_b.item()) <= 1e-4 * abs(aux_b.item())
+    ca = init_cache(cfg, 2, 48, device=cuda)
+    cb = init_cache(cfg, 2, 48, device="cpu")
     for t0, t1 in ((0, 16),) + tuple((t, t + 1) for t in range(16, 24)):
         first = t0 == 0
         a, _, ca = forward(gpu_model, cfg, toks[:, t0:t1].to(cuda), cache=ca,
-                           enc_frames=_to(fr, cuda) if first else None)
+                           **(_kw(cfg, ex, cuda) if first else {}))
         b, _, cb = forward(cpu_model, cfg, toks[:, t0:t1], cache=cb,
-                           enc_frames=fr if first else None)
+                           **(_kw(cfg, ex, "cpu") if first else {}))
         assert _rel(a, b) < 1e-4, (t0, _rel(a, b))
     for la, lb in zip(ca["layers"], cb["layers"]):
         if "ssm" in la:
@@ -82,24 +116,54 @@ def test_family_on_card_matches_cpu(cuda, arch):
 @torch.inference_mode()
 @pytest.mark.parametrize("arch", ARCHS)
 def test_family_decode_matches_full_forward_on_card(cuda, arch):
-    cfg = get_config(arch).smoke()
+    cfg = _smoke(arch, no_drops=True)
     model = init_params(cfg, seed=4, device=cuda)
-    toks, fr = _inputs(cfg, T=12, seed=4)
-    toks, fr = toks.to(cuda), _to(fr, cuda)
-    full, _, _ = forward(model, cfg, toks, enc_frames=fr)
-    cache = init_cache(cfg, 2, 32, device=cuda)
-    _, _, cache = forward(model, cfg, toks[:, :5], cache=cache, enc_frames=fr)
+    toks, ex = _inputs(cfg, T=12, seed=4)
+    toks = toks.to(cuda)
+    P = cfg.frontend_seq if ex is not None and not cfg.encoder_layers else 0
+    full, _, _ = forward(model, cfg, toks, **_kw(cfg, ex, cuda))
+    cache = init_cache(cfg, 2, 48, device=cuda)
+    _, _, cache = forward(model, cfg, toks[:, :5], cache=cache,
+                          **_kw(cfg, ex, cuda))
     for t in range(5, 12):
         lg, _, cache = forward(model, cfg, toks[:, t:t + 1], cache=cache)
-        err = (lg[:, 0] - full[:, t]).abs().max().item()
+        err = (lg[:, 0] - full[:, P + t]).abs().max().item()
         assert err < 2e-3, (t, err)
+
+
+@torch.inference_mode()
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forced_overflow_on_card_matches_cpu(cuda, arch):
+    """A router that puts expert 0 about 8 and expert 1 about 4 above the
+    rest for every one of 24 tokens: the first choices (and, top-2, the
+    second ones) overflow their capacity; the routing on the card equals
+    the CPU's and the output is within rel 1e-4."""
+    cfg = _smoke(arch)
+    moe = init_params(cfg, seed=5, device="cpu").blocks[1].ffn
+    gen = np.random.default_rng(5)
+    x = gen.standard_normal((24, cfg.d_model)).astype(np.float32)
+    x[:, 0] = 8.0 + gen.random(24).astype(np.float32)
+    x[:, 1] = 4.0
+    moe.router[:2] = 0.0
+    moe.router[0, 0] = moe.router[1, 1] = 1.0
+    x = torch.as_tensor(x)
+    args = (moe.router, moe.w_gate, moe.w_up, moe.w_down)
+    rb = TL.moe_route(x, moe.router, cfg)
+    ra = TL.moe_route(x.to(cuda), moe.router.to(cuda), cfg)
+    assert int((~rb.ok).sum()) == cfg.experts_per_token * (24 - rb.capacity)
+    for key in ("top_i", "order", "slot", "ok", "counts"):
+        assert torch.equal(getattr(ra, key).cpu(), getattr(rb, key)), key
+    b, aux_b = TL.moe_local(x, *args, cfg=cfg)
+    a, aux_a = TL.moe_local(x.to(cuda), *(t.to(cuda) for t in args), cfg=cfg)
+    assert _rel(a, b) < 1e-4
+    assert abs(aux_a.item() - aux_b.item()) <= 1e-4 * aux_b.item()
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_family_init_on_card_equals_cpu(cuda, arch):
-    """Every leaf, the RWKV-6 float32 ones (``w0``, ``u``, ``ln_out``)
-    among them."""
-    cfg = get_config(arch).smoke()
+    """Every leaf, the float32 ones of a bf16 model (RWKV-6's ``w0``,
+    ``u``, ``ln_out``, the MoE router) among them."""
+    cfg = _smoke(arch)
     a = init_params(cfg, seed=7, device=cuda)
     b = init_params(cfg, seed=7, device="cpu")
     inf = torch.tensor(float("inf"))

@@ -71,7 +71,10 @@ def test_configs_and_layer_plans_match(arch):
 def test_port_archs_and_unknown_arch():
     assert set(tconfigs.ARCH_IDS) == {"gemma3-4b", "mistral-nemo-12b",
                                       "qwen2-72b", "phi4-mini-3.8b",
-                                      "whisper-base", "rwkv6-1.6b"}
+                                      "whisper-base", "rwkv6-1.6b",
+                                      "deepseek-v3-671b",
+                                      "llama4-maverick-400b-a17b",
+                                      "llava-next-34b"}
     with pytest.raises(ValueError, match="unknown arch"):
         tconfigs.get_config("jamba-v0.1-52b")
 
@@ -340,13 +343,20 @@ def test_configs_outside_the_slice_raise(arch):
 
 @pytest.mark.parametrize("change", [
     dict(seq_shard_decode=True), dict(grouped_gqa=True),
-    dict(attn_batch_shard_fallback=True), dict(mla_absorb=True),
+    dict(attn_batch_shard_fallback=True),
+    dict(arch_type="hybrid", ssm_kind="mamba", ssm_period=2),
     dict(attn_logit_softcap=50.0)])
 def test_variants_outside_the_slice_raise(change):
+    """The mesh variants, a hybrid (Mamba) stack, and swa layers with a
+    softcap raise; ``mla_absorb``, a single-device variant of MLA, runs
+    (tests/test_torch_mla.py)."""
     cfg = dataclasses.replace(tconfigs.get_config("gemma3-4b").smoke(),
                               **change)
     with pytest.raises(NotImplementedError):
         tmodel.init_params(cfg, device="meta")
+    absorbed = dataclasses.replace(tconfigs.get_config("gemma3-4b").smoke(),
+                                   mla_absorb=True)
+    tmodel.init_params(absorbed, device="meta")
 
 
 #: sampling standard errors within which a leaf's std matches the

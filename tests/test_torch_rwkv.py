@@ -169,8 +169,8 @@ def test_cmix_layer_through_block_apply_matches_jax():
     pos = np.arange(6)[None]
     want, _, _ = japply(p, JCFG, spec, jnp.asarray(x),
                         positions=jnp.asarray(pos))
-    got, _ = tmodel.block_apply(block, TCFG, spec, torch.as_tensor(x),
-                                positions=torch.as_tensor(pos))
+    got, _, _ = tmodel.block_apply(block, TCFG, spec, torch.as_tensor(x),
+                                   positions=torch.as_tensor(pos))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-5, rtol=0)
     jc = jmodel.block_cache_init(JCFG, spec, B, 16)
@@ -180,10 +180,10 @@ def test_cmix_layer_through_block_apply_matches_jax():
         pos = np.arange(t0, t1)[None]
         want, jc, _ = japply(p, JCFG, spec, jnp.asarray(x[:, t0:t1]),
                              positions=jnp.asarray(pos), cache=jc)
-        got, tc = tmodel.block_apply(block, TCFG, spec,
-                                     torch.as_tensor(x[:, t0:t1]),
-                                     positions=torch.as_tensor(pos),
-                                     cache=tc)
+        got, tc, _ = tmodel.block_apply(block, TCFG, spec,
+                                        torch.as_tensor(x[:, t0:t1]),
+                                        positions=torch.as_tensor(pos),
+                                        cache=tc)
         np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                    atol=1e-5, rtol=0)
         assert rel_err(tc["ssm"]["S"].detach(), jc["ssm"]["S"]) <= 1e-5

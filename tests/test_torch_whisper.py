@@ -171,9 +171,10 @@ def test_cross_attention_block_matches_jax():
     want, _, _ = japply(p, JCFG, spec, jnp.asarray(x),
                         positions=jnp.asarray(pos), use_rope=False,
                         enc_out=jnp.asarray(enc))
-    got, _ = tmodel.block_apply(block, TCFG, spec, torch.as_tensor(x),
-                                positions=torch.as_tensor(pos),
-                                use_rope=False, enc_out=torch.as_tensor(enc))
+    got, _, _ = tmodel.block_apply(block, TCFG, spec, torch.as_tensor(x),
+                                   positions=torch.as_tensor(pos),
+                                   use_rope=False,
+                                   enc_out=torch.as_tensor(enc))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                atol=1e-5, rtol=0)
     jc = jmodel.block_cache_init(JCFG, spec, B, 16)
@@ -185,7 +186,7 @@ def test_cross_attention_block_matches_jax():
             p, JCFG, spec, jnp.asarray(x[:, t0:t1]),
             positions=jnp.asarray(pos), cache=jc, use_rope=False,
             enc_out=None if e is None else jnp.asarray(e))
-        got, tc = tmodel.block_apply(
+        got, tc, _ = tmodel.block_apply(
             block, TCFG, spec, torch.as_tensor(x[:, t0:t1]),
             positions=torch.as_tensor(pos), cache=tc, use_rope=False,
             enc_out=None if e is None else torch.as_tensor(e))
