@@ -78,7 +78,18 @@ E/K, where no call drops a pair; deepseek's absorbed decode to its naive
 one), the smoke configs on the card to the CPU in float32 at the default
 capacity, and deepseek-v3 at 4 layers with 16 experts trained 10 steps
 through ``make_straggler_train_step`` (the loss falls, the MoE aux loss
-finite and non-zero; one greedy_assign launch a step).
+finite and non-zero; one greedy_assign launch a step).  Last, the hybrid
+phase (``hybrid_phase``): jamba-v0.1-52b at published widths, bf16, one
+Jamba block (8 layers: seven Mamba mixers and a GQA layer, MoE of 16
+experts on the odd layers) served at gemma3-4b's shape through
+``serve.run`` with a profiled prefill (the selective scan's step loop),
+the full 32 layers refused by both launchers' memory checks before any
+weight is drawn, decode held to the full forward on one routing (the
+float32-activation decode within 1e-4), the CLIs' hybrid smoke cut on the
+card against the CPU with every Mamba state, and the CLIs' cut at
+published widths (a Mamba and an attention + MoE layer) trained 10 steps
+(the loss falls, the aux loss finite and non-zero; one greedy_assign
+launch a step).
 
 Run from the repository root on a machine with a card:
 
@@ -90,6 +101,7 @@ failed check raises, so the exit code is non-zero and the last line is
 never printed.  Without a CUDA device, or outside a checkout of the
 repository, it exits non-zero before printing any result.
 """
+import contextlib
 import ctypes
 import dataclasses
 import json
@@ -109,7 +121,8 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import RegressionConfig, get_config  # noqa: E402
+from repro_torch.configs import (RegressionConfig, cli_config,  # noqa: E402
+                                get_config)
 from repro_torch.core import (DelayTrace, GridCell,  # noqa: E402
                               GridSpec, RoundConfig, TraceProcess,
                               adaptive_spec, cache_stats, completion_samples,
@@ -2403,6 +2416,22 @@ def decode_profile(cfg, batch, steps=8):
             None if dev_s is None else dev_s / wall)
 
 
+@torch.inference_mode()
+def prefill_profile(cfg, batch, prompt_len):
+    """Kernel launches, busy share and wall ms of a prefill of ``cfg``
+    (weights from seed 0) of ``batch`` x ``prompt_len`` tokens into a
+    cache, under the profiler (a decoder-only model)."""
+    model = init_params(cfg, seed=0, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
+                         generator=gen, device=DEV)
+    cache = init_cache(cfg, batch, prompt_len + 8, device=DEV)
+    wall, dev_s, count = profiled(lambda: forward(model, cfg, toks,
+                                                  cache=cache))
+    return {"launches": count, "ms": wall * 1e3,
+            "busy_share": None if dev_s is None else dev_s / wall}
+
+
 def family_serve(leg, cfg, shape, size, *, warm=True):
     """``cfg`` in bf16 with random weights from seed 0 on the card: through
     the serve CLI where ``cfg`` is its arch's own config, through
@@ -2539,8 +2568,9 @@ def _smoke_card_vs_cpu(cfg):
     weights from ``init_params(seed 2)`` on the CPU: the full forward and a
     16-token prefill plus 8 decode steps (with encoder frames or patch
     embeddings where the config takes them), max rel logit difference; the
-    aux losses' rel difference; rwkv6's state ``S`` after the last step.
-    All within ``FAMILY_F32_REL``."""
+    aux losses' rel difference; the recurrent states after the last step
+    (rwkv6's ``S``, a Mamba layer's ``h`` and ``conv``).  All within
+    ``FAMILY_F32_REL``."""
     cpu_model = init_params(cfg, seed=2, device="cpu")
     gpu_model = init_params(cfg, seed=2, device="cpu").to(DEV)
     rng_ = np.random.default_rng(2)
@@ -2564,22 +2594,32 @@ def _smoke_card_vs_cpu(cfg):
     for t in range(16, 24):
         r, _, ca, cb = both(toks[:, t:t + 1], ca, cb)
         rel_step = max(rel_step, r)
-    rel_S = max((_rel_gap(a["ssm"]["S"].cpu(), b["ssm"]["S"])
-                 for a, b in zip(ca["layers"], cb["layers"]) if "ssm" in a),
-                default=None)
+    def state_gap(key):
+        return max((_rel_gap(a["ssm"][key].cpu(), b["ssm"][key])
+                    for a, b in zip(ca["layers"], cb["layers"])
+                    if key in a.get("ssm", {})), default=None)
+
+    # rwkv6's recurrent state S; a Mamba layer's scan state h and conv tail
+    states = {k: state_gap(k) for k in ("S", "h", "conv")}
     check(rel_full < FAMILY_F32_REL and rel_step < FAMILY_F32_REL
           and aux_rel < FAMILY_F32_REL
-          and (rel_S is None or rel_S < FAMILY_F32_REL),
+          and all(v is None or v < FAMILY_F32_REL for v in states.values()),
           f"{cfg.name} card vs CPU rel {rel_full:.2e} (full), "
-          f"{rel_step:.2e} (prefill + decode), aux {aux_rel:.2e}, S {rel_S}")
+          f"{rel_step:.2e} (prefill + decode), aux {aux_rel:.2e}, state "
+          f"{states}")
     return {"card_vs_cpu_full": rel_full, "card_vs_cpu_decode": rel_step,
-            "card_vs_cpu_aux": aux_rel, "card_vs_cpu_S": rel_S}
+            "card_vs_cpu_aux": aux_rel, "card_vs_cpu_S": states["S"],
+            "card_vs_cpu_mamba": (None if states["h"] is None else
+                                  {"h": states["h"], "conv": states["conv"]})}
 
 
 def _card_vs_cpu_line(name, o):
+    mamba = o["card_vs_cpu_mamba"]
     return (f"{name} f32 card vs CPU rel {o['card_vs_cpu_full']:.3e} "
             f"(full), {o['card_vs_cpu_decode']:.3e} (prefill 16 + 8 decode "
-            f"steps), aux {o['card_vs_cpu_aux']:.3e}, S {o['card_vs_cpu_S']}")
+            f"steps), aux {o['card_vs_cpu_aux']:.3e}, S {o['card_vs_cpu_S']}"
+            + ("" if mamba is None else
+               f", Mamba h {mamba['h']:.3e}, conv {mamba['conv']:.3e}"))
 
 
 def _rel_gap(a, b):
@@ -2826,29 +2866,15 @@ def _same_weights(model, cfg):
 
 class RouteTape:
     """Within ``with``, records the ``Routing`` of every MoE call
-    (``moe_route``) in ``calls``; or, given an earlier tape, hands out its
-    recorded routings in call order in place of the run's own, and counts
-    the routed tokens whose own top-K experts differ from the recorded ones
-    (``flipped`` of ``routed``)."""
+    (``moe_route``) in ``calls``."""
 
-    def __init__(self, replay=None):
-        self.replay = None if replay is None else list(replay.calls)
-        self.calls, self.flipped, self.routed = [], 0, 0
+    def __init__(self):
+        self.calls = []
 
     def _route(self, x2d, router_w, cfg):
         own = self._own(x2d, router_w, cfg)
-        if self.replay is None:
-            self.calls.append(own)
-            return own
-        rec = self.replay.pop(0)
-        check(rec.top_i.shape == own.top_i.shape,
-              f"routing replay: a call of {tuple(own.top_i.shape)} picks "
-              f"met a recording of {tuple(rec.top_i.shape)}")
-        differ = (own.top_i.sort(-1).values
-                  != rec.top_i.sort(-1).values).any(-1)
-        self.flipped += int(differ.sum())
-        self.routed += differ.numel()
-        return rec
+        self.calls.append(own)
+        return own
 
     def __enter__(self):
         self._own = model_layers.moe_route
@@ -2857,9 +2883,58 @@ class RouteTape:
 
     def __exit__(self, *exc):
         model_layers.moe_route = self._own
-        if exc[0] is None and self.replay:
-            check(False, f"routing replay: {len(self.replay)} recorded "
-                         f"calls left over")
+
+
+class RoutePin(RouteTape):
+    """Within ``with``, routes the tokens of each MoE call to the experts
+    and gate weights that ``pins`` names in call order ((top_w, top_i), (T,
+    K) each for the call's T tokens), their slots planned anew
+    (``moe_slots``); counts the routed tokens whose own top-K experts
+    differ (``flipped`` of ``routed``).  A pin left over, or a call with no
+    pin, fails the run."""
+
+    def __init__(self, pins):
+        super().__init__()
+        self.pins = list(pins)
+        self.flipped, self.routed = 0, 0
+
+    def _route(self, x2d, router_w, cfg):
+        own = self._own(x2d, router_w, cfg)
+        check(bool(self.pins), "routing pins: more calls than pins")
+        top_w, top_i = self.pins.pop(0)
+        check(top_i.shape == own.top_i.shape,
+              f"routing pins: a call of {tuple(own.top_i.shape)} picks met "
+              f"a pin of {tuple(top_i.shape)}")
+        differ = (own.top_i.sort(-1).values
+                  != top_i.sort(-1).values).any(-1)
+        self.flipped += int(differ.sum())
+        self.routed += differ.numel()
+        order, slot, ok, counts = model_layers.moe_slots(
+            top_i, cfg.n_experts, own.capacity)
+        return own._replace(top_w=top_w, top_i=top_i, order=order,
+                            slot=slot, ok=ok, counts=counts)
+
+    def __exit__(self, *exc):
+        super().__exit__(*exc)
+        if exc[0] is None and self.pins:
+            check(False, f"routing pins: {len(self.pins)} left over")
+
+
+def _f32_truth(model, cfg, toks, steps, ext, full, dec, route=None):
+    """The float32-activation yardstick of a bf16 decode-vs-full reading:
+    the same decode with float32 activations on ``model``'s bf16 weights
+    (``_same_weights``; under the ``route`` context where given, e.g. a
+    ``RoutePin``), held to its own full forward within ``FAMILY_F32_REL``.
+    Returns (that reading, the bf16 full forward ``full``'s distance from
+    the float32 forward, the bf16 decode ``dec``'s distance from it)."""
+    c32 = dataclasses.replace(cfg, dtype="float32")
+    with route or contextlib.nullcontext():
+        rel32, _, truth = _decode_vs_full(_same_weights(model, c32), c32,
+                                          toks, steps, ext)
+    check(rel32 <= FAMILY_F32_REL,
+          f"{cfg.name}: float32-activation decode vs full rel {rel32:.3e} "
+          f"(bound {FAMILY_F32_REL})")
+    return rel32, _rel_gap(full, truth), _rel_gap(dec, truth)
 
 
 @torch.inference_mode()
@@ -2874,9 +2949,10 @@ def wide_consistency(family):
     its float32 full forward within ``FAMILY_F32_REL``, and the bf16
     decode to the full forward within twice the bf16 full forward's own
     distance from that float32 forward, as is its distance from it.
-    deepseek-v3 decodes on the naive MLA path, recording its routing, then
-    on the absorbed path with that routing replayed (``RouteTape``, which
-    counts the tokens whose own top-K would differ): the absorbed decode is
+    deepseek-v3 decodes on the naive MLA path, recording its routing
+    (``RouteTape``), then on the absorbed path pinned to that routing
+    (``RoutePin``, which counts the tokens whose own top-K would differ;
+    their slots planned anew, as the recording's): the absorbed decode is
     held to the full forward and to the naive decode within
     ``FAMILY_BF16_REL``.  Every variant runs on one draw of the weights
     (``_same_weights``).  Counts set to 0 just before, read after: no
@@ -2892,14 +2968,14 @@ def wide_consistency(family):
                          device=DEV)
     ext = _frontend_inputs(cfg, B, lambda s: torch.randn(
         s, generator=gen, device=DEV))
-    out, decs, tape = {}, {}, None
+    out, decs, pins = {}, {}, None
     ops.reset_launch_counts()
     model = init_params(cfg, seed=1, device=DEV)
     for leg in legs:
         cfg = no_drop_cfg(wide_cfg(leg))
-        # the absorbed path replays the naive path's routing
-        tape = RouteTape(tape if leg == "deepseek-v3-absorbed" else None)
-        with tape:
+        # the absorbed path is pinned to the naive path's routing
+        route = RouteTape() if pins is None else RoutePin(pins)
+        with route:
             rel, decs[leg], full = _decode_vs_full(
                 _same_weights(model, cfg), cfg, toks, steps, ext)
         o = out[leg] = {"decode_vs_full_bf16_rel": rel,
@@ -2912,28 +2988,25 @@ def wide_consistency(family):
                 _same_weights(model, cfg), cfg, toks, ext, leg)
         bound = FAMILY_BF16_REL
         if leg in WIDE_TRUTH_HELD:
-            c32 = dataclasses.replace(cfg, dtype="float32")
-            rel32, _, truth = _decode_vs_full(_same_weights(model, c32), c32,
-                                              toks, steps, ext)
-            bound = 2 * _rel_gap(full, truth)
-            o.update(f32_decode_vs_full_rel=rel32,
-                     full_vs_f32_bf16_rel=bound / 2,
-                     decode_vs_f32_bf16_rel=_rel_gap(decs[leg], truth))
-            check(rel32 <= FAMILY_F32_REL
-                  and o["decode_vs_f32_bf16_rel"] <= bound,
-                  f"{leg}: float32-activation decode vs full rel "
-                  f"{rel32:.3e} (bound {FAMILY_F32_REL}), bf16 decode vs "
-                  f"the float32-activation forward "
-                  f"{o['decode_vs_f32_bf16_rel']:.3e} (bound {bound:.3e})")
-        if tape.replay is not None:
-            o.update(routing_replayed=True, flipped_tokens=tape.flipped,
-                     routed_tokens=tape.routed,
+            rel32, gap, dec_gap = _f32_truth(model, cfg, toks, steps, ext,
+                                             full, decs[leg])
+            bound = 2 * gap
+            o.update(f32_decode_vs_full_rel=rel32, full_vs_f32_bf16_rel=gap,
+                     decode_vs_f32_bf16_rel=dec_gap)
+            check(dec_gap <= bound,
+                  f"{leg}: bf16 decode vs the float32-activation forward "
+                  f"{dec_gap:.3e} (bound {bound:.3e})")
+        if isinstance(route, RoutePin):
+            o.update(routing_pinned=True, flipped_tokens=route.flipped,
+                     routed_tokens=route.routed,
                      absorbed_vs_naive_bf16_rel=_rel_gap(
                          decs[leg], decs["deepseek-v3"]))
             check(o["absorbed_vs_naive_bf16_rel"] <= FAMILY_BF16_REL,
                   f"{leg}: decode vs the naive decode rel "
                   f"{o['absorbed_vs_naive_bf16_rel']:.3e} (bound "
                   f"{FAMILY_BF16_REL})")
+        elif family == "deepseek-v3":
+            pins = [(c.top_w, c.top_i) for c in route.calls]
         o["decode_vs_full_bound"] = bound
         del full
         check(np.isfinite(rel) and rel <= bound,
@@ -2958,8 +3031,8 @@ def wide_consistency(family):
                      f"float32-activation decode vs its full forward "
                      f"{o['f32_decode_vs_full_rel']:.3e} (bound "
                      f"{FAMILY_F32_REL})")
-        if o.get("routing_replayed"):
-            extra = (f"; the naive decode's routing replayed ("
+        if o.get("routing_pinned"):
+            extra = (f"; pinned to the naive decode's routing ("
                      f"{o['flipped_tokens']} of {o['routed_tokens']} routed "
                      f"tokens would pick other experts), decode vs the "
                      f"naive decode rel {o['absorbed_vs_naive_bf16_rel']:.3e}"
@@ -3029,6 +3102,259 @@ def wide_phase():
     return out
 
 
+#: jamba-v0.1-52b, the hybrid family, at published widths.  Its 32 layers
+#: (51.57 B parameters, 103 GB in bf16) exceed one card, so it is served
+#: at the depth of one Jamba block: 8 layers, Mamba (d_inner 8192, d_state
+#: 16, d_conv 4) but for the GQA attention layer 4 (32 heads, 8 KV heads
+#: of 128), MoE (16 experts of d_ff 14 336, top-2, capacity 1.25) on the
+#: odd layers and SwiGLU 14 336 on the even ones, at gemma3-4b's serve
+#: shape through ``serve.run``
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_SERVE_CUT = dict(n_layers=8)
+#: (layers, encoder layers, parameters) of the served block
+HYBRID_SIZE = (8, 0, 13_295_235_072)
+#: trained at the reference CLIs' hybrid cut at published widths: layer 0
+#: Mamba + SwiGLU, layer 1 attention + MoE with all 16 experts (one full
+#: Jamba block with its AdamW state would need ~190 GB)
+HYBRID_TRAIN_CUT = dict(n_layers=2, ssm_period=2, ssm_attn_offset=1)
+HYBRID_TRAIN_PARAMS = 3_678_941_184
+#: one Jamba block's bf16 decode against its bf16 full forward, both on
+#: the full forward's routing (read 3.458e-2 on an H100: above
+#: FAMILY_BF16_REL, for the reference's own bf16 arithmetic puts about
+#: 1e-2 between one Mamba layer in bf16 and in float32 activations at
+#: these widths, tests/test_torch_mamba.py); a decode step after a nudged
+#: state must read above it
+HYBRID_BF16_REL = 6e-2
+#: the block's bf16 full forward and decode against its float32-activation
+#: forward on the same weights (read 1.411e-1 and 1.465e-1 on an H100)
+HYBRID_F32_GAP = 2e-1
+
+
+def hybrid_cfg(**kw):
+    """jamba-v0.1-52b with ``kw`` on top."""
+    return dataclasses.replace(get_config(HYBRID_ARCH), **kw)
+
+
+def hybrid_serve():
+    """One Jamba block through ``family_serve`` (no warm-up at full size:
+    ``hybrid_phase`` ran its code at the smoke widths), then a prefill of
+    the serve shape under the profiler (``prefill_profile``): the selective
+    scan's step loop is launch-bound."""
+    cfg = hybrid_cfg(**HYBRID_SERVE_CUT)
+    out = family_serve(HYBRID_ARCH, cfg, SERVE, HYBRID_SIZE, warm=False)
+    pre = out["prefill_profiled"] = prefill_profile(
+        cfg, SERVE["batch"], SERVE["prompt_len"])
+    _free_cuda()
+    print(f"serve {HYBRID_ARCH} a profiled prefill of {SERVE['batch']} x "
+          f"{SERVE['prompt_len']} tokens: {pre['launches']} kernel launches "
+          f"in {pre['ms']:.3f} ms at a busy share of {pre['busy_share']}")
+    return out
+
+
+def hybrid_refusal():
+    """The full 32-layer jamba on the card: ``serve.run``'s weight check
+    and the trainer's ``state_bytes`` check refuse it before any weight is
+    drawn (``init_weights_`` replaced by a recorder meanwhile; the card's
+    allocated memory unchanged)."""
+    full = get_config(HYBRID_ARCH)
+    weights = sum(p.numel() * p.element_size()
+                  for p in init_params(full, device="meta").parameters())
+    _free_cuda()
+    before = torch.cuda.memory_allocated()
+    real, drawn, msgs = model_layers.init_weights_, [], {}
+    model_layers.init_weights_ = lambda *a, **k: drawn.append(a)
+    try:
+        try:
+            serve.run(full, batch=SERVE["batch"],
+                      prompt_len=SERVE["prompt_len"], gen=SERVE["gen"],
+                      device=DEV)
+        except ValueError as e:
+            msgs["serve"] = str(e)
+        try:
+            train_cli.main(["--arch", HYBRID_ARCH, "--steps", "1",
+                            "--device", str(DEV)])
+        except SystemExit as e:
+            msgs["train"] = str(e)
+    finally:
+        model_layers.init_weights_ = real
+    after = torch.cuda.memory_allocated()
+    check(all("exceed" in msgs.get(k, "") for k in ("serve", "train"))
+          and not drawn and after == before,
+          f"{HYBRID_ARCH} at full depth: {msgs}, {len(drawn)} draws, "
+          f"{after - before} bytes allocated")
+    state = train_cli.state_bytes(full)
+    print(f"refusal {HYBRID_ARCH} at full depth ({full.n_layers} layers, "
+          f"{weights} bytes of bf16 weights, {state} bytes of training "
+          f"state): serve.run: {msgs['serve']}; trainer: {msgs['train']}; "
+          f"no weight drawn")
+    return {"weight_bytes": weights, "state_bytes": state, **msgs}
+
+
+def _route_flips(calls, n_moe, B, T0, steps):
+    """The (token, MoE layer) pairs whose top-K experts in a prefill of T0
+    tokens and ``steps`` decode steps differ from the full forward's at the
+    same position (``calls``: a ``RouteTape`` over ``_decode_vs_full``,
+    which routes the full forward, the prefill, then each step), and all
+    routed pairs."""
+    T = T0 + steps
+    check(len(calls) == n_moe * (2 + steps),
+          f"routing tape: {len(calls)} calls for {n_moe} MoE layers")
+    flipped = 0
+    for j in range(n_moe):
+        full = calls[j].top_i.reshape(B, T, -1)
+        got = torch.cat([calls[n_moe + j].top_i.reshape(B, T0, -1)] + [
+            calls[n_moe * (2 + s) + j].top_i.reshape(B, 1, -1)
+            for s in range(steps)], dim=1)
+        flipped += int((got.sort(-1).values != full.sort(-1).values)
+                       .any(-1).sum())
+    return flipped, n_moe * B * T
+
+
+def _decode_pins(full, B, T0, steps):
+    """Pins (``RoutePin``) for a run of ``_decode_vs_full`` from the full
+    forward's routing (``full``: its MoE calls over B T tokens): the full
+    forward's own, then each token of the prefill of T0 tokens and of the
+    ``steps`` decode steps pinned to its full-forward experts and gate
+    weights."""
+    T = T0 + steps
+    per = [(c.top_w.reshape(B, T, -1), c.top_i.reshape(B, T, -1))
+           for c in full]
+    pins = [(c.top_w, c.top_i) for c in full]
+    pins += [(w[:, :T0].reshape(B * T0, -1), i[:, :T0].reshape(B * T0, -1))
+             for w, i in per]
+    for s in range(steps):
+        pins += [(w[:, T0 + s], i[:, T0 + s]) for w, i in per]
+    return pins
+
+
+@torch.inference_mode()
+def hybrid_consistency():
+    """(1) One Jamba block at published widths on the card, at
+    capacity_factor E/K (``no_drop_cfg``), a 16-token prefill plus 8 decode
+    steps against the full forward at the same positions
+    (``_decode_vs_full``).  On its own routing (read, not held): near-tied
+    routers pick other experts in the decode than in the full forward, and
+    those tokens are counted.  Then every run is pinned to the bf16 full
+    forward's experts and gate weights (``RoutePin``): the bf16 decode is
+    held to the full forward within ``HYBRID_BF16_REL``, and a decode
+    step after a prefill whose first layer's state was nudged
+    (``_nudge``) must read above that bound; the float32-activation decode
+    on the same bf16 weights is held to its full forward within
+    ``FAMILY_F32_REL`` (``_f32_truth``), and the bf16 full forward and
+    decode to that float32 forward within ``HYBRID_F32_GAP``.  Counts set
+    to 0 just before, read after: no swa_attention launch.  (2) The CLIs'
+    hybrid smoke cut in float32, the card against the CPU
+    (``_smoke_card_vs_cpu``), every Mamba layer's ``h`` and ``conv``
+    included."""
+    cfg = no_drop_cfg(hybrid_cfg(**HYBRID_SERVE_CUT))
+    B, P, steps = 2, 16, 8
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + steps), generator=gen,
+                         device=DEV)
+    ops.reset_launch_counts()
+    model = init_params(cfg, seed=1, device=DEV)
+    with RouteTape() as tape:
+        rel_own, _, _ = _decode_vs_full(model, cfg, toks, steps, {})
+    n_moe = sum(s.ffn == "moe" for s in layer_specs(cfg))
+    flipped, routed = _route_flips(tape.calls, n_moe, B, P, steps)
+    full_calls = tape.calls[:n_moe]
+    del tape
+    pins = _decode_pins(full_calls, B, P, steps)
+    with RoutePin(pins) as pin:
+        rel, dec, full = _decode_vs_full(model, cfg, toks, steps, {})
+    pin32 = RoutePin(pins)
+    rel32, gap, dec_gap = _f32_truth(model, cfg, toks, steps, {}, full, dec,
+                                     route=pin32)
+    with RoutePin(_decode_pins(full_calls, B, P + steps - 1, 1)):
+        moved, _, _ = _decode_vs_full(model, cfg, toks, 1, {}, nudge=True)
+    launches = dict(ops.LAUNCHES)
+    del model, dec, full, full_calls, pins
+    _free_cuda()
+    check(np.isfinite(rel) and rel <= HYBRID_BF16_REL < moved
+          and gap <= HYBRID_F32_GAP and dec_gap <= HYBRID_F32_GAP
+          and _swa_launches(launches) == 0,
+          f"{HYBRID_ARCH} on the full forward's routing: bf16 decode vs full "
+          f"{rel:.3e} (bound {HYBRID_BF16_REL}; {moved:.3e} after a nudged "
+          f"state, which must read above it); the bf16 full forward "
+          f"{gap:.3e} and decode {dec_gap:.3e} from the float32-activation "
+          f"forward (bound {HYBRID_F32_GAP}); on its own routing "
+          f"{rel_own:.3e}, {flipped} of {routed} routed tokens picking other "
+          f"experts; swa launches {launches}")
+    small = cli_config(HYBRID_ARCH, smoke=True)
+    out = {"decode_vs_full_bf16_rel": rel,
+           "decode_vs_full_bound": HYBRID_BF16_REL,
+           "nudged_bf16_rel": moved, "f32_decode_vs_full_rel": rel32,
+           "full_vs_f32_bf16_rel": gap, "decode_vs_f32_bf16_rel": dec_gap,
+           "f32_gap_bound": HYBRID_F32_GAP,
+           "own_routing_decode_vs_full_bf16_rel": rel_own,
+           "capacity_factor": cfg.capacity_factor,
+           "flipped_tokens": flipped, "routed_tokens": routed,
+           "pinned_flipped_pairs": pin.flipped + pin32.flipped,
+           "pinned_routed_pairs": pin.routed + pin32.routed,
+           **_smoke_card_vs_cpu(small),
+           "swa_launches": _swa_launches(launches)}
+    check(out["card_vs_cpu_mamba"] is not None,
+          f"{small.name}: no Mamba state compared")
+    print(f"consistency {HYBRID_ARCH} one block bf16: prefill {P} + {steps} "
+          f"decode steps on the full forward's routing vs the full forward "
+          f"rel {rel:.3e} (bound {HYBRID_BF16_REL}; one step after a nudged "
+          f"first-layer state {moved:.3e}); the bf16 full forward "
+          f"{gap:.3e} and decode {dec_gap:.3e} from the float32-activation "
+          f"forward (bound {HYBRID_F32_GAP}); the float32-activation decode "
+          f"vs its full forward {rel32:.3e} (bound {FAMILY_F32_REL}); "
+          f"capacity_factor {cfg.capacity_factor:g}; "
+          f"{out['pinned_flipped_pairs']} of {out['pinned_routed_pairs']} "
+          f"pinned (token, layer) pairs would pick other experts; on its "
+          f"own routing rel {rel_own:.3e}, {flipped} of {routed} routed "
+          f"(token, layer) pairs picking other experts than the full "
+          f"forward; {_card_vs_cpu_line(small.name, out)}; swa_attention "
+          f"launches 0")
+    return out
+
+
+def train_jamba():
+    """jamba-v0.1-52b at the CLIs' hybrid cut at published widths (a Mamba
+    + SwiGLU and an attention + MoE layer, 16 experts) through
+    ``train_straggler``: the loss falls; the MoE aux loss is finite and
+    non-zero every step."""
+    out = train_straggler(HYBRID_ARCH, hybrid_cfg(**HYBRID_TRAIN_CUT))
+    check(out["params"] == HYBRID_TRAIN_PARAMS,
+          f"train {HYBRID_ARCH}: {out['params']} params")
+    auxs = out["aux"]
+    check(all(np.isfinite(a) and a > 0 for a in auxs),
+          f"train {HYBRID_ARCH}: aux {auxs}")
+    print(f"train {HYBRID_ARCH}: aux {auxs[0]:.6f} -> {auxs[-1]:.6f} (one "
+          f"MoE layer: 1 at an even load), grad norm "
+          f"{out['grad_norms'][0]:.4f} at step 0")
+    return out
+
+
+def hybrid_phase():
+    """jamba-v0.1-52b after the wide phase: one Jamba block served at
+    published widths (``hybrid_serve``), the full depth refused by both launchers'
+    memory checks, consistency (decode against the full forward, the card
+    against the CPU with the Mamba state) and training at the CLIs' cut.
+    The block's code paths run first at the smoke widths in bf16, so the
+    served leg's times hold no first-call costs."""
+    t_phase = time.perf_counter()
+    serve.run(dataclasses.replace(get_config(HYBRID_ARCH).smoke(),
+                                  n_layers=8, param_dtype="bfloat16",
+                                  dtype="bfloat16"),
+              batch=2, prompt_len=64, gen=3, device=DEV)
+    legs = [("serve", hybrid_serve),
+            ("refusal", hybrid_refusal),
+            ("consistency", hybrid_consistency),
+            ("train", train_jamba)]
+    out = {}
+    for kind, fn in legs:
+        res, secs = _timed(fn)
+        out[kind] = {**res, "seconds": secs}
+        print(f"hybrid {HYBRID_ARCH} {kind}: {secs:.2f} s")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"hybrid phase wall seconds={out['seconds']:.4f}")
+    return out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3067,6 +3393,7 @@ def main():
     train = train_phase()
     families = families_phase()
     wide = wide_phase()
+    hybrid = hybrid_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -3140,6 +3467,7 @@ def main():
                 "greedy_launches"],
             "train_deepseek_v3": wide["deepseek-v3"]["train"][
                 "greedy_launches"],
+            "train_jamba": hybrid["train"]["greedy_launches"],
             "shard_fig8": shard["fig8"]["greedy_launches"],
             "gate_fig8": gate["greedy_launches"],
             "train_reissue": train["reissue"]["greedy_launches"]},
@@ -3220,7 +3548,7 @@ def main():
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency, "grid": grid, "live": live,
         "gate": gate, "shard": shard, "train": train,
-        "families": families, "wide": wide}))
+        "families": families, "wide": wide, "hybrid": hybrid}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

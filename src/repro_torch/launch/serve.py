@@ -5,8 +5,11 @@ the prefill and decode times.  Weights are random, drawn on the device from
 ``--seed``; an encoder-decoder (whisper) also draws its encoder frames
 (B, encoder_seq, frontend_dim) from it, for the prefill only.  Prompts
 are text: a vision-stub model (llava-next-34b, llama4-maverick) runs
-without patch embeddings, as the reference's serve CLI runs it.  Runs on
-the CUDA card unless given ``--device cpu``:
+without patch embeddings, as the reference's serve CLI runs it.  A
+hybrid (jamba-v0.1-52b) carries its Mamba layers' state in the cache;
+under ``--smoke`` it runs the reference CLI's cut, attention every second
+layer (``configs.cli_config``).  Runs on the CUDA card unless given
+``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-4b \\
       --batch 2 --prompt-len 2048 --gen 32
@@ -23,7 +26,7 @@ import time
 
 import torch
 
-from ..configs import ARCH_IDS, get_config
+from ..configs import ARCH_IDS, cli_config
 from ..device import resolve_device
 from ..kernels import ops
 from ..models import forward, init_cache, init_params
@@ -119,9 +122,7 @@ def main(argv=None) -> ServeResult:
                          "versions of the kernels)")
     args = ap.parse_args(argv)
 
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
+    cfg = cli_config(args.arch, args.smoke)
     res = run(cfg, batch=args.batch, prompt_len=args.prompt_len,
               gen=args.gen, seed=args.seed, device=args.device)
     B, steps = args.batch, args.gen - 1

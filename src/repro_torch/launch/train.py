@@ -1,7 +1,8 @@
 """Training launcher of the port (counterpart of ``repro.launch.train``).
 
 Straggler-scheduled training of any of the port's ``--arch`` (full or
-``--smoke`` reduced config) with the paper's CS/SS/RA schedules,
+``--smoke`` reduced config, for a hybrid the reference CLI's cut that
+keeps an attention layer) with the paper's CS/SS/RA schedules,
 round-aware cluster processes and optional adaptive row re-assignment
 (``AdaptiveScheduler``: one greedy_assign launch a step on the card).
 Runs on the CUDA card unless given ``--device cpu``; one card holds the
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from ..ckpt import latest_checkpoint, load_checkpoint, save_checkpoint
-from ..configs import ARCH_IDS, get_config
+from ..configs import ARCH_IDS, cli_config
 from ..core import (FAULT_SCENARIOS, AdaptiveScheduler, DelayTrace,
                     RoundConfig, TraceProcess, as_process, save_trace)
 from ..data import TaskPartition, lm_task_batches
@@ -197,9 +198,7 @@ def main(argv=None) -> TrainResult:
             f"--mesh {args.mesh}: the port trains on one device; meshes "
             f"over several cards are ROADMAP.md queue 1, item 8 (its mesh "
             f"sub-item)")
-    cfg = get_config(args.arch)
-    if args.smoke:
-        cfg = cfg.smoke()
+    cfg = cli_config(args.arch, args.smoke)
     if cfg.frontend_seq or cfg.encoder_layers:
         # the reference's refusal (repro/launch/train.py:198-200)
         raise SystemExit("use text archs for this launcher; whisper and "

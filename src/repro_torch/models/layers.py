@@ -1,10 +1,11 @@
-"""Layers of the port's LM stack (counterpart of ``repro.models.layers``
-for every family but Mamba's): projections, RMS and layer norm, rotary
-embeddings, the attention core, grouped-query attention with its KV cache
-(full or ring buffer) and cross-attention, DeepSeek's multi-head latent
-attention (MLA) with its compressed cache, the SwiGLU and GELU
-feed-forwards, the capacity-based mixture of experts (MoE), and the RWKV-6
-time-mix and channel-mix with their token shift and recurrent state.
+"""Layers of the port's LM stack (counterpart of ``repro.models.layers``):
+projections, RMS and layer norm, rotary embeddings, the attention core,
+grouped-query attention with its KV cache (full or ring buffer) and
+cross-attention, DeepSeek's multi-head latent attention (MLA) with its
+compressed cache, the SwiGLU and GELU feed-forwards, the capacity-based
+mixture of experts (MoE), the RWKV-6 time-mix and channel-mix with their
+token shift and recurrent state, and Jamba's Mamba mixer (selective scan)
+with its conv and scan state.
 
 Weights keep the JAX layout (a ``dense`` weight is ``(d_in, d_out)`` and is
 used as ``x @ w``) and the JAX names, so ``repro_torch.convert.lm_params``
@@ -13,11 +14,11 @@ of fresh tokens, with no cache or into an empty ring, is the
 ``swa_attention`` kernel (``kernels/ops.py``) when no gradient is
 recorded; the other attention paths, and that one under autograd, are
 torch ops, as the JAX package computes them in jnp.  The RWKV-6
-recurrence is a step loop in torch ops, as the JAX package's is a
-``lax.scan``, and the MoE expert products are ``bmm``, as the JAX
-package's are ``einsum`` (no Pallas kernel in either).  KV caches are
-updated in place (the JAX package returns new arrays); ``pos`` is a host
-integer.
+recurrence and Mamba's selective scan are step loops in torch ops, as the
+JAX package's are ``lax.scan``s, and the MoE expert products are ``bmm``,
+as the JAX package's are ``einsum`` (no Pallas kernel in any of them).  KV
+caches are updated in place (the JAX package returns new arrays); ``pos``
+is a host integer.
 
 Initialisation (``init_weights_``) is the JAX package's scales drawn from
 the port's counter-based Philox (``core/rng.py``): parameter ``i`` of
@@ -45,7 +46,9 @@ __all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
            "Dense", "RMSNorm", "LayerNorm", "make_norm", "Attention",
            "SwiGLU", "GeluMLP", "CMix", "RWKV6", "init_weights_", "MLA",
            "mla_apply", "mla_cache_init", "MoE", "Routing", "moe_capacity",
-           "moe_route", "moe_local", "moe_apply"]
+           "moe_route", "moe_slots", "moe_local", "moe_apply", "Mamba",
+           "mamba_a_log", "mamba_conv", "selective_scan", "mamba_apply",
+           "mamba_state_init"]
 
 #: the Philox stream of the initial weights, one that no other draw of the
 #: port uses (the delay models take 0-4, the processes 5-8, the fault layers
@@ -55,6 +58,11 @@ INIT_STREAM = 0x494E4954
 #: words a parameter is drawn in at a time: no index tensor of a whole
 #: embedding (671 M elements in gemma3-4b) is ever made
 INIT_SLAB = 1 << 24
+#: the slab on the CPU: Philox's elementwise ops then stay below PyTorch's
+#: parallel grain (32 768 elements) and run on one thread, which other
+#: processes on a busy machine cannot stall at thread barriers (the same
+#: bits for any slab)
+INIT_SLAB_CPU = 1 << 14
 
 
 def dense(x: torch.Tensor, w: torch.Tensor,
@@ -452,6 +460,142 @@ def rwkv6_state_init(cfg: ModelConfig, batch: int, *, device=None) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Mamba (Jamba's selective-scan mixer): causal conv, step loop over time
+# --------------------------------------------------------------------------
+
+def mamba_a_log(shape) -> torch.Tensor:
+    """Mamba's initial ``A_log`` (di, N): log(1..N) on every row, taken in
+    float64 on the CPU and rounded to float32, so the same bits on every
+    device.  The reference's jitted ``init_params`` folds the constant to
+    these values; its eager ``mamba_init`` gives log 7 one unit in the last
+    place higher (XLA's CPU logf; ROADMAP.md section 3)."""
+    n = torch.arange(1, shape[-1] + 1, dtype=torch.float64)
+    return torch.log(n).float().expand(shape)
+
+
+class Mamba(nn.Module):
+    """Jamba's Mamba mixer (``mamba_init``): ``in_proj`` (d, 2 di) to the
+    scan's input and its gate, the causal depthwise conv ``conv_w`` (d_conv,
+    di) and ``conv_b``, ``x_proj`` (di, dt_rank + 2 N) to the step size's
+    low-rank input and the input-dependent B and C, ``dt_proj`` (dt_rank,
+    di) with a bias, ``A_log`` (di, N) and ``D`` (di), both float32 in
+    every model, and ``out_proj`` (di, d) at scale 1/sqrt(di), with dt_rank
+    = ceil(d / 16); ``forward`` is ``mamba_apply``.  ``A_log`` starts at
+    log(1..N) on every row (``INIT_FIXED``), ``D`` at one, ``conv_w``
+    N(0, 1/d_conv)."""
+
+    INIT_CONST = {"conv_b": 0.0, "D": 1.0}
+    INIT_FIXED = {"A_log": mamba_a_log}
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        self.cfg = cfg
+        d, di, N = cfg.d_model, cfg.d_inner, cfg.d_state
+        dt_rank = max(1, math.ceil(d / 16))
+        f32 = dict(dtype=torch.float32, device=device)
+        kw = dict(dtype=getattr(torch, cfg.param_dtype), device=device)
+        self.in_proj = Dense(d, 2 * di, **kw)
+        self.conv_w = nn.Parameter(torch.empty((cfg.d_conv, di), **kw))
+        self.conv_b = nn.Parameter(torch.empty((di,), **kw))
+        self.x_proj = Dense(di, dt_rank + 2 * N, **kw)
+        self.dt_proj = Dense(dt_rank, di, bias=True, **kw)
+        self.A_log = nn.Parameter(torch.empty((di, N), **f32))
+        self.D = nn.Parameter(torch.empty((di,), **f32))
+        self.out_proj = Dense(di, d, scale=1.0 / math.sqrt(di), **kw)
+        self.INIT_STD = {"conv_w": 1.0 / math.sqrt(cfg.d_conv)}
+
+    def forward(self, x, **kw):
+        return mamba_apply(self, self.cfg, x, **kw)
+
+
+def mamba_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               prev: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The causal depthwise conv over x (B, T, di) with kernel w (d_conv,
+    di) and bias b, continuing from ``prev`` (B, d_conv - 1, di), the last
+    inputs of the previous call (zeros when None): the reference's left
+    fold ``sum(xp[:, i:i + T] * w[i])`` over the d_conv taps in the
+    activation dtype, plus ``b`` (``F.conv1d`` would accumulate in another
+    order on the card).  Returns (out, the next call's ``prev``)."""
+    B, T, di = x.shape
+    dconv = w.shape[0]
+    if prev is None:
+        prev = x.new_zeros((B, dconv - 1, di))
+    xp = torch.cat([prev, x], dim=1)
+    w = w.to(x.dtype)
+    out = xp[:, :T] * w[0]
+    for i in range(1, dconv):
+        out = out + xp[:, i:i + T] * w[i]
+    new_prev = xp[:, T:].clone() if dconv > 1 else prev
+    return out + b.to(x.dtype), new_prev
+
+
+def selective_scan(a: torch.Tensor, bx: torch.Tensor, c: torch.Tensor,
+                   h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba's recurrence in float32.  a, bx (B, T, di, N), c (B, T, N), h
+    (B, di, N); returns (y (B, T, di), h after the last token).  Per token,
+    as the JAX package's ``lax.scan`` step:
+
+        h <- a_t h + bx_t,   y_t = h c_t
+
+    two launches a token (``addcmul``, ``bmm``), with nothing read back to
+    the host.  y's sum over N runs in ``bmm``'s order, not XLA's."""
+    cs = c.unsqueeze(-1)                            # (B, T, N, 1)
+    ys = []
+    for t in range(a.shape[1]):
+        h = torch.addcmul(bx[:, t], a[:, t], h)
+        ys.append(torch.bmm(h, cs[:, t]))
+    return torch.cat(ys, dim=-1).transpose(1, 2), h
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` = max(x, 0) +
+    log1p(exp(-|x|)), in x's dtype (``F.softplus`` returns x itself above
+    its threshold of 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def mamba_apply(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
+                state: Optional[dict] = None
+                ) -> Tuple[torch.Tensor, Optional[dict]]:
+    """x (B, T, d) -> (y, new state); ``state`` = {"h" (B, di, N) float32,
+    "conv" (B, d_conv - 1, di) in the activation dtype}, or None (zeros,
+    and no state returned).  The dtypes follow the reference step by step
+    (repro/models/layers.py:770-808): the step size ``delta`` (softplus of
+    ``dt_proj``) and ``delta x`` in the activation dtype, the decay
+    ``exp(delta A)`` and the input ``delta x B`` in float32, y cast back to
+    the activation dtype before the skip ``x D`` and the gate
+    ``silu(z)``."""
+    N = cfg.d_state
+    dt_rank = p.dt_proj.w.shape[0]
+    x1, z = p.in_proj(x).chunk(2, dim=-1)
+    x1, conv_new = mamba_conv(x1, p.conv_w, p.conv_b,
+                              None if state is None else state["conv"])
+    x1 = F.silu(x1)
+    dt_, Bm, Cm = p.x_proj(x1).split([dt_rank, N, N], dim=-1)
+    delta = _softplus(p.dt_proj(dt_))                     # (B, T, di)
+    A = -torch.exp(p.A_log)                               # (di, N) float32
+    a = torch.exp(delta.float()[..., None] * A)           # (B, T, di, N)
+    bx = (delta * x1).float()[..., None] * Bm.float()[:, :, None, :]
+    h0 = (x.new_zeros((x.shape[0],) + tuple(A.shape), dtype=torch.float32)
+          if state is None else state["h"])
+    y, h = selective_scan(a, bx, Cm.float(), h0)
+    y = y.to(x.dtype) + x1 * p.D.to(x.dtype)
+    out = p.out_proj(y * F.silu(z))
+    return out, None if state is None else {"h": h, "conv": conv_new}
+
+
+def mamba_state_init(cfg: ModelConfig, batch: int, *, device=None) -> dict:
+    """A Mamba layer's state: h zeros (B, di, N) float32, conv zeros (B,
+    d_conv - 1, di) in the activation dtype."""
+    return {"h": torch.zeros((batch, cfg.d_inner, cfg.d_state),
+                             device=device),
+            "conv": torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner),
+                                dtype=getattr(torch, cfg.dtype),
+                                device=device)}
+
+
+# --------------------------------------------------------------------------
 # GQA attention (full / sliding-window) with optional KV cache
 # --------------------------------------------------------------------------
 
@@ -474,8 +618,9 @@ def _draw_normal_(p: torch.Tensor, seed: int, index: int,
     slab."""
     flat = p.view(-1)
     tid = torch.tensor([index], dtype=torch.int64, device=p.device)
-    for lo in range(0, flat.numel(), INIT_SLAB):
-        m = min(INIT_SLAB, flat.numel() - lo)
+    slab = INIT_SLAB_CPU if p.device.type == "cpu" else INIT_SLAB
+    for lo in range(0, flat.numel(), slab):
+        m = min(slab, flat.numel() - lo)
         z = rng.normal(seed, tid, INIT_STREAM, (m,), start=lo)[0]
         flat[lo:lo + m] = (z * scale).to(p.dtype)
 
@@ -486,13 +631,15 @@ def init_weights_(module: nn.Module, seed: int,
     """The JAX package's initialisation of every parameter of ``module``,
     device-independent: projections N(0, 1/d_in) (``Dense.init_scale``),
     biases zero, norm scales one and layer-norm biases zero, a module's
-    ``INIT_CONST`` (name -> value) and ``INIT_STD`` (name -> standard
-    deviation) leaves, and any parameter in ``scales`` (parameter ->
-    standard deviation) normal at that scale.  Parameter ``i`` of
-    ``named_parameters()`` is drawn from Philox trial ``i``, so each is a
-    function of (seed, its index) alone."""
+    ``INIT_CONST`` (name -> value), ``INIT_STD`` (name -> standard
+    deviation) and ``INIT_FIXED`` (name -> function of the shape giving
+    the leaf's deterministic values as a CPU tensor) leaves, and any
+    parameter in ``scales`` (parameter -> standard deviation) normal at
+    that scale.  Parameter ``i`` of ``named_parameters()`` is drawn from
+    Philox trial ``i``, so each is a function of (seed, its index)
+    alone."""
     std = dict(scales or {})
-    const = {}
+    const, fixed = {}, {}
     for m in module.modules():
         if isinstance(m, Dense):
             std[m.w] = m.init_scale
@@ -506,9 +653,13 @@ def init_weights_(module: nn.Module, seed: int,
             const[getattr(m, name)] = val
         for name, val in getattr(m, "INIT_STD", {}).items():
             std[getattr(m, name)] = val
+        for name, fn in getattr(m, "INIT_FIXED", {}).items():
+            fixed[getattr(m, name)] = fn
     for i, (name, p) in enumerate(module.named_parameters()):
         if p in const:
             p.fill_(const[p])
+        elif p in fixed:
+            p.copy_(fixed[p](tuple(p.shape)))
         elif p in std:
             _draw_normal_(p, seed, i, std[p])
         else:
@@ -827,27 +978,34 @@ def moe_route(x2d: torch.Tensor, router_w: torch.Tensor,
     T = x2d.shape[0]
     E, K = cfg.n_experts, cfg.experts_per_token
     C = moe_capacity(cfg, T)
-    dev = x2d.device
     probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
     srt = torch.sort(probs, dim=-1, descending=True, stable=True)
     top_w, top_i = srt.values[:, :K], srt.indices[:, :K]
     top_w = top_w / top_w.sum(-1, keepdim=True).clamp_min(1e-9)
-    flat_i = top_i.reshape(-1)
-    ones = torch.ones_like(flat_i)
-    f_e = torch.zeros(E, dtype=torch.int64, device=dev).scatter_add_(
-        0, flat_i, ones).float() / (T * K)
+    order, slot, ok, counts = moe_slots(top_i, E, C)
+    f_e = counts.float() / (T * K)
     # jnp.mean multiplies the sum by the float32 reciprocal of the count
     P_e = probs.sum(0) * (1.0 / T)
     aux = E * (f_e * P_e).sum()
-
-    skey, order = torch.sort(flat_i, stable=True)
-    counts = torch.zeros(E, dtype=torch.int64,
-                         device=dev).scatter_add_(0, skey, ones)
-    starts = counts.cumsum(0) - counts                      # exclusive
-    pos = torch.arange(T * K, device=dev) - starts[skey]
-    ok = pos < C
-    slot = torch.where(ok, skey * C + pos, E * C)
     return Routing(top_w, top_i, aux, order, slot, ok, counts, C)
+
+
+def moe_slots(top_i: torch.Tensor, n_experts: int, capacity: int
+              ) -> Tuple[torch.Tensor, ...]:
+    """The dispatch plan of the top-K picks ``top_i`` (T, K): a stable sort
+    of the T K pairs by expert, whose first ``capacity`` C of each expert
+    are kept.  Returns (order, slot: e C + c, or E C where dropped, ok,
+    counts per expert)."""
+    flat_i = top_i.reshape(-1)
+    skey, order = torch.sort(flat_i, stable=True)
+    counts = torch.zeros(n_experts, dtype=torch.int64,
+                         device=top_i.device).scatter_add_(
+                             0, skey, torch.ones_like(skey))
+    starts = counts.cumsum(0) - counts                      # exclusive
+    pos = torch.arange(flat_i.numel(), device=top_i.device) - starts[skey]
+    ok = pos < capacity
+    slot = torch.where(ok, skey * capacity + pos, n_experts * capacity)
+    return order, slot, ok, counts
 
 
 def moe_local(x2d: torch.Tensor, router_w: torch.Tensor,

@@ -13,10 +13,11 @@ Weights: ``embed`` (V_pad, d), ``blocks.<l>.{norm1, mixer, norm2, ffn}``
 ``pos_embed`` and ``encoder.{blocks.<l>, final_norm}``, and with a
 modality frontend ``frontend_proj``, under the JAX names.  Cache:
 ``{"layers": [...], "pos"}`` with host-integer positions; a layer holds
-``attn`` ({"k", "v", "pos"}, or for MLA {"c_kv", "k_rope", "pos"}) or, for
-rwkv6, ``ssm`` {"S", "x_prev"}, plus ``cmix_prev`` and ``xk``/``xv``
-where its layer has them.  ``forward`` returns the MoE layers' summed
-load-balance loss beside the logits.
+``attn`` ({"k", "v", "pos"}, or for MLA {"c_kv", "k_rope", "pos"}) or
+``ssm``, the recurrent state (rwkv6: {"S", "x_prev"}; mamba: {"h",
+"conv"}), plus ``cmix_prev`` and ``xk``/``xv`` where its layer has them;
+``pos`` counts every token, whichever layers attend.  ``forward`` returns
+the MoE layers' summed load-balance loss beside the logits.
 """
 from __future__ import annotations
 
@@ -39,9 +40,10 @@ __all__ = ["Segment", "plan_segments", "Block", "Encoder", "Transformer",
            "active_params", "ENC_SPEC"]
 
 _OUTSIDE = ("ROADMAP.md queue 1, item 8 (the rest of the LM stack): the "
-            "port's LM slice has dense gqa/swa attention and MLA with SwiGLU "
-            "or MoE, the vision-stub frontend, the whisper encoder-decoder "
-            "and the RWKV-6 time-mix")
+            "port's LM slice has dense gqa/swa attention, MLA, the RWKV-6 "
+            "time-mix and the Mamba mixer (hybrid stacks too) with SwiGLU, "
+            "GELU, the channel-mix or MoE, the vision-stub frontend and the "
+            "whisper encoder-decoder, on one device")
 #: the layers of whisper's encoder (repro/models/model.py:329)
 ENC_SPEC = LayerSpec(mixer="gqa", ffn="gelu", cross_attn=False)
 
@@ -89,10 +91,8 @@ def _check_slice(cfg: ModelConfig) -> None:
     if cfg.frontend not in (None, "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: modality frontend "
                                   f"{cfg.frontend!r}; {_OUTSIDE}")
-    if cfg.arch_type == "hybrid":
-        raise NotImplementedError(f"{cfg.name}: hybrid stacks; {_OUTSIDE}")
     for spec in layer_specs(cfg):
-        if spec.mixer not in ("gqa", "swa", "mla", "rwkv6") or \
+        if spec.mixer not in _MIXERS or \
                 spec.ffn not in ("swiglu", "gelu", "cmix", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: layer ({spec.mixer}, {spec.ffn}); {_OUTSIDE}")
@@ -104,7 +104,9 @@ def _check_slice(cfg: ModelConfig) -> None:
 
 
 _MIXERS = {"gqa": L.Attention, "swa": L.Attention, "mla": L.MLA,
-           "rwkv6": L.RWKV6}
+           "rwkv6": L.RWKV6, "mamba": L.Mamba}
+_SSM_APPLY = {"rwkv6": L.rwkv6_apply, "mamba": L.mamba_apply}
+_SSM_INIT = {"rwkv6": L.rwkv6_state_init, "mamba": L.mamba_state_init}
 _FFNS = {"swiglu": L.SwiGLU, "gelu": L.GeluMLP, "cmix": L.CMix, "moe": L.MoE}
 
 
@@ -152,9 +154,9 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
     new = None if cache is None else dict(cache)
     aux = None
     h = p.norm1(x)
-    if spec.mixer == "rwkv6":
-        h, st = L.rwkv6_apply(p.mixer, cfg, h,
-                              state=None if cache is None else cache["ssm"])
+    if spec.mixer in _SSM_APPLY:
+        h, st = _SSM_APPLY[spec.mixer](
+            p.mixer, cfg, h, state=None if cache is None else cache["ssm"])
         if new is not None:
             new["ssm"] = st
     elif spec.mixer == "mla":
@@ -162,7 +164,7 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                             cache=None if cache is None else cache["attn"])
         if new is not None:
             new["attn"] = mc
-    else:
+    elif spec.mixer in ("gqa", "swa"):
         window = cfg.sliding_window if spec.mixer == "swa" else None
         h, mc = L.gqa_apply(p.mixer, cfg, h, window=window,
                             positions=positions,
@@ -170,6 +172,8 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
                             use_rope=use_rope, causal=causal)
         if new is not None:
             new["attn"] = mc
+    else:
+        raise ValueError(spec.mixer)
     x = x + h
     if spec.cross_attn:
         if enc_out is not None:
@@ -203,18 +207,20 @@ def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, *, device=None) -> dict:
     """A layer's cache: the KV cache of an attention layer (a ring of
     min(window, max_len) slots for swa), the latents and rotary keys of an
-    MLA layer, the recurrent state of an rwkv6 layer, the channel-mix's
-    last input, and the cross-attention keys and values (None until a
-    prefill with ``enc_frames`` sets them)."""
+    MLA layer, the recurrent state of an rwkv6 or a mamba layer, the
+    channel-mix's last input, and the cross-attention keys and values
+    (None until a prefill with ``enc_frames`` sets them)."""
     c: dict = {}
-    if spec.mixer == "rwkv6":
-        c["ssm"] = L.rwkv6_state_init(cfg, batch, device=device)
+    if spec.mixer in _SSM_INIT:
+        c["ssm"] = _SSM_INIT[spec.mixer](cfg, batch, device=device)
     elif spec.mixer == "mla":
         c["attn"] = L.mla_cache_init(cfg, batch, max_len, device=device)
-    else:
+    elif spec.mixer in ("gqa", "swa"):
         c["attn"] = L.gqa_cache_init(
             cfg, batch, max_len, device=device,
             window=cfg.sliding_window if spec.mixer == "swa" else None)
+    else:
+        raise ValueError(spec.mixer)
     if spec.ffn == "cmix":
         c["cmix_prev"] = torch.zeros((batch, cfg.d_model),
                                      dtype=getattr(torch, cfg.dtype),
@@ -371,9 +377,10 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None,
                 trainable: bool = False) -> Transformer:
     """A ``Transformer`` with the JAX package's initialisation (embeddings
     N(0, 1/d), the audio family's ``pos_embed`` N(0, 0.01^2), projections
-    N(0, 1/d_in), biases zero, norm scales one, the RWKV leaves' constants
-    and scales) drawn by ``layers.init_weights_`` under ``seed``: a
-    function of (cfg, seed) alone, the same weights on every device.  On
+    N(0, 1/d_in), biases zero, norm scales one, the RWKV and Mamba leaves'
+    constants, scales and fixed values) drawn by ``layers.init_weights_``
+    under ``seed``: a function of (cfg, seed) alone, the same weights on
+    every device.  On
     the ``meta`` device only the shapes exist.  Serving weights take no
     gradients; ``trainable=True`` gives weights that do
     (``train.init_train_state``)."""

@@ -1,12 +1,14 @@
 """whisper-base, rwkv6-1.6b, deepseek-v3 (naive and absorbed MLA),
-llama4-maverick and llava-next-34b on a CUDA card, at their smoke configs
-in float32: the logits of a full forward and of a prefill plus decode
-steps on the card against the same weights on the CPU (rel 1e-4, the
-gemma check's bound in tests/test_torch_card.py; llava with its patch
-embeddings, the MoE families at the default capacity, where pairs are
-dropped, the same ones on both devices), rwkv6's recurrent state ``S``
-too; an MoE layer whose router sends every token past one expert's
-capacity, its routing equal and its output within rel 1e-4; decode against
+llama4-maverick, llava-next-34b and jamba-v0.1-52b (at the CLIs' hybrid
+smoke cut: a Mamba and an attention + MoE layer) on a CUDA card, at their
+smoke configs in float32: the logits of a full forward and of a prefill
+plus decode steps on the card against the same weights on the CPU (rel
+1e-4, the gemma check's bound in tests/test_torch_card.py; llava with its
+patch embeddings, the MoE families at the default capacity, where pairs
+are dropped, the same ones on both devices), the recurrent states too
+(rwkv6's ``S``, Mamba's ``h`` and ``conv``); an MoE layer whose router
+sends every token past one expert's capacity, its routing equal and its
+output within rel 1e-4; decode against
 the full forward on the card (2e-3, tests/test_models.py's bound; the MoE
 families at capacity_factor E/K, where no call drops a pair);
 ``init_params`` on the card against the CPU (each element within 4 units
@@ -25,15 +27,16 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import get_config
+from repro_torch.configs import cli_config
 from repro_torch.kernels import ops
 from repro_torch.models import forward, init_cache, init_params
 from repro_torch.models import layers as TL
 
 ARCHS = ["whisper-base", "rwkv6-1.6b", "deepseek-v3-671b",
          "deepseek-v3-671b+absorb", "llama4-maverick-400b-a17b",
-         "llava-next-34b"]
-MOE_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b"]
+         "llava-next-34b", "jamba-v0.1-52b"]
+MOE_ARCHS = ["deepseek-v3-671b", "llama4-maverick-400b-a17b",
+             "jamba-v0.1-52b"]
 #: float32 erfinv on the card and on the CPU part by at most this many
 #: units in the last place (tests/test_torch_card.py's bound)
 INIT_ERFINV_ULPS = 4
@@ -48,10 +51,11 @@ def cuda():
 
 
 def _smoke(arch, *, no_drops=False):
-    """The smoke config of ``arch`` (``+absorb``: with ``mla_absorb``);
+    """The smoke config of ``arch`` as the CLIs run it (a hybrid's cut
+    keeps an attention layer; ``+absorb``: with ``mla_absorb``);
     ``no_drops``: an MoE config at capacity_factor E/K."""
     name, _, variant = arch.partition("+")
-    cfg = get_config(name).smoke()
+    cfg = cli_config(name, smoke=True)
     if variant:
         cfg = dataclasses.replace(cfg, mla_absorb=True)
     if no_drops and cfg.n_experts:
@@ -107,9 +111,9 @@ def test_family_on_card_matches_cpu(cuda, arch):
                            **(_kw(cfg, ex, "cpu") if first else {}))
         assert _rel(a, b) < 1e-4, (t0, _rel(a, b))
     for la, lb in zip(ca["layers"], cb["layers"]):
-        if "ssm" in la:
-            assert la["ssm"]["S"].dtype == torch.float32
-            assert _rel(la["ssm"]["S"], lb["ssm"]["S"]) < 1e-4
+        for key, state in la.get("ssm", {}).items():
+            assert state.dtype == lb["ssm"][key].dtype, key
+            assert _rel(state, lb["ssm"][key]) < 1e-4, key
     assert dict(ops.LAUNCHES) == before           # no kernel on this path
 
 
@@ -162,7 +166,8 @@ def test_moe_forced_overflow_on_card_matches_cpu(cuda, arch):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_family_init_on_card_equals_cpu(cuda, arch):
     """Every leaf, the float32 ones of a bf16 model (RWKV-6's ``w0``,
-    ``u``, ``ln_out``, the MoE router) among them."""
+    ``u``, ``ln_out``, Mamba's ``A_log`` and ``D``, the MoE router) among
+    them."""
     cfg = _smoke(arch)
     a = init_params(cfg, seed=7, device=cuda)
     b = init_params(cfg, seed=7, device="cpu")

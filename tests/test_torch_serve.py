@@ -91,7 +91,7 @@ def test_serve_defaults_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve.main(["--arch", "gemma3-4b", "--smoke", "--gen", "2"])
     with pytest.raises(SystemExit):
-        serve.main(["--arch", "jamba-v0.1-52b", "--smoke", "--device",
+        serve.main(["--arch", "no-such-arch", "--smoke", "--device",
                     "cpu"])
 
 

@@ -1,5 +1,6 @@
 """Shared checks of the port's LM families against the JAX package
-(``tests/test_torch_moe.py``, ``test_torch_mla.py``, ``test_torch_vlm.py``):
+(``tests/test_torch_moe.py``, ``test_torch_mla.py``, ``test_torch_vlm.py``,
+``test_torch_mamba.py``):
 a JAX parameter tree and the port's model holding the same weights, the
 straggler train step on one round of a JAX-drawn trace, and the parameter
 tree at full size through ``jax.eval_shape`` (nothing allocated).  Inputs
@@ -48,14 +49,22 @@ def tcfg(jcfg):
     return tcfgmod.ModelConfig(**dataclasses.asdict(jcfg))
 
 
+def port_model(cfg, state, *, trainable=False):
+    """The port's model of ``cfg`` holding the weights ``state`` (a state
+    dict of CPU tensors), none drawn: built on the ``meta`` device, the
+    state's tensors assigned."""
+    model = tmodel.init_params(cfg, device="meta", trainable=trainable)
+    model.load_state_dict(state, assign=True)
+    return model
+
+
 def lm_pair(jcfg, seed=0, *, trainable=False):
     """The JAX parameters of ``jcfg`` (numpy leaves) and the port's model
     holding the same weights (``convert.lm_params``)."""
     params = jax.tree_util.tree_map(np.asarray, jax.jit(
         j_init_params, static_argnums=1)(jax.random.PRNGKey(seed), jcfg))
-    model = tmodel.init_params(tcfg(jcfg), device="cpu", trainable=trainable)
-    model.load_state_dict(convert.lm_params(params, tcfg(jcfg)))
-    return params, model
+    return params, port_model(tcfg(jcfg), convert.lm_params(
+        params, tcfg(jcfg)), trainable=trainable)
 
 
 def assert_config_is_the_references(arch):
@@ -64,9 +73,8 @@ def assert_config_is_the_references(arch):
         dataclasses.asdict(j)
     assert dataclasses.asdict(tcfg(j).smoke()) == dataclasses.asdict(
         j.smoke())
-    # in the reference's order, jamba (Mamba) left out
-    assert tconfigs.ARCH_IDS == tuple(a for a in jconfigs.ARCH_IDS
-                                      if a != "jamba-v0.1-52b")
+    # the whole registry, in the reference's order
+    assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
 
 
 def straggler_step_parity(jcfg, params, extras_np=None):
@@ -85,8 +93,7 @@ def straggler_step_parity(jcfg, params, extras_np=None):
     jstep = jax.jit(jtrain.make_straggler_train_step(
         jcfg, jo, JRoundConfig(**rc).to_round_spec(),
         JTraceProcess(JDelayTrace(T1, T2))))
-    model = tmodel.init_params(cfg, device="cpu", trainable=True)
-    model.load_state_dict(convert.lm_params(params, cfg))
+    model = port_model(cfg, convert.lm_params(params, cfg), trainable=True)
     tstate = TrainState(model, to.init(dict(model.named_parameters())), 0)
     tstep = make_straggler_train_step(cfg, to, RoundConfig(**rc),
                                       TraceProcess(DelayTrace(T1, T2)))
