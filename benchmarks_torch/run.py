@@ -37,13 +37,18 @@ Prints ``name,us_per_call,derived`` CSV rows:
   mc_engine  fused sweep-engine throughput vs the seed-style per-scheme path
   table1 one DGD iteration per scheme incl. real PC/PCMM decode (the rows'
          ``ok`` hold each update error to its bound)
+  roofline  the dry run's roofline terms on one H100, one row per artifact
+         under experiments/dryrun_torch (a ``roofline/skipped`` row when
+         there is none; ``python -m repro_torch.launch.dryrun --all`` makes
+         them)
 
 Each job also writes ``BENCH_<name>.json`` (the rows with parsed derived
 metrics) into ``--out``.  Every job's rows are screened for NaN/inf metric
 values: a non-finite number aborts the harness with a non-zero exit.
 ``python -m benchmarks_torch.regression_gate`` holds the artifacts to the
-port's baseline.  The reference's roofline job waits for a later slice of
-the port: asking for it exits non-zero and names its ``ROADMAP.md`` item.
+port's baseline.  A reference job that waits for a later slice of the port
+(``LATER``, empty now that the roofline job runs) would exit non-zero,
+naming its ``ROADMAP.md`` item.
 
 Run from the repository root (``--device cuda``, the default, needs a card):
 
@@ -58,10 +63,8 @@ import os
 import time
 
 #: the reference's jobs that wait for a later slice, and the ROADMAP.md
-#: item each waits for
-LATER = {
-    "roofline": "queue 1 item 8 (the rest of the LM stack)",
-}
+#: item each waits for (none: every job of benchmarks/run.py is ported)
+LATER: dict = {}
 
 
 def _check_finite(name: str, rows: list) -> None:
@@ -99,7 +102,7 @@ def main(argv=None) -> dict:
                    fig9_multimessage, fig10_load_rebalance,
                    fig11_trace_replay, fig12_faults, fig13_live,
                    grid_stream,
-                   mc_engine, planner, table1_e2e)
+                   mc_engine, planner, roofline_report, table1_e2e)
 
     jobs = {
         "fig3": lambda: fig3_delays.run(trials, dev),
@@ -119,6 +122,7 @@ def main(argv=None) -> dict:
         "fig13": lambda: fig13_live.run(trials, dev),
         "mc_engine": lambda: mc_engine.run(trials, dev),
         "table1": lambda: table1_e2e.run(dev),
+        "roofline": roofline_report.run,
     }
     if only:
         later = sorted(only & set(LATER))

@@ -89,7 +89,17 @@ float32-activation decode within 1e-4), the CLIs' hybrid smoke cut on the
 card against the CPU with every Mamba state, and the CLIs' cut at
 published widths (a Mamba and an attention + MoE layer) trained 10 steps
 (the loss falls, the aux loss finite and non-zero; one greedy_assign
-launch a step).
+launch a step).  Last, the shapes phase (``shapes_phase``): the bf16
+tensor-core swa kernel gated at the long variant's window W 8192 at
+gemma3-4b's and mistral-nemo-12b's heads, both long variants
+(``configs.resolve(cfg, "long_500k")``: every layer sliding-window)
+served at full width through ``serve.run`` at batch 1 and a 32 768-token
+prompt (one kernel launch a layer in the prefill), decode past the window
+held to the full forward and the smoke configs on the card to the CPU,
+then the dry run (``repro_torch.launch.dryrun``) of two decode combos and
+of a cut train round held to its own build run on the card: FLOPs
+exactly, the argument bytes and the step's peak each within a stated
+share, a decode step's time beside the roofline's.
 
 Run from the repository root on a machine with a card:
 
@@ -115,14 +125,16 @@ from pathlib import Path
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
+from torch.utils.flop_counter import FlopCounterMode
 
 if not torch.cuda.is_available():
     sys.exit("chip_smoke: no CUDA device available")
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import (RegressionConfig, cli_config,  # noqa: E402
-                                get_config)
+from repro_torch.configs import (SHAPES, InputShape,  # noqa: E402
+                                RegressionConfig, cli_config, get_config,
+                                long_variant, resolve)
 from repro_torch.core import (DelayTrace, GridCell,  # noqa: E402
                               GridSpec, RoundConfig, TraceProcess,
                               adaptive_spec, cache_stats, completion_samples,
@@ -139,7 +151,7 @@ from repro_torch import dgd  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.core import load_trace  # noqa: E402
 from repro_torch.data import TaskPartition, lm_task_batches  # noqa: E402
-from repro_torch.launch import serve  # noqa: E402
+from repro_torch.launch import dryrun, roofline, serve  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.cluster import build_cluster  # noqa: E402
 from repro_torch.live import run_live, sample_delay_tables  # noqa: E402
@@ -1563,13 +1575,6 @@ def dgd_phase():
                         "tall": secs_tall}}
 
 
-def swa_pairs(T, W):
-    """Visible (query, key) pairs of causal window-W attention over T
-    positions: sum over t of min(t + 1, W)."""
-    W = min(W, T)
-    return W * (W + 1) // 2 + (T - W) * W
-
-
 def swa_bound(B, T, H, K, dh, W, dtype):
     """Least time for swa_attention: 4 * dh flops per visible pair (QK^T and
     PV) over the least time the card takes for them at the input type's
@@ -1579,7 +1584,7 @@ def swa_bound(B, T, H, K, dh, W, dtype):
     faster.  Returns (ms, "bytes" or "operations", {bound name: ms}) with
     both float32 bounds named."""
     item = 2 if dtype == torch.bfloat16 else 4
-    flops = 4 * dh * swa_pairs(T, W) * B * H
+    flops = ops.swa_flops(B, T, H, dh, W)
     if dtype == torch.bfloat16:
         named = {"bf16": flops / BF16_FLOPS_PER_S}
     else:
@@ -1723,7 +1728,7 @@ def swa_phase():
                                       5 if big else 50))
         row["bound_ms"], row["bound_by"], named = swa_bound(B, T, H, K, dh,
                                                             W, dt)
-        row["tflop_per_s"] = 4 * dh * swa_pairs(T, W) * B * H / row["ms"] / 1e9
+        row["tflop_per_s"] = ops.swa_flops(B, T, H, dh, W) / row["ms"] / 1e9
         row["bound_share"] = row["bound_ms"] / row["ms"]
         extra = guard
         if dt == f32:
@@ -3355,6 +3360,305 @@ def hybrid_phase():
     return out
 
 
+#: the bfloat16 tensor-core swa kernel's gate at the long variant's window,
+#: at the shapes the long variants' prefills give it (LONG_SERVE's 32 768
+#: tokens, so T > W and the window's edge is crossed): (B, T, H, K, dh, W)
+#: at gemma3-4b's and mistral-nemo-12b's heads
+LONG_SWA = [(1, 32768, 8, 4, 256, 8192), (1, 32768, 32, 8, 128, 8192)]
+#: the long variants served at full width: long_500k's batch of 1, a
+#: prompt cut to 32 768 tokens (the shape's 524 288 would need (1, 524 288,
+#: V_pad) prefill logits, 275 GB for gemma3-4b), 32 tokens generated
+LONG_ARCHS = {"gemma3-4b": 34, "mistral-nemo-12b": 40}
+LONG_SERVE = dict(batch=1, prompt_len=32768, gen=32)
+#: decode steps held to the full forward after a LONG_SERVE-long prefill:
+#: every one past the window, the ring wrapped
+LONG_DECODE_STEPS = 4
+#: the dry run's combos whose decode build runs for real on the card: a
+#: ring of 8 192 slots at depth 524 288, and rwkv6's O(1) state at batch 128
+DRY_HELD = [("gemma3-4b", "long_500k"), ("rwkv6-1.6b", "decode_32k")]
+#: the train round held to the card: gemma3-4b at published widths cut to
+#: 4 layers, its 16 workers one 512-token sequence each (train_4k's 256 x
+#: 4 096 round peaks at 3.5 TB on no card)
+DRY_TRAIN = ("gemma3-4b", 4, InputShape("train_4k", 512, 16, "train"))
+#: the card against the dry run, as shares of the dry run's bytes: the
+#: build's allocation against ``argument_size_in_bytes``, and the second
+#: step's peak over what it started with against ``temp_size_in_bytes``.
+#: Set from the readings of the shapes phase ("NVIDIA H100 80GB HBM3,
+#: 700.00 W"): arguments +1.02e-4 (gemma3-4b long_500k), 0 (rwkv6-1.6b
+#: decode_32k), +6.1e-5 (the train round); temps +1.9e-5, +5.9e-7,
+#: -3.4e-6.  Each limit is about five times the largest reading; what the
+#: card adds is the allocator's rounding of blocks, not a tensor the trace
+#: misses (1e-4 of the train round's temp is 2.6 MB, of gemma3-4b's
+#: decode temp 13 kB)
+DRY_ARG_TOL = 5e-4
+DRY_TEMP_TOL = 1e-4
+DRY_DIR = Path(__file__).resolve().parent / "build" / "dryrun_smoke"
+
+
+def long_swa_gate(B, T, H, K, dh, W):
+    """The bfloat16 swa kernel at (B, T, H, K, dh, W) against its plain
+    version (``ref.swa_attention_ref`` one KV group at a time, so its
+    float32 scores fit the card: (1, 4, 32 768, 32 768), 17.2 GB, at
+    mistral-nemo-12b's heads), elementwise |got - want| <= 1e-3 + 1e-2
+    |want| as in ``swa_phase``; one launch on the tensor-core route; the
+    kernel's, the plain version's and SDPA-with-a-band-mask's times."""
+    bf16 = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    q = (torch.randn(B, T, H, dh, generator=gen, device=DEV) * 0.5).to(bf16)
+    k = (torch.randn(B, T, K, dh, generator=gen, device=DEV) * 0.5).to(bf16)
+    v = torch.randn(B, T, K, dh, generator=gen, device=DEV).to(bf16)
+    G = H // K
+
+    def plain():
+        return torch.cat([ref.swa_attention_ref(
+            q[:, :, g * G:(g + 1) * G], k[:, :, g:g + 1], v[:, :, g:g + 1], W)
+            for g in range(K)], dim=2)
+
+    before = dict(ops.LAUNCHES)
+    got = ops.swa_attention(q, k, v, window=W)
+    want = plain()
+    torch.cuda.synchronize()
+    counts = {name: ops.LAUNCHES[name] - before[name]
+              for name in ("swa_attention", "swa_attention_wgmma")}
+    check(counts == {"swa_attention": 1, "swa_attention_wgmma": 1},
+          f"swa_attention at {(B, T, H, K, dh, W)} bf16: launches {counts}")
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    worst = (diff / (1e-3 + 1e-2 * want.float().abs())).max().item()
+    check(worst <= 1, f"swa_attention |got - want| exceeds 1e-3 + 1e-2 |want|"
+                      f" {worst:.2f}x (max abs err {err:.2e}) at "
+                      f"{(B, T, H, K, dh, W)} bf16")
+    del diff, want, got
+    kernel = lambda: ops.swa_attention(q, k, v, window=W)  # noqa: E731
+    row = dict(shape=[B, T, H, K, dh, W], dtype="bfloat16",
+               swa_route="tensor_core", max_abs_err=err, worst_share=worst,
+               ms=cuda_ms(kernel, 10), plain_ms=cuda_ms(plain, 1, warmup=1),
+               library_ms=cuda_ms(sdpa_banded(q, k, v, W), 5))
+    row["bound_ms"], row["bound_by"], _ = swa_bound(B, T, H, K, dh, W, bf16)
+    row["tflop_per_s"] = ops.swa_flops(B, T, H, dh, W) / row["ms"] / 1e9
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    print(f"shapes kernel swa_attention B={B} T={T} H={H} K={K} dh={dh} W={W}"
+          f" bfloat16 route=tensor_core: max_abs_err={err:.3e} "
+          f"({worst:.3f} of the tolerance) ms={row['ms']:.5f} "
+          f"({row['tflop_per_s']:.1f} TFLOP/s, {row['bound_share']:.3f} of "
+          f"bound) plain_ms={row['plain_ms']:.5f} (one KV group at a time) "
+          f"library_ms={row['library_ms']:.5f} bound_ms="
+          f"{row['bound_ms']:.5f} ({row['bound_by']})")
+    del q, k, v
+    _free_cuda()
+    return row
+
+
+@torch.inference_mode()
+def long_serve(arch):
+    """``arch``'s long variant (every layer sliding-window at W 8192) at
+    full width in bf16, random weights: through ``serve.run`` at
+    ``LONG_SERVE`` (counts set to 0 just before: one tensor-core
+    swa_attention launch a layer in the prefill, none in decode; logits
+    finite, tokens in range; peak memory); then its decode against the full
+    forward past the window (``_decode_vs_full``, the ring route against
+    the kernel's) within ``FAMILY_BF16_REL``; then its smoke config in
+    float32, the card against the CPU (``_smoke_card_vs_cpu``)."""
+    cfg = resolve(get_config(arch), "long_500k")
+    n = LONG_ARCHS[arch]
+    check(cfg.n_layers == n and cfg.name == arch + "+swa"
+          and cfg.sliding_window == 8192
+          and {s.mixer for s in layer_specs(cfg)} == {"swa"},
+          f"{arch} long variant: {cfg.name}, {cfg.n_layers} layers, window "
+          f"{cfg.sliding_window}")
+    B, P, G = (LONG_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    _free_cuda()
+    ops.reset_launch_counts()
+    res = serve.run(cfg, batch=B, prompt_len=P, gen=G, seed=0, device=DEV)
+    launches = dict(ops.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    pre = res.launches_after_prefill
+    check(pre["swa_attention"] == pre["swa_attention_wgmma"] == n
+          and _swa_launches(launches) == _swa_launches(pre),
+          f"{cfg.name} serve launches: prefill {pre}, run {launches}")
+    check(res.finite, f"{cfg.name} serve: non-finite logits")
+    check(tuple(res.tokens.shape) == (B, G)
+          and bool(((res.tokens >= 0) & (res.tokens < cfg.vocab_size)).all()),
+          f"{cfg.name} serve: tokens {tuple(res.tokens.shape)} out of range")
+    _free_cuda()
+    model = init_params(cfg, seed=1, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (B, P + LONG_DECODE_STEPS),
+                         generator=gen, device=DEV)
+    ops.reset_launch_counts()
+    rel, _, _ = _decode_vs_full(model, cfg, toks, LONG_DECODE_STEPS, {})
+    moved = (_moves_when_nudged(model, cfg, toks, {}, cfg.name) if rel == 0
+             else None)
+    dvf = dict(ops.LAUNCHES)
+    dvf_peak = torch.cuda.max_memory_allocated()
+    check(np.isfinite(rel) and rel <= FAMILY_BF16_REL
+          and dvf["swa_attention_wgmma"] == (2 + 2 * (moved is not None)) * n,
+          f"{cfg.name} bf16 decode vs full rel {rel:.3e} (bound "
+          f"{FAMILY_BF16_REL}), launches {dvf}")
+    del model
+    _free_cuda()
+    small = long_variant(get_config(arch)).smoke()
+    check({s.mixer for s in layer_specs(small)} == {"swa"},
+          f"{small.name}: not every layer sliding-window")
+    out = {"layers": n, "window": cfg.sliding_window, "batch": B,
+           "prompt_len": P, "gen": G, "init_s": res.init_s,
+           "prefill_ms": res.prefill_s * 1e3,
+           "prefill_tok_per_s": B * P / res.prefill_s,
+           "decode_ms_per_step": res.decode_s * 1e3 / (G - 1),
+           "decode_tok_per_s": B * (G - 1) / res.decode_s,
+           "peak_mem_bytes": peak, "prefill_swa_launches": pre["swa_attention"],
+           "prefill_wgmma_launches": pre["swa_attention_wgmma"],
+           "decode_vs_full_bf16_rel": rel, "nudged_bf16_rel": moved,
+           "decode_vs_full_wgmma_launches": dvf["swa_attention_wgmma"],
+           "decode_vs_full_peak_mem_bytes": dvf_peak,
+           **_smoke_card_vs_cpu(small)}
+    print(f"shapes serve {cfg.name} {n} layers bf16 W=8192 batch={B} "
+          f"prompt={P} gen={G}: init_params {res.init_s:.3f} s, prefill "
+          f"{out['prefill_ms']:.3f} ms ({out['prefill_tok_per_s']:.1f} tok/s),"
+          f" decode {out['decode_ms_per_step']:.4f} ms/step "
+          f"({out['decode_tok_per_s']:.1f} tok/s), peak memory {peak} bytes; "
+          f"swa_attention launches in the prefill {pre['swa_attention']} "
+          f"(tensor-core {pre['swa_attention_wgmma']}), in decode 0; "
+          f"{LONG_DECODE_STEPS} decode steps past the window vs the full "
+          f"forward rel {rel:.3e} (bound {FAMILY_BF16_REL}; "
+          f"{dvf['swa_attention_wgmma']} kernel launches, peak {dvf_peak} "
+          f"bytes); {_card_vs_cpu_line(small.name, out)}")
+    return out
+
+
+@contextlib.contextmanager
+def _shape_cut(shape):
+    """``SHAPES[shape.name]`` is ``shape`` inside the block."""
+    whole = SHAPES[shape.name]
+    SHAPES[shape.name] = shape
+    try:
+        yield
+    finally:
+        SHAPES[shape.name] = whole
+
+
+def _held_on_card(cfg, shape, flops, mem):
+    """``cfg``'s build of ``shape`` for real on the card (weights from seed
+    0, zero caches and tokens), run as ``dryrun.measure`` runs it on
+    ``meta``: one step under ``FlopCounterMode``, which must count exactly
+    ``flops``; then one step whose peak over the bytes it started with must
+    lie within ``DRY_TEMP_TOL`` of ``mem``'s temp bytes, as the build's own
+    allocation must of its argument bytes (``DRY_ARG_TOL``).  Returns (the
+    step, its arguments, the readings)."""
+    _free_cuda()
+    before = torch.cuda.memory_allocated()
+    fn, args, _ = dryrun.build(cfg, shape, device=DEV, seed=0)
+    torch.cuda.synchronize()
+    card_args = torch.cuda.memory_allocated() - before
+    with FlopCounterMode(display=False) as fc:
+        out = fn()
+    del out
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn()
+    torch.cuda.synchronize()
+    card_temp = torch.cuda.max_memory_allocated() - base
+    del out
+    want_args = mem["argument_size_in_bytes"]
+    want_temp = mem["temp_size_in_bytes"]
+    got = {"flops": fc.get_total_flops(), "argument_bytes": want_args,
+           "card_argument_bytes": card_args, "temp_bytes": want_temp,
+           "card_temp_bytes": card_temp,
+           "argument_gap": (card_args - want_args) / want_args,
+           "temp_gap": (card_temp - want_temp) / want_temp}
+    what = f"dry run {cfg.name} {shape} ({SHAPES[shape]})"
+    check(got["flops"] == flops, f"{what}: the card counts {got['flops']} "
+                                 f"FLOPs, the dry run {flops}")
+    check(abs(got["argument_gap"]) <= DRY_ARG_TOL,
+          f"{what}: the build allocates {card_args} bytes on the card, the "
+          f"dry run counts {want_args} ({got['argument_gap']:+.6f}, "
+          f"tolerance {DRY_ARG_TOL})")
+    check(abs(got["temp_gap"]) <= DRY_TEMP_TOL,
+          f"{what}: the step's peak is {card_temp} bytes over its start on "
+          f"the card, the dry run's temp {want_temp} "
+          f"({got['temp_gap']:+.6f}, tolerance {DRY_TEMP_TOL})")
+    return fn, args, got
+
+
+def _held_line(got):
+    return (f"card FLOPs {got['flops']:.6e} = the dry run's; arguments "
+            f"{got['card_argument_bytes']} bytes on the card vs "
+            f"{got['argument_bytes']} counted ({got['argument_gap']:+.6f}); "
+            f"the step's peak {got['card_temp_bytes']} bytes over its start "
+            f"vs temp {got['temp_bytes']} ({got['temp_gap']:+.6f})")
+
+
+def dryrun_held(arch, shape):
+    """The dry run of (``arch``, ``shape``) on ``meta``, its artifact's
+    counts held to its own build on the card (``_held_on_card``); then the
+    step's time (CUDA events, 5 steps) beside the roofline's
+    max(compute_s, memory_s)."""
+    art = dryrun.run_one(arch, shape, out_dir=str(DRY_DIR))
+    cfg = dryrun.dryrun_config(get_config(arch), shape)
+    fn, args, got = _held_on_card(cfg, shape, art["flops_per_device"],
+                                  art["memory_analysis"])
+    ms = cuda_ms(fn, 5, warmup=2)
+    ro = art["roofline"]
+    roof_ms = max(ro["compute_s"], ro["memory_s"]) * 1e3
+    out = {"arch": arch, "shape": shape, "config": cfg.name, **got,
+           "bytes": art["bytes_per_device"], "ms": ms, "roofline_ms": roof_ms,
+           "roofline_share": roof_ms / ms, "dominant": ro["dominant"],
+           "fits": art["fits"], "meta_wall_s": art["wall_s"]}
+    print(f"shapes dry run {arch} {shape} ({cfg.name}): {_held_line(got)}; "
+          f"a step {ms:.4f} ms vs max(compute_s, memory_s) {roof_ms:.4f} ms "
+          f"({roof_ms / ms:.3f} of the roofline, {ro['dominant']}); the "
+          f"meta trace took {art['wall_s']:.2f} s")
+    del fn, args
+    _free_cuda()
+    return out
+
+
+def dryrun_train_held():
+    """``DRY_TRAIN``'s straggler train round (remat and AdamW, as the dry
+    run builds it) traced on ``meta`` by ``dryrun.measure``, its counts
+    held to the same round on the card (``_held_on_card``)."""
+    arch, layers, shape = DRY_TRAIN
+    cfg = dataclasses.replace(
+        dryrun.dryrun_config(get_config(arch), shape.name), n_layers=layers)
+    with _shape_cut(shape):
+        t0 = time.perf_counter()
+        res = dryrun.measure(*dryrun.build(cfg, shape.name)[:2])
+        wall = time.perf_counter() - t0
+        fn, args, got = _held_on_card(cfg, shape.name, res["flops"],
+                                      res["mem"])
+    del fn, args
+    _free_cuda()
+    print(f"shapes dry run {arch} cut to {layers} layers, train round "
+          f"{shape}: {_held_line(got)}; the meta trace took {wall:.2f} s")
+    return {"arch": arch, "layers": layers, "seq_len": shape.seq_len,
+            "global_batch": shape.global_batch, **got, "meta_wall_s": wall}
+
+
+def shapes_phase():
+    """The input shapes' long-context variant on the card, after the hybrid
+    phase: the bf16 swa kernel gated at W 8192 at both long variants' heads
+    (``long_swa_gate``), gemma3-4b+swa and mistral-nemo-12b+swa served at
+    full width (``long_serve``), the dry run held to the card at two combos
+    (``dryrun_held``) and at a cut train round (``dryrun_train_held``),
+    then the phase's artifacts through ``roofline.to_markdown``."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(DRY_DIR, ignore_errors=True)
+    out = {"gates": [long_swa_gate(*shape) for shape in LONG_SWA]}
+    for arch in LONG_ARCHS:
+        out[arch], secs = _timed(lambda: long_serve(arch))
+        out[arch]["seconds"] = secs
+    out["dryrun"] = [dryrun_held(*combo) for combo in DRY_HELD]
+    out["dryrun_train"] = dryrun_train_held()
+    table = roofline.to_markdown(roofline.rows(str(DRY_DIR)))
+    check(len(table.splitlines()) == 2 + len(DRY_HELD),
+          f"roofline table of {DRY_DIR}:\n{table}")
+    print(table)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"shapes phase wall seconds={out['seconds']:.4f}")
+    return out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3394,6 +3698,7 @@ def main():
     families = families_phase()
     wide = wide_phase()
     hybrid = hybrid_phase()
+    shapes = shapes_phase()
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -3535,12 +3840,18 @@ def main():
             "train": train["full"]["swa_launches"],
             "train_nograd": train["nograd"]["wgmma_launches"],
             "lm_f32": consistency["f32_wgmma_launches"],
-            "lm_bf16_dh32": consistency["narrow_wgmma_launches"]},
+            "lm_bf16_dh32": consistency["narrow_wgmma_launches"],
+            **{f"long_serve_{a}": shapes[a]["prefill_wgmma_launches"]
+               for a in LONG_ARCHS},
+            **{f"long_decode_vs_full_{a}":
+               shapes[a]["decode_vs_full_wgmma_launches"]
+               for a in LONG_ARCHS}},
         "max_abs_err": t_row["max_abs_err"],
         "ms": t_row["ms"], "plain_ms": t_row["plain_ms"],
         "bound_ms": t_row["bound_ms"], "bound_by": t_row["bound_by"],
         "library_ms": t_row["library_ms"],
         "cuda_core_ms": t_row["cuda_core_ms"], "card": card,
+        "w8192_shapes": shapes["gates"],
         "shapes": [r for r in swa_rows if r["swa_route"] == "tensor_core"]}],
         "engine": engine, "rounds": rounds, "adaptive_wide": adaptive_wide,
         "adaptive_wide_reissue": wide_reissue, "figures": figures,
@@ -3548,7 +3859,8 @@ def main():
         "dgd_seconds": dgd_launches["seconds"], "serve": served,
         "consistency": consistency, "grid": grid, "live": live,
         "gate": gate, "shard": shard, "train": train,
-        "families": families, "wide": wide, "hybrid": hybrid}))
+        "families": families, "wide": wide, "hybrid": hybrid,
+        "shapes": shapes}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

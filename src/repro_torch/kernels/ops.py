@@ -6,6 +6,15 @@ kernel and raises if that is not possible; there is no fallback from the
 card to the plain version.  ``LAUNCHES`` counts the kernel launches of each
 wrapper (one per call that reached the card), so a run can show that its
 main path went through the kernels.
+
+``swa_attention`` is also a ``torch.library`` custom op
+(``repro_torch::swa_attention``) whose CUDA implementation is the launch,
+whose fake implementation gives the output's shape alone, and which
+``torch.utils.flop_counter`` counts by the band of visible pairs, not the
+dense T x T: so the dry run (``launch/dryrun.py``) traces a model through
+the kernel on ``meta`` without allocating.  ``gram_matvec`` and
+``greedy_assign`` launch directly: the engine that calls them paces them
+from the host and reads their results there, and no dry run reaches them.
 """
 from __future__ import annotations
 
@@ -15,6 +24,7 @@ from functools import lru_cache
 from typing import NamedTuple
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import build, ref
 
@@ -23,7 +33,8 @@ __all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
            "greedy_assign", "greedy_route", "greedy_smem", "swa_attention",
            "swa_route", "swa_f32_plan", "swa_f32_makespan", "SwaF32Plan",
            "GREEDY_MAX_N", "GREEDY_WARP_MAX_N", "SWA_HEAD_DIMS",
-           "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts"]
+           "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts",
+           "swa_flops"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``;
 #: "gram_matvec" counts the calls of both of its routes,
@@ -568,7 +579,8 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (``csrc/swa_attention.cu``); float32 or bfloat16, contiguous, dh in
     ``SWA_HEAD_DIMS``.  A build or launch failure of any raises, and so
     does a CUDA call that autograd would record (the kernels are
-    forward-only).  CPU tensors take the plain version."""
+    forward-only).  CPU tensors take the plain version; ``meta`` tensors
+    the op's fake implementation (the output's shape alone)."""
     if not isinstance(window, int) or window < 1:
         raise ValueError(f"swa_attention needs an integer window >= 1, got "
                          f"{window!r}")
@@ -594,7 +606,7 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             "backward kernel is later work, ROADMAP.md section 2); under "
             "autograd the model takes models.layers.attention_core")
     dev = q.device
-    if dev.type != "cuda" or k.device != dev or v.device != dev:
+    if dev.type not in ("cuda", "meta") or k.device != dev or v.device != dev:
         raise ValueError(f"swa_attention needs q, k, v on one CUDA device "
                          f"(or all on the CPU); got {q.device}, {k.device}, "
                          f"{v.device}")
@@ -609,6 +621,17 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("swa_attention needs contiguous q, k, v")
+    return torch.ops.repro_torch.swa_attention(q, k, v, window)
+
+
+def _swa_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              window: int) -> torch.Tensor:
+    """The CUDA implementation of ``repro_torch::swa_attention``: one
+    launch of the kernel ``swa_route`` names, on inputs ``swa_attention``
+    has checked."""
+    B, T, H, dh = q.shape
+    K = k.shape[2]
+    dev = q.device
     route = swa_route(q.dtype, dh)
     # TMA and cp.async read rows of q, k, v from 16-byte aligned addresses
     if route != "cuda_core" and any(t.data_ptr() % 16 for t in (q, k, v)):
@@ -641,3 +664,30 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if route == "tensor_core":
         LAUNCHES["swa_attention_wgmma"] += 1
     return out
+
+
+_swa_op = torch.library.custom_op("repro_torch::swa_attention", _swa_cuda,
+                                  mutates_args=(), device_types="cuda")
+
+
+@_swa_op.register_fake
+def _(q, k, v, window):
+    return torch.empty_like(q)
+
+
+def swa_flops(B: int, T: int, H: int, dh: int, window: int) -> int:
+    """The arithmetic of causal window attention, counted as
+    ``torch.utils.flop_counter`` counts a matmul: two products (QKᵀ and
+    PV) of 2 dh each per visible (query, key) pair, over the pairs that
+    position t sees, min(t + 1, W) of them: 4 B H dh sum_t min(t + 1,
+    W)."""
+    W = min(window, T)
+    pairs = W * (W + 1) // 2 + (T - W) * W
+    return 4 * B * H * dh * pairs
+
+
+@register_flop_formula(torch.ops.repro_torch.swa_attention)
+def _(q_shape, k_shape, v_shape, window, *args, out_shape=None,
+      **kwargs) -> int:
+    B, T, H, dh = q_shape
+    return swa_flops(B, T, H, dh, window)
