@@ -99,7 +99,19 @@ held to the full forward and the smoke configs on the card to the CPU,
 then the dry run (``repro_torch.launch.dryrun``) of two decode combos and
 of a cut train round held to its own build run on the card: FLOPs
 exactly, the argument bytes and the step's peak each within a stated
-share, a decode step's time beside the roofline's.
+share, a decode step's time beside the roofline's.  Last, the mesh phase
+(``mesh_phase``): mistral-nemo-12b's base at full size served through
+the serve CLI and ``serve.run`` with ``grouped_gqa`` off and on, both
+decodes in turn on one model (ms a step, launches, busy share), each
+held to its full forward and to the other, the grouped smoke config card
+against CPU and its step's FLOPs equal to the dry run's; one deepseek-v3
+MoE layer at published widths expert-parallel over two gloo ranks on the
+one card (each holding its 128 experts) against the one-device layer on
+pinned routing, and a ring decode over a 32 768-slot cache split by
+sequence over the two ranks against the one-device grouped attention
+(outputs within the bf16 bound, cache blocks bit-equal); beside them,
+the mesh dry runs on ``meta`` (16x16 and 2x16x16: per-device FLOPs,
+bytes, peak and collective bytes by kind).
 
 Run from the repository root on a machine with a card:
 
@@ -115,6 +127,7 @@ import contextlib
 import ctypes
 import dataclasses
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -152,6 +165,7 @@ from repro_torch.kernels import build, ops, ref  # noqa: E402
 from repro_torch.core import load_trace  # noqa: E402
 from repro_torch.data import TaskPartition, lm_task_batches  # noqa: E402
 from repro_torch.launch import dryrun, roofline, serve  # noqa: E402
+from repro_torch.launch import shardings  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.cluster import build_cluster  # noqa: E402
 from repro_torch.live import run_live, sample_delay_tables  # noqa: E402
@@ -3659,6 +3673,587 @@ def shapes_phase():
     return out
 
 
+# ------------------------------------------------------------------ mesh
+
+#: the grouped-GQA legs: mistral-nemo-12b's base (every layer full
+#: attention, 40 layers, 12 247 782 400 parameters) at gemma3-4b's shape
+MESH_ARCH = "mistral-nemo-12b"
+MESH_SIZE = (40, 0, 12_247_782_400)
+MESH_SERVE = SERVE
+MESH_DECODE_STEPS = 8
+#: rounds of 16 decode steps of each path, in turn
+MESH_TIMED = 3
+#: one deepseek-v3 MoE layer at published widths (256 experts of d 7168 x
+#: f 2048, top 8, one shared expert) over 2 x 2048 tokens, split over two
+#: ranks on the one card
+MESH_EP_TOKENS = (2, 2048)
+MESH_EP_SEED = 4
+#: one attention layer at mistral-nemo's widths (32 heads, 8 KV heads, dh
+#: 128) decoding 32 steps against a 32 768-slot cache split over two ranks
+MESH_RING = dict(batch=2, cache=32768, steps=32)
+MESH_RANKS = 2
+MESH_DIR = Path(__file__).resolve().parent / "build" / "mesh_smoke"
+#: the mesh dry runs on ``meta``, one process each: (arch, shape, variant,
+#: mesh)
+MESH_DRY = [("mistral-nemo-12b", "decode_32k", "", "16x16"),
+            ("mistral-nemo-12b", "decode_32k", "grouped", "16x16"),
+            ("mistral-nemo-12b", "decode_32k", "ringdecode", "16x16"),
+            ("deepseek-v3-671b", "decode_32k", "", "16x16"),
+            ("phi4-mini-3.8b", "train_4k", "zero1", "2x16x16")]
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _spawn_ranks(fn, *args):
+    """``fn(rank, world, port, *args)`` in ``MESH_RANKS`` processes on the
+    one card, joined before this returns (``torch.multiprocessing``)."""
+    import torch.multiprocessing as mp
+    mp.spawn(fn, args=(MESH_RANKS, _free_port()) + args, nprocs=MESH_RANKS,
+             join=True)
+
+
+def _rank_group(rank, world, port):
+    """This rank's gloo group on ``cuda:0`` and a 1 x world mesh context
+    (NCCL takes no two ranks on one card)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_local_mesh_ctx
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            rank=rank, world_size=world)
+    return make_local_mesh_ctx(1, world)
+
+
+def _rank_report(rank, res, name):
+    """Every rank's ``res`` gathered to rank 0, which writes them."""
+    import torch.distributed as dist
+    got = [None] * dist.get_world_size()
+    dist.all_gather_object(got, res)
+    if rank == 0:
+        (MESH_DIR / name).write_text(json.dumps(got))
+    dist.destroy_process_group()
+
+
+def _mesh_dry_start():
+    """The mesh dry runs (``MESH_DRY``), each in a process of its own on
+    one CPU thread (a mesh starts the fake process group), started now to
+    run beside the card's legs."""
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=str(
+        Path(__file__).resolve().parent / "src"))
+    procs = []
+    for arch, shape, variant, mesh in MESH_DRY:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", mesh, "--out-dir",
+               str(MESH_DIR)] + (["--variant", variant] if variant else [])
+        procs.append((time.perf_counter(), subprocess.Popen(
+            cmd, env=env, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)))
+    return procs
+
+
+def _mesh_dry_finish(procs, card):
+    """Waits for the mesh dry runs and prints each artifact's per-device
+    FLOPs, bytes, peak and collective bytes by kind."""
+    out = []
+    for (arch, shape, variant, mesh), (t0, p) in zip(MESH_DRY, procs):
+        _, err = p.communicate(timeout=900)
+        wall = time.perf_counter() - t0
+        check(p.returncode == 0, f"mesh dry run {arch} {shape} {variant} "
+                                 f"{mesh}: rc {p.returncode}\n{err[-3000:]}")
+        name = dryrun.artifact_name(str(MESH_DIR), arch, shape, variant,
+                                    mesh)
+        art = json.loads(Path(name).read_text())
+        coll = art["collectives"]
+        check(art["n_devices"] == (512 if mesh == "2x16x16" else 256)
+              and coll["total_bytes"] > 0 and art["flops_per_device"] > 0,
+              f"mesh dry run {name}: {art['n_devices']} devices, "
+              f"collectives {coll}")
+        row = {"arch": arch, "shape": shape, "variant": variant or
+               "baseline", "mesh": mesh, "n_devices": art["n_devices"],
+               "flops_per_device": art["flops_per_device"],
+               "bytes_per_device": art["bytes_per_device"],
+               "argument_bytes": art["memory_analysis"][
+                   "argument_size_in_bytes"],
+               "temp_bytes": art["memory_analysis"]["temp_size_in_bytes"],
+               "collective_bytes": coll["bytes"],
+               "collective_counts": coll["counts"],
+               "collective_total_bytes": coll["total_bytes"],
+               "roofline": {k: art["roofline"][k] for k in (
+                   "compute_s", "memory_s", "collective_s", "dominant")},
+               "meta_wall_s": art["wall_s"], "process_wall_s": wall}
+        out.append(row)
+        print(f"mesh dry run {arch} {shape} {row['variant']} on {mesh} "
+              f"({art['n_devices']} devices, meta, per device): FLOPs "
+              f"{art['flops_per_device']:.6e}, bytes "
+              f"{art['bytes_per_device']:.6e}, arguments "
+              f"{row['argument_bytes']} + temp {row['temp_bytes']} bytes, "
+              f"collective bytes {coll['bytes']} (counts {coll['counts']}, "
+              f"total {coll['total_bytes']}), terms compute "
+              f"{row['roofline']['compute_s']:.4e} s / memory "
+              f"{row['roofline']['memory_s']:.4e} s / collective "
+              f"{row['roofline']['collective_s']:.4e} s; trace "
+              f"{art['wall_s']:.2f} s, process {wall:.2f} s (card "
+              f"{card})")
+    return out
+
+
+@torch.inference_mode()
+def grouped_decode(base, grouped):
+    """The ``repeat_kv`` and the grouped decode on one set of bf16 weights
+    (seed 1) after one 2048-token prefill each: each held to its full
+    forward over ``MESH_DECODE_STEPS`` steps within ``FAMILY_BF16_REL``,
+    the two decodes' logits to each other within it; then, from a
+    prefilled cache of each, ``MESH_TIMED`` rounds of 16 steps of each in
+    turn (ms a step, CUDA-synchronised wall; the peak over the step's
+    start), and 8 steps of each under the profiler (launches a step, busy
+    share).  No swa_attention launch."""
+    _free_cuda()
+    model = init_params(grouped, seed=1, device=DEV)
+    plain = _same_weights(model, base)
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    B, P = MESH_SERVE["batch"], MESH_SERVE["prompt_len"]
+    toks = torch.randint(0, base.vocab_size, (B, P + MESH_DECODE_STEPS),
+                         generator=gen, device=DEV)
+    ops.reset_launch_counts()
+    rel_g, dec_g, _ = _decode_vs_full(model, grouped, toks,
+                                      MESH_DECODE_STEPS, {})
+    rel_r, dec_r, _ = _decode_vs_full(plain, base, toks,
+                                      MESH_DECODE_STEPS, {})
+    g_vs_r = _rel_gap(dec_g, dec_r)
+    legs = {"repeat_kv": (plain, base), "grouped": (model, grouped)}
+    state = {}
+    for name, (m, cfg) in legs.items():
+        cache = init_cache(cfg, B, P + 16 * MESH_TIMED + 16, device=DEV)
+        _, _, cache = forward(m, cfg, toks[:, :P], cache=cache)
+        state[name] = [cache, toks[:, P:P + 1], make_serve_step(cfg), [],
+                       0]
+
+    def steps(name, n):
+        cache, nxt, step, _, _ = state[name]
+        m = legs[name][0]
+        for _ in range(n):
+            nxt, cache, _ = step(m, cache, nxt)
+        state[name][0], state[name][1] = cache, nxt
+
+    for _ in range(MESH_TIMED):
+        for name in legs:
+            _free_cuda()
+            base_mem = torch.cuda.memory_allocated()
+            _, secs = _timed(lambda: steps(name, 16))
+            state[name][3].append(secs * 1e3 / 16)
+            state[name][4] = max(state[name][4],
+                                 torch.cuda.max_memory_allocated()
+                                 - base_mem)
+    out = {"grouped_decode_vs_full": rel_g,
+           "repeat_kv_decode_vs_full": rel_r, "grouped_vs_repeat_kv": g_vs_r}
+    for name in legs:
+        wall, dev_s, count = profiled(lambda: steps(name, 8))
+        out[name] = {"ms_per_step": state[name][3],
+                     "step_peak_bytes": state[name][4],
+                     "launches_per_step": None if count is None
+                     else count / 8,
+                     "busy_share_profiled": None if dev_s is None
+                     else dev_s / wall}
+    swa = _swa_launches(ops.LAUNCHES)
+    check(max(rel_g, rel_r, g_vs_r) <= FAMILY_BF16_REL and swa == 0,
+          f"grouped decode vs full {rel_g:.3e}, repeat_kv decode vs full "
+          f"{rel_r:.3e}, grouped vs repeat_kv {g_vs_r:.3e} (bound "
+          f"{FAMILY_BF16_REL}); swa launches {swa}")
+    del model, plain, state
+    _free_cuda()
+    return out
+
+
+def grouped_flops_held(grouped):
+    """The grouped decode step's FLOPs counted on ``meta`` by the dry run
+    (``dryrun.measure``) against the same step run on the card under
+    ``FlopCounterMode``: equal.  The serve shape's last step (B 2, a cache
+    of 2 080 positions) at published widths, cut to 4 layers."""
+    B, P, G = (MESH_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    shape = InputShape("decode_32k", P + G, B, "decode")
+    with _shape_cut(shape):
+        cfg = dataclasses.replace(
+            dryrun.dryrun_config(get_config(MESH_ARCH), shape.name,
+                                 "grouped"), n_layers=4)
+        res = dryrun.measure(*dryrun.build(cfg, shape.name)[:2])
+        _free_cuda()
+        fn, args, _ = dryrun.build(cfg, shape.name, device=DEV, seed=0)
+        with FlopCounterMode(display=False) as fc:
+            out = fn()
+        del out, fn, args
+        _free_cuda()
+    flops = fc.get_total_flops()
+    check(flops == res["flops"], f"grouped decode step: the card counts "
+                                 f"{flops} FLOPs, the dry run {res['flops']}")
+    return {"layers": 4, "flops": flops, "dry_run_flops": res["flops"],
+            "dry_run_bytes": res["bytes"]}
+
+
+def _served(name, res, B, P, G, peak):
+    check(res.finite and tuple(res.tokens.shape) == (B, G)
+          and bool(((res.tokens >= 0)
+                    & (res.tokens < get_config(MESH_ARCH).vocab_size)).all()),
+          f"serve {name}: non-finite logits or tokens out of range")
+    return {"init_s": res.init_s, "prefill_ms": res.prefill_s * 1e3,
+            "decode_ms_per_step": res.decode_s * 1e3 / (G - 1),
+            "peak_mem_bytes": peak}
+
+
+def grouped_leg(card):
+    """mistral-nemo-12b's base at full width and depth in bf16 at
+    ``MESH_SERVE``: served with ``grouped_gqa`` off through the serve CLI
+    and on through ``serve.run`` (prefill and decode ms, peak memory; no
+    swa_attention launch), both decodes on one set of weights
+    (``grouped_decode``: held to their full forwards and to each other,
+    ms a step in turn, launches and busy share under the profiler), the
+    grouped smoke config card against CPU in float32, and the grouped
+    step's FLOPs counted by the dry run equal to the card's
+    (``grouped_flops_held``)."""
+    base = get_config(MESH_ARCH)
+    grouped = dataclasses.replace(base, grouped_gqa=True)
+    n_params = sum(p.numel() for p in init_params(base, device="meta")
+                   .parameters())
+    check((base.n_layers, base.encoder_layers, n_params) == MESH_SIZE,
+          f"{MESH_ARCH}: {base.n_layers} layers, {n_params} parameters")
+    B, P, G = (MESH_SERVE[k] for k in ("batch", "prompt_len", "gen"))
+    out = {}
+    _free_cuda()
+    ops.reset_launch_counts()
+    res = serve.main(["--arch", MESH_ARCH, "--batch", str(B), "--prompt-len",
+                      str(P), "--gen", str(G), "--seed", "0", "--device",
+                      str(DEV)])
+    out["serve_repeat_kv"] = _served("repeat_kv", res, B, P, G,
+                                     torch.cuda.max_memory_allocated())
+    _free_cuda()
+    res = serve.run(grouped, batch=B, prompt_len=P, gen=G, seed=0,
+                    device=DEV)
+    out["serve_grouped"] = _served("grouped", res, B, P, G,
+                                   torch.cuda.max_memory_allocated())
+    check(_swa_launches(ops.LAUNCHES) == 0,
+          f"serve {MESH_ARCH}: swa launches {ops.LAUNCHES}")
+    _free_cuda()
+    out.update(grouped_decode(base, grouped))
+    small = dataclasses.replace(base.smoke(), grouped_gqa=True)
+    out.update(_smoke_card_vs_cpu(small))
+    out["flops_held"] = grouped_flops_held(grouped)
+    g, r = out["grouped"], out["repeat_kv"]
+    print(f"mesh grouped {MESH_ARCH} 40 layers {n_params} params bf16 "
+          f"batch={B} prompt={P} gen={G}: serve CLI (repeat_kv) prefill "
+          f"{out['serve_repeat_kv']['prefill_ms']:.3f} ms, decode "
+          f"{out['serve_repeat_kv']['decode_ms_per_step']:.4f} ms/step, peak "
+          f"{out['serve_repeat_kv']['peak_mem_bytes']} bytes; serve.run "
+          f"(grouped) prefill {out['serve_grouped']['prefill_ms']:.3f} ms, "
+          f"decode {out['serve_grouped']['decode_ms_per_step']:.4f} ms/step, "
+          f"peak {out['serve_grouped']['peak_mem_bytes']} bytes; in turn on "
+          f"one model, ms a step grouped {g['ms_per_step']} vs repeat_kv "
+          f"{r['ms_per_step']}, the step's peak {g['step_peak_bytes']} vs "
+          f"{r['step_peak_bytes']} bytes, launches a step "
+          f"{g['launches_per_step']} vs {r['launches_per_step']}, busy "
+          f"{g['busy_share_profiled']} vs {r['busy_share_profiled']} "
+          f"(profiled); decode vs full {out['grouped_decode_vs_full']:.3e} / "
+          f"{out['repeat_kv_decode_vs_full']:.3e}, grouped vs repeat_kv "
+          f"{out['grouped_vs_repeat_kv']:.3e} (bound {FAMILY_BF16_REL}); "
+          f"{_card_vs_cpu_line(small.name, out)}; the step's FLOPs at 4 "
+          f"layers {out['flops_held']['flops']:.6e} on the card = the dry "
+          f"run's; no swa_attention launch (card {card})")
+    return out
+
+
+def _ep_cfg():
+    return dataclasses.replace(get_config("deepseek-v3-671b"), n_layers=4)
+
+
+def _draw_slice(shape, dtype, seed, index, scale, start):
+    """Elements [start, start + prod(shape)) of the flat parameter that
+    ``layers.init_weights_`` draws as parameter ``index`` (Philox trial
+    ``index``, each element a function of its offset), on the card."""
+    from repro_torch.core import rng as prng
+    n = int(np.prod(shape))
+    flat = torch.empty(n, dtype=dtype, device=DEV)
+    tid = torch.tensor([index], dtype=torch.int64, device=DEV)
+    for lo in range(0, n, model_layers.INIT_SLAB):
+        m = min(model_layers.INIT_SLAB, n - lo)
+        z = prng.normal(seed, tid, model_layers.INIT_STREAM, (m,),
+                        start=start + lo)[0]
+        flat[lo:lo + m] = (z * scale).to(dtype)
+    return flat.view(shape)
+
+
+def _ep_on_rank(ctx, rank, world):
+    """The expert-parallel leg on one rank: this rank's E / world experts
+    drawn at their offsets of the one-device draw (nothing else of the
+    stacks), the router replicated and the shared expert cut by the
+    port's rules (column- then row-parallel; its sum reduced in float32,
+    ``sharding.reduce_partial``), the tokens replicated, routing pinned to
+    the one-device call's; ``moe_apply`` under the mesh context."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.sharding import mesh_context
+    cfg = _ep_cfg()
+    ref = torch.load(MESH_DIR / "ep_ref.pt")
+    n_local = cfg.n_experts // world
+    moe = model_layers.MoE(cfg, device="meta")
+    mesh = ctx.mesh
+    for i, (name, p) in enumerate(list(moe.named_parameters())):
+        scale = (moe.INIT_STD.get(name) if "." not in name
+                 else None)
+        owner, _, leaf = name.rpartition(".")
+        mod = moe.get_submodule(owner) if owner else moe
+        if name in ("w_gate", "w_up", "w_down"):
+            per = int(np.prod(p.shape[1:]))
+            local = _draw_slice((n_local,) + tuple(p.shape[1:]), p.dtype,
+                                MESH_EP_SEED, i, scale, rank * n_local * per)
+            t = DTensor.from_local(local, mesh, [Replicate(), Shard(0)],
+                                   run_check=False)
+        else:
+            if scale is None:                       # a Dense of the shared
+                scale = mod.init_scale
+            whole = _draw_slice(tuple(p.shape), p.dtype, MESH_EP_SEED, i,
+                                scale, 0)
+            t = shardings.distribute(whole, shardings.param_spec(
+                "segments/0/0/ffn/" + name.replace(".", "/"),
+                tuple(p.shape), ctx), ctx)
+        setattr(mod, leaf, torch.nn.Parameter(t, requires_grad=False))
+    x = DTensor.from_local(ref["x"].to(DEV), mesh, [Replicate()] * 2,
+                           run_check=False)
+    pins = [(w.to(DEV), i.to(DEV)) for w, i in ref["pins"]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RoutePin(pins) as pin, mesh_context(ctx), implicit_replication(), \
+            torch.no_grad():
+        out, aux = model_layers.moe_apply(moe, cfg, x)
+        out, aux = out.to_local(), aux.to_local()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = ref["out"].to(DEV)
+    res = {"rank": rank, "local_experts": n_local,
+           "local_expert_bytes": sum(
+               getattr(moe, w).to_local().numel() * 2
+               for w in ("w_gate", "w_up", "w_down")),
+           "out_rel": _rel_gap(out.float(), want.float()),
+           "aux": float(aux), "aux_want": world * float(ref["aux"]),
+           "flipped": pin.flipped, "routed": pin.routed, "seconds": secs,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del moe, out, x, want
+    _free_cuda()
+    return res
+
+
+def ranks_leg(card):
+    """The two-rank legs (two processes on ``cuda:0`` over gloo,
+    ``_mesh_rank``).  Expert parallelism: one deepseek-v3 MoE layer at
+    published widths, each rank holding its 128 experts (11.3 GB of bf16),
+    against the one-device ``moe_apply`` on the card on the same 2 x 2048
+    tokens with the routing pinned to the one-device call's
+    (``RoutePin``): the output within ``FAMILY_BF16_REL`` of the largest
+    (each rank sums its experts' share over K in bf16, the ranks' sums are
+    added in float32), the aux equal to 2 x the one-device aux within rel
+    1e-6 (the reference's sum over every axis of each rank's whole
+    estimate, over the data size 1).  Then the ring decode
+    (``_ring_on_rank``, ``ring_check``)."""
+    cfg = _ep_cfg()
+    _free_cuda()
+    moe = model_layers.init_weights_(model_layers.MoE(cfg, device=DEV),
+                                     MESH_EP_SEED).requires_grad_(False)
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    B, T = MESH_EP_TOKENS
+    x = torch.randn((B, T, cfg.d_model), generator=gen, device=DEV).to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with RouteTape() as tape, torch.inference_mode():
+        out, aux = model_layers.moe_apply(moe, cfg, x)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    one_peak = torch.cuda.max_memory_allocated()
+    expert_bytes = sum(getattr(moe, w).numel() * 2
+                       for w in ("w_gate", "w_up", "w_down"))
+    MESH_DIR.mkdir(parents=True, exist_ok=True)
+    torch.save({"x": x.cpu(), "out": out.cpu(), "aux": aux.cpu(),
+                "pins": [(c.top_w.cpu(), c.top_i.cpu())
+                         for c in tape.calls]}, MESH_DIR / "ep_ref.pt")
+    del moe, out, x
+    _free_cuda()
+    t0 = time.perf_counter()
+    _spawn_ranks(_mesh_rank)
+    ranks_s = time.perf_counter() - t0
+    both = json.loads((MESH_DIR / "ranks.json").read_text())
+    got = [r["ep"] for r in both]
+    for r in got:
+        check(r["out_rel"] <= FAMILY_BF16_REL
+              and abs(r["aux"] - r["aux_want"]) <= 1e-6 * abs(r["aux_want"])
+              and r["flipped"] == 0 and r["local_experts"] == 128
+              and r["local_expert_bytes"] * 2 == expert_bytes,
+              f"expert-parallel MoE rank {r['rank']}: {r}")
+    out = {"one_device_s": one_s, "one_device_peak_bytes": one_peak,
+           "expert_bytes": expert_bytes, "ranks_wall_s": ranks_s,
+           "ranks": got}
+    print(f"mesh expert-parallel deepseek-v3 MoE layer (256 experts, d "
+          f"7168, f 2048, top 8, one shared) on {B} x {T} tokens: one device "
+          f"{one_s * 1e3:.3f} ms (peak {one_peak} bytes, experts "
+          f"{expert_bytes} bytes); 2 ranks over gloo on cuda:0, "
+          + "; ".join(f"rank {r['rank']} {r['local_experts']} experts "
+                      f"({r['local_expert_bytes']} bytes) out rel "
+                      f"{r['out_rel']:.3e} (bound {FAMILY_BF16_REL}), aux "
+                      f"{r['aux']:.6f} = 2 x {r['aux_want'] / 2:.6f}, "
+                      f"{r['seconds'] * 1e3:.3f} ms, peak "
+                      f"{r['peak_mem_bytes']} bytes" for r in got)
+          + f"; the ranks' processes {ranks_s:.2f} s, both legs (card "
+          f"{card})")
+    return {"ep": out, "ring": ring_check([r["ring"] for r in both], card)}
+
+
+def _ring_on_rank(ctx, rank, world):
+    """The ring-decode leg on one rank: an attention layer at
+    mistral-nemo's widths (bf16, weights seed 3) computes each step's
+    query, key and value on the rank as one device would; a cache of
+    ``MESH_RING["cache"]`` positions, filled with seeded values up to the
+    first step, is split over the ranks by sequence;
+    ``MESH_RING["steps"]`` steps of ``seq_sharded_decode_attention`` on
+    them (replicated DTensors: its only collectives are its own float32
+    all-reduces) against ``grouped_attention`` over this rank's own whole
+    copy of the cache, written as one device writes it."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.sharding import mesh_context, seq_write
+    mesh = ctx.mesh
+    cfg = dataclasses.replace(get_config(MESH_ARCH), n_layers=1,
+                              seq_shard_decode=True)
+    B, S, steps = (MESH_RING[k] for k in ("batch", "cache", "steps"))
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    attn = model_layers.gqa_init(cfg, seed=3, device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(7)
+    pos0 = S - steps - 1
+    cache = model_layers.gqa_cache_init(cfg, B, S, device=DEV)
+    for k in ("k", "v"):
+        cache[k][:, :, :pos0] = torch.randn((B, K, pos0, dh), generator=gen,
+                                            device=DEV).to(cache[k].dtype)
+    sl = S // world
+    dcache = {k: DTensor.from_local(
+        cache[k][:, :, rank * sl:(rank + 1) * sl].clone(), mesh,
+        [Replicate(), Shard(2)], run_check=False) for k in ("k", "v")}
+    xs = torch.randn((steps, B, 1, cfg.d_model), generator=gen,
+                     device=DEV).to(torch.bfloat16)
+
+    def rep(t):
+        return DTensor.from_local(t, mesh, [Replicate()] * 2,
+                                  run_check=False)
+
+    worst, untouched, owned, ring_s, one_s = 0.0, [], 0, 0.0, 0.0
+    with torch.no_grad():
+        for t in range(steps):
+            pos = pos0 + t
+            positions = torch.tensor([[pos]], device=DEV)
+            q = model_layers.apply_rope(attn.wq(xs[t]).unflatten(-1, (H, dh)),
+                                        positions, cfg.rope_theta)
+            kx = model_layers.apply_rope(
+                attn.wk(xs[t]).unflatten(-1, (K, dh)), positions,
+                cfg.rope_theta)
+            vx = attn.wv(xs[t]).unflatten(-1, (K, dh))
+            q, kx, vx = (a.transpose(1, 2) for a in (q, kx, vx))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            seq_write(cache["k"], kx, pos, 2)
+            seq_write(cache["v"], vx, pos, 2)
+            want = model_layers.grouped_attention(
+                q, cache["k"], cache["v"], kv_len=pos + 1, q_offset=pos)
+            torch.cuda.synchronize()
+            one_s += time.perf_counter() - t0
+            before = dcache["k"].to_local().clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with mesh_context(ctx):
+                got, kf, vf = model_layers.seq_sharded_decode_attention(
+                    cfg, rep(q), rep(kx), rep(vx), {**dcache, "pos": pos})
+            torch.cuda.synchronize()
+            ring_s += time.perf_counter() - t0
+            dcache = {"k": kf, "v": vf}
+            worst = max(worst, _rel_gap(got.to_local().float(),
+                                        want.float()))
+            if rank * sl <= pos < (rank + 1) * sl:
+                owned += 1
+            else:
+                untouched.append(bool(torch.equal(before,
+                                                  kf.to_local())))
+    equal = all(torch.equal(dcache[k].to_local(),
+                            cache[k][:, :, rank * sl:(rank + 1) * sl])
+                for k in ("k", "v"))
+    res = {"rank": rank, "out_rel": worst, "cache_equal": equal,
+           "owned_steps": owned, "untouched": untouched,
+           "ring_ms_per_step": ring_s * 1e3 / steps,
+           "one_device_ms_per_step": one_s * 1e3 / steps,
+           "local_cache_bytes": 2 * dcache["k"].to_local().numel() * 2}
+    return res
+
+
+def _mesh_rank(rank, world, port):
+    """One of the ``MESH_RANKS`` processes on the card: its gloo group, the
+    expert-parallel leg then the ring-decode leg, both reported."""
+    ctx = _rank_group(rank, world, port)
+    _rank_report(rank, {"ep": _ep_on_rank(ctx, rank, world),
+                        "ring": _ring_on_rank(ctx, rank, world)},
+                 "ranks.json")
+
+
+def ring_check(got, card):
+    """``seq_sharded_decode_attention`` on the card: two ranks (processes on
+    ``cuda:0`` over gloo), ``MESH_RING``'s cache split by sequence, each
+    rank's output within ``FAMILY_BF16_REL`` of the one-device
+    ``grouped_attention`` (the softmax's sums in float32 on both, the
+    weights rounded to bf16 before the values on both, summed in another
+    order), each rank's cache block bit-equal to the one-device cache's,
+    the rank that does not own a step's position leaving its block
+    untouched.  Times a step against the one-device attention."""
+    steps = MESH_RING["steps"]
+    for r in got:
+        check(r["out_rel"] <= FAMILY_BF16_REL and r["cache_equal"]
+              and all(r["untouched"])
+              and r["owned_steps"] + len(r["untouched"]) == steps,
+              f"ring decode rank {r['rank']}: {r}")
+    check(sorted(r["owned_steps"] for r in got) == [0, steps],
+          f"ring decode: owned steps {[r['owned_steps'] for r in got]}")
+    print(f"mesh ring decode, one attention layer at {MESH_ARCH}'s widths, "
+          f"batch {MESH_RING['batch']}, a {MESH_RING['cache']}-slot cache "
+          f"over 2 ranks, {steps} steps: "
+          + "; ".join(f"rank {r['rank']} out rel {r['out_rel']:.3e} (bound "
+                      f"{FAMILY_BF16_REL}), cache block bit-equal "
+                      f"{r['cache_equal']}, owned {r['owned_steps']} steps, "
+                      f"{r['ring_ms_per_step']:.3f} ms/step vs one device "
+                      f"{r['one_device_ms_per_step']:.3f}" for r in got)
+          + f" (card {card})")
+    return {"ranks": got}
+
+
+def mesh_phase(card):
+    """The mesh slice on the card, after the shapes phase: the mesh dry
+    runs started in processes of their own (``_mesh_dry_start``), then the
+    grouped-GQA legs (``grouped_leg``), the expert-parallel MoE and the
+    ring decode over two gloo ranks on the one card (``ranks_leg``), then
+    the dry runs' artifacts (``_mesh_dry_finish``)."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    MESH_DIR.mkdir(parents=True)
+    procs = _mesh_dry_start()
+    try:
+        ops.reset_launch_counts()
+        out = {"grouped": grouped_leg(card), **ranks_leg(card)}
+        out["swa_launches"] = _swa_launches(ops.LAUNCHES)
+        check(out["swa_launches"] == 0,
+              f"mesh phase: swa launches {ops.LAUNCHES}")
+        out["dry_runs"] = _mesh_dry_finish(procs, card)
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"mesh phase wall seconds={out['seconds']:.4f} (card {card})")
+    return out
+
+
 def main():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3699,6 +4294,7 @@ def main():
     wide = wide_phase()
     hybrid = hybrid_phase()
     shapes = shapes_phase()
+    mesh = mesh_phase(card)
     main_row = rows[0]                 # the DGD shape, float32
     tp_row = next(r for r in rows if r["route"] == "twopass"
                   and r["shape"][0] == 15)      # the dgd-tall shape
@@ -3845,7 +4441,8 @@ def main():
                for a in LONG_ARCHS},
             **{f"long_decode_vs_full_{a}":
                shapes[a]["decode_vs_full_wgmma_launches"]
-               for a in LONG_ARCHS}},
+               for a in LONG_ARCHS},
+            "mesh_grouped_ep_ring": mesh["swa_launches"]},
         "max_abs_err": t_row["max_abs_err"],
         "ms": t_row["ms"], "plain_ms": t_row["plain_ms"],
         "bound_ms": t_row["bound_ms"], "bound_by": t_row["bound_by"],
@@ -3860,7 +4457,7 @@ def main():
         "consistency": consistency, "grid": grid, "live": live,
         "gate": gate, "shard": shard, "train": train,
         "families": families, "wide": wide, "hybrid": hybrid,
-        "shapes": shapes}))
+        "shapes": shapes, "mesh": mesh}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -34,7 +34,7 @@ __all__ = ["gram_matvec", "batched_gram_matvec", "gram_plan", "GramPlan",
            "swa_route", "swa_f32_plan", "swa_f32_makespan", "SwaF32Plan",
            "GREEDY_MAX_N", "GREEDY_WARP_MAX_N", "SWA_HEAD_DIMS",
            "SWA_TENSOR_CORE_HEAD_DIMS", "LAUNCHES", "reset_launch_counts",
-           "swa_flops"]
+           "swa_flops", "register_swa_sharding"]
 
 #: kernel name -> launches since the last ``reset_launch_counts``;
 #: "gram_matvec" counts the calls of both of its routes,
@@ -684,6 +684,45 @@ def swa_flops(B: int, T: int, H: int, dh: int, window: int) -> int:
     W = min(window, T)
     pairs = W * (W + 1) // 2 + (T - W) * W
     return 4 * B * H * dh * pairs
+
+
+def register_swa_sharding() -> None:
+    """DTensor's sharding rule of ``repro_torch::swa_attention`` (the mesh
+    builders of ``launch/mesh.py`` call it): on each mesh axis q, k and v
+    come sharded alike, on the batch or on the heads (q's H with k / v's
+    K: whole KV groups a rank), or all three replicated (every head count
+    fell back, which ``shard`` records), and the op runs on each rank's
+    block as it stands.  Any other placement (q's heads sharded where k's
+    KV heads do not divide the axis) raises with the op's name: the rule
+    offers no replicated fallback that would gather q and run the whole
+    band on every rank.  Once per process."""
+    global _SWA_SHARDING
+    if _SWA_SHARDING:
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.swa_attention.default)
+    def _rule(q, k, v, window):
+        for i, (pq, pk, pv) in enumerate(zip(q.placements, k.placements,
+                                             v.placements)):
+            if not (pq == pk == pv and (pq.is_replicate()
+                                        or pq in (Shard(0), Shard(2)))):
+                raise RuntimeError(
+                    f"repro_torch::swa_attention: DTensor cannot shard q "
+                    f"{tuple(q.placements)}, k {tuple(k.placements)}, v "
+                    f"{tuple(v.placements)} (mesh dim {i}): q, k and v "
+                    f"must be sharded alike on the batch or the heads, or "
+                    f"all replicated")
+        # replicated first: the inputs' own placements are then the first
+        # strategy with nothing to redistribute, which DTensor takes
+        return [([p], [p, p, p, None])
+                for p in (Replicate(), Shard(0), Shard(2))]
+
+    _SWA_SHARDING = True
+
+
+_SWA_SHARDING = False
 
 
 @register_flop_formula(torch.ops.repro_torch.swa_attention)

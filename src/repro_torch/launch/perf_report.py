@@ -1,9 +1,10 @@
 """Baseline-against-variant table of tagged dry-run artifacts (counterpart
-of ``repro.launch.perf_report``): each ``h100__<arch>__<shape>__<tag>.json``
-beside its untagged baseline.
+of ``repro.launch.perf_report``): each ``<mesh>__<arch>__<shape>__<tag>.json``
+beside its untagged baseline, the mesh word "h100" (one card), "pod"
+(16x16) or "multipod" (2x16x16).
 
   PYTHONPATH=src python -m repro_torch.launch.perf_report \\
-      [--dir experiments/dryrun_torch] [--md perf_table.md]
+      [--dir experiments/dryrun_torch] [--mesh pod] [--md perf_table.md]
 """
 from __future__ import annotations
 
@@ -68,9 +69,11 @@ def to_markdown(pairs) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dir", default="experiments/dryrun_torch")
+    ap.add_argument("--mesh", default="h100",
+                    help="the artifacts' mesh word: h100, pod, multipod")
     ap.add_argument("--md", default=None)
     args = ap.parse_args(argv)
-    md = to_markdown(rows(args.dir))
+    md = to_markdown(rows(args.dir, args.mesh))
     print(md)
     if args.md:
         with open(args.md, "w") as f:

@@ -1,7 +1,7 @@
 """Roofline table of the dry run's artifacts (counterpart of
 ``repro.launch.roofline``): one markdown row per (arch x shape x mesh) from
 the JSON files ``launch/dryrun.py`` writes, with the H100's words for the
-dominant term; then the same rows with the port's sizing columns
+dominant term (tensor cores, HBM, InfiniBand); then the same rows with the port's sizing columns
 (``sizing_markdown``: argument + temp GB, whether they fit one card, the
 dry run's wall seconds).
 
@@ -26,12 +26,19 @@ SEP = "|" + "---|" * 11
 
 
 def _note(r) -> str:
+    """The reference's note in the H100's words: tensor cores for the MXU,
+    InfiniBand (``dryrun.LINK_BW``) for the ICI; the fallbacks as the
+    reference counts them."""
     dom = r["roofline"]["dominant"]
-    if dom == "memory_s":
-        return "HBM-traffic bound"
-    if dom == "collective_s":
-        return "NVLink bound"
-    return "tensor-core bound"
+    fb = r.get("meta", {}).get("fallbacks", [])
+    bits = [{"memory_s": "HBM-traffic bound",
+             "collective_s": "InfiniBand bound"}.get(dom,
+                                                     "tensor-core bound")]
+    if any("col" in f or "row" in f for f in fb):
+        bits.append(f"{len(fb)} replication fallbacks")
+    if any("kv-seq" in f for f in fb):
+        bits.append("seq-parallel KV cache")
+    return "; ".join(bits)
 
 
 def rows(dryrun_dir: str, mesh_filter=None):

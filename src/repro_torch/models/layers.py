@@ -37,11 +37,14 @@ from torch import nn
 
 from ..core import rng
 from ..kernels import ops
+from ..sharding import (BOTH, DATA, MODEL, all_reduce, current_mesh_ctx,
+                        is_dtensor, matmul_ready, reduce_partial, seq_write,
+                        shard, unflatten)
 from .config import ModelConfig
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
-           "attention_core", "repeat_kv", "gqa_init", "gqa_apply",
-           "gqa_cache_init", "swiglu", "gelu_mlp", "token_shift",
+           "attention_core", "gqa_core", "repeat_kv", "gqa_init",
+           "gqa_apply", "gqa_cache_init", "swiglu", "gelu_mlp", "token_shift",
            "cmix_apply", "wkv6", "rwkv6_apply", "rwkv6_state_init",
            "Dense", "RMSNorm", "LayerNorm", "make_norm", "Attention",
            "SwiGLU", "GeluMLP", "CMix", "RWKV6", "init_weights_", "MLA",
@@ -67,7 +70,7 @@ INIT_SLAB_CPU = 1 << 14
 
 def dense(x: torch.Tensor, w: torch.Tensor,
           b: Optional[torch.Tensor] = None) -> torch.Tensor:
-    y = x @ w.to(x.dtype)
+    y = matmul_ready(x, w) @ w.to(x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
     return y
@@ -128,7 +131,13 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     of q's first row; ``kv_len`` masks cache positions >= it.  Up to
     4096 x 4096 scores the softmax is dense; beyond, an online softmax over
     (chunk_q x chunk_k) score tiles bounds the memory.  Rows with no
-    visible key give zeros."""
+    visible key give zeros.  On DTensors each rank attends over its own
+    heads (``_local_heads``)."""
+    if is_dtensor(q):
+        return _local_heads(attention_core, q, k, v, causal=causal,
+                            q_offset=q_offset, window=window, kv_len=kv_len,
+                            softcap=softcap, chunk_q=chunk_q,
+                            chunk_k=chunk_k)
     B, H, Tq, dh = q.shape
     Tk = k.shape[2]
     scale = 1.0 / math.sqrt(dh)
@@ -188,6 +197,33 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=2)
 
 
+def _local_heads(fn, q: torch.Tensor, *kv: torch.Tensor, **kw):
+    """``fn(q, *kv, **kw)`` on DTensors q (B, H, T, dh) and kv (B, Hk, S,
+    dh), run by each rank on its block (``local_map``): the batch sharded
+    over the mesh axes that shard q's batch, the heads over the axes that
+    shard q's heads where every head count divides, everything else
+    whole (a sequence-sharded cache is gathered, or exchanged for heads:
+    the reference's GSPMD gathers it too, which ``seq_shard_decode``
+    avoids).  Each rank's attention is then the plain computation over
+    its heads; the output takes the same placements."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    heads = [q.shape[1]] + [t.shape[1] for t in kv]
+    target = []
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 0:
+            target.append(Shard(0))
+        elif isinstance(p, Shard) and p.dim == 1 and all(
+                h % mesh.size(i) == 0 for h in heads):
+            target.append(Shard(1))
+        else:
+            target.append(Replicate())
+    return local_map(lambda *ts: fn(*ts, **kw), out_placements=target,
+                     in_placements=(target,) * (1 + len(kv)),
+                     device_mesh=mesh, redistribute_inputs=True)(q, *kv)
+
+
 def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
     """(B, K, T, dh) -> (B, K * groups, T, dh): query head h reads KV head
     h // groups."""
@@ -196,6 +232,143 @@ def repeat_kv(x: torch.Tensor, groups: int) -> torch.Tensor:
     B, K, T, dh = x.shape
     return x[:, :, None].expand(B, K, groups, T, dh).reshape(
         B, K * groups, T, dh)
+
+
+def _kv_per_rank(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k / v (B, K, S, dh) as ``_local_heads`` should hand them to the
+    ranks that share q's heads (DTensors): with fewer KV heads than those
+    m ranks (K | m), each KV head m / K times, so that each rank receives
+    the one KV head its query heads read (h // G kept) and nothing more;
+    else as they are (whole KV groups a rank, or heads not sharded).  The
+    rest of GQA's repetition is each rank's, on its own block: the
+    exchange never carries a repeated copy beyond that."""
+    from torch.distributed.tensor import Shard
+    m = 1
+    for i, p in enumerate(q.placements):
+        if isinstance(p, Shard) and p.dim == 1:
+            m *= q.device_mesh.size(i)
+    K = k.shape[1]
+    if K % m and m % K == 0 and q.shape[1] % m == 0:
+        return repeat_kv(k, m // K), repeat_kv(v, m // K)
+    return k, v
+
+
+def gqa_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             **kw) -> torch.Tensor:
+    """``attention_core`` over GQA's KV heads: q (B, H, T, dh), k / v (B,
+    K, S, dh) repeated to H heads.  On DTensors the repetition is each
+    rank's, after the KV heads reach the ranks of their query heads
+    (``_kv_per_rank``): a sequence-sharded cache is exchanged as it is
+    stored, not H / K times over."""
+    if is_dtensor(q):
+        return _local_heads(gqa_core, q, *_kv_per_rank(q, k, v), **kw)
+    G = q.shape[1] // k.shape[1]
+    return attention_core(q, repeat_kv(k, G), repeat_kv(v, G), **kw)
+
+
+def _shard_attn_act(cfg: ModelConfig, x: torch.Tensor,
+                    note: str) -> torch.Tensor:
+    """(B, T, H, dh) activation sharding: heads on the model axis when
+    divisible; with cfg.attn_batch_shard_fallback, batch over
+    (data x model) instead of replicating (§Perf variant for archs whose
+    head count is smaller than the model axis, e.g. gemma3's 8 heads)."""
+    ctx = current_mesh_ctx()
+    if (ctx is not None and cfg.attn_batch_shard_fallback
+            and x.shape[2] % ctx.model_size != 0
+            and x.shape[0] % (ctx.data_size * ctx.model_size) == 0):
+        return shard(x, BOTH, None, None, None, note=note)
+    return shard(x, DATA, None, MODEL, None, note=note)
+
+
+def grouped_attention(q: torch.Tensor, kf: torch.Tensor, vf: torch.Tensor,
+                      *, kv_len: int, q_offset: int) -> torch.Tensor:
+    """Decode attention without ``repeat_kv`` (repro/models/layers.py:
+    234-251): q (B, H, T, dh), the cache kf / vf (B, K, S, dh) read as
+    they are, scores grouped by KV head (query head h reads KV head h //
+    G): products of the activation dtype summed in float32, keys at
+    positions >= ``kv_len`` or past the query masked, then the softmax's
+    weights in the cache's dtype against vf.  On DTensors each rank
+    attends over its own KV heads and their query groups
+    (``_local_heads``), the cache brought to them by ``_kv_per_rank``."""
+    if is_dtensor(q):
+        return _local_heads(grouped_attention, q, *_kv_per_rank(q, kf, vf),
+                            kv_len=kv_len, q_offset=q_offset)
+    B, H, T, dh = q.shape
+    K, S = kf.shape[1], kf.shape[2]
+    G = H // K
+    qg = unflatten(q, 1, (K, G))
+    s = torch.einsum("bkgtd,bksd->bkgts", qg.float(), kf.float()) \
+        / math.sqrt(dh)
+    kpos = torch.arange(S, device=q.device)
+    qpos = q_offset + torch.arange(T, device=q.device)
+    ok = (kpos[None, :] < kv_len) & (kpos[None, :] <= qpos[:, None])
+    p = torch.softmax(s.masked_fill(~ok, float("-inf")), dim=-1)
+    out = torch.einsum("bkgts,bksd->bkgtd", p.to(vf.dtype), vf)
+    return out.reshape(B, H, T, dh)
+
+
+def seq_sharded_decode_attention(cfg: ModelConfig, q: torch.Tensor,
+                                 kx: torch.Tensor, vx: torch.Tensor,
+                                 cache: dict
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """Single-token decode against a KV cache whose SEQUENCE dim is sharded
+    over the model axis (§Perf 'ringdecode', repro/models/layers.py:
+    254-310): each shard writes the new key and value into its slice if
+    it owns the position, takes a local flash partial over its slice, and
+    the global softmax is assembled with one max and two sum all-reduces
+    over the model axis of (B, K, G)- and (B, K, G, dh)-sized float32
+    tensors, instead of gathering the cache.  ``local_map`` is the
+    reference's ``shard_map``; the reductions are float32, as the
+    reference's are (``all_reduce``).
+
+    q (B, H, 1, dh); kx / vx (B, K, 1, dh); cache {k, v (B, K, S, dh),
+    pos}, DTensors.  Returns (out (B, H, 1, dh), k, v): the cache written
+    in place when its sequence is already sharded over the model axis,
+    else (heads sharded, as ``cache_shardings`` gives a model axis that
+    divides K) resharded by sequence, as the reference's ``out_specs``
+    leave it."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    ctx = current_mesh_ctx()
+    mesh = ctx.mesh
+    B, H, _, dh = q.shape
+    K = kx.shape[1]
+    G = H // K
+    pos = cache["pos"]
+    names = list(mesh.mesh_dim_names)
+    mdim = names.index(ctx.model_axis)
+    group = mesh.get_group(ctx.model_axis)
+    batch_sharded = ctx.data_size > 1 and B % ctx.data_size == 0
+    act = [Shard(0) if batch_sharded and n in ctx.data_axes else Replicate()
+           for n in names]
+    kv = list(act)
+    kv[mdim] = Shard(2)
+    scale = 1.0 / math.sqrt(dh)
+
+    def block(q_l, kx_l, vx_l, ck, cv):
+        Bl, Sl = q_l.shape[0], ck.shape[2]
+        o = mesh.get_local_rank(ctx.model_axis) * Sl
+        if o <= pos < o + Sl:
+            ck[:, :, pos - o] = kx_l[:, :, 0]
+            cv[:, :, pos - o] = vx_l[:, :, 0]
+        valid = o + torch.arange(Sl, device=ck.device) <= pos
+        qg = q_l.reshape(Bl, K, G, dh)
+        s = torch.einsum("bkgd,bksd->bkgs", qg.float(), ck.float()) * scale
+        s = s.masked_fill(~valid, float("-inf"))
+        m_glob = all_reduce(s.amax(-1), "max", group)
+        p = torch.exp(s - m_glob[..., None]).masked_fill(~valid, 0.0)
+        l_glob = all_reduce(p.sum(-1), "sum", group)
+        o_part = torch.einsum("bkgs,bksd->bkgd", p.to(cv.dtype), cv)
+        o_full = all_reduce(o_part.float(), "sum", group)
+        out = (o_full / l_glob.clamp_min(1e-30)[..., None]).to(q_l.dtype)
+        return out.reshape(Bl, H, 1, dh), ck, cv
+
+    return local_map(block, out_placements=(act, kv, kv),
+                     in_placements=(act, act, act, kv, kv),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        q, kx, vx, cache["k"], cache["v"])
 
 
 # --------------------------------------------------------------------------
@@ -298,7 +471,8 @@ class SwiGLU(nn.Module):
 
 
 def swiglu(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
-    return p.w_down(F.silu(p.w_gate(x)) * p.w_up(x))
+    h = F.silu(p.w_gate(x)) * p.w_up(x)
+    return p.w_down(shard(h, DATA, None, MODEL, note="ffn.h"))
 
 
 class GeluMLP(nn.Module):
@@ -318,7 +492,8 @@ class GeluMLP(nn.Module):
 
 def gelu_mlp(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
     # jax.nn.gelu's default is the tanh approximation
-    return p.w_down(F.gelu(p.w_up(x), approximate="tanh"))
+    h = F.gelu(p.w_up(x), approximate="tanh")
+    return p.w_down(shard(h, DATA, None, MODEL, note="ffn.h"))
 
 
 # --------------------------------------------------------------------------
@@ -359,6 +534,7 @@ def cmix_apply(p: CMix, x: torch.Tensor, prev: Optional[torch.Tensor] = None
     xk = x + (xs - x) * p.mu_k.to(x.dtype)
     xr = x + (xs - x) * p.mu_r.to(x.dtype)
     k = torch.square(F.relu(p.w_k(xk)))
+    k = shard(k, DATA, None, MODEL, note="cmix.h")
     r = torch.sigmoid(p.w_r(xr))
     return r * p.w_v(k), x[:, -1]
 
@@ -435,9 +611,9 @@ def rwkv6_apply(p: RWKV6, cfg: ModelConfig, x: torch.Tensor,
     xs = token_shift(x, None if state is None else state["x_prev"])
     mu = p.mu.to(x.dtype)
     xr, xk, xv, xw, xg = (x + (xs - x) * mu[i] for i in range(5))
-    r = p.w_r(xr).reshape(B, T, H, dh)
-    k = p.w_k(xk).reshape(B, T, H, dh)
-    v = p.w_v(xv).reshape(B, T, H, dh)
+    r = unflatten(p.w_r(xr), -1, (H, dh))
+    k = unflatten(p.w_k(xk), -1, (H, dh))
+    v = unflatten(p.w_v(xv), -1, (H, dh))
     g = F.silu(p.w_g(xg))
     wl = p.w_lora_b(torch.tanh(p.w_lora_a(xw)))
     w = torch.exp(-torch.exp(p.w0 + wl.float())).reshape(B, T, H, dh)
@@ -569,6 +745,7 @@ def mamba_apply(p: Mamba, cfg: ModelConfig, x: torch.Tensor,
     N = cfg.d_state
     dt_rank = p.dt_proj.w.shape[0]
     x1, z = p.in_proj(x).chunk(2, dim=-1)
+    x1 = shard(x1, DATA, None, MODEL, note="mamba.x")
     x1, conv_new = mamba_conv(x1, p.conv_w, p.conv_b,
                               None if state is None else state["conv"])
     x1 = F.silu(x1)
@@ -687,9 +864,11 @@ def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     B, T, _ = x.shape
     dh, H, K = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     if xattn_kv is not None:
-        q = p.wq(x).reshape(B, T, H, dh).transpose(1, 2)
-        out = attention_core(q, *xattn_kv, causal=False, q_offset=0)
-        return p.wo(out.transpose(1, 2).reshape(B, T, H * dh)), cache
+        q = _shard_attn_act(cfg, unflatten(p.wq(x), -1, (H, dh)), "attn.q")
+        out = attention_core(q.transpose(1, 2), *xattn_kv, causal=False,
+                             q_offset=0)
+        return _attn_out(p, out.transpose(1, 2).reshape(B, T, H * dh)), \
+            cache
     if window is not None and cfg.attn_logit_softcap:
         raise NotImplementedError(
             "a sliding-window layer with attn_logit_softcap: the JAX ring "
@@ -697,9 +876,9 @@ def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
             "(ROADMAP.md section 3), so the port takes neither")
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
-    q = p.wq(x).reshape(B, T, H, dh)
-    kx = p.wk(x).reshape(B, T, K, dh)
-    vx = p.wv(x).reshape(B, T, K, dh)
+    q = _shard_attn_act(cfg, unflatten(p.wq(x), -1, (H, dh)), "attn.q")
+    kx = unflatten(p.wk(x), -1, (K, dh))
+    vx = unflatten(p.wv(x), -1, (K, dh))
     if use_rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         kx = apply_rope(kx, positions, cfg.rope_theta)
@@ -724,15 +903,14 @@ def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         if ring:
             _ring_write(cache, kx.transpose(1, 2), vx.transpose(1, 2))
             cache = {**cache, "pos": pos + T}
-        return p.wo(o), cache
+        return _attn_out(p, o), cache
 
     q = q.transpose(1, 2)                      # (B, H, T, dh)
     kx = kx.transpose(1, 2)
     vx = vx.transpose(1, 2)
     if cache is None:
-        out = attention_core(q, repeat_kv(kx, H // K), repeat_kv(vx, H // K),
-                             causal=causal, q_offset=0, window=window,
-                             softcap=cfg.attn_logit_softcap)
+        out = gqa_core(q, kx, vx, causal=causal, q_offset=0, window=window,
+                       softcap=cfg.attn_logit_softcap)
     elif ring:
         # ring buffer of S slots, pos > 0: attend over [pre-write ring |
         # this chunk], then write (repro/models/layers.py:374-402)
@@ -763,27 +941,47 @@ def gqa_apply(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
             # (ROADMAP.md section 3)
             raise ValueError(f"KV cache overflow: {pos} + {T} tokens into a "
                              f"cache of {S}")
-        cache["k"][:, :, pos:pos + T] = kx
-        cache["v"][:, :, pos:pos + T] = vx
-        out = attention_core(q, repeat_kv(cache["k"], H // K),
-                             repeat_kv(cache["v"], H // K), causal=True,
-                             q_offset=pos, window=window, kv_len=pos + T,
-                             softcap=cfg.attn_logit_softcap)
+        ctx = current_mesh_ctx()
+        if (cfg.seq_shard_decode and T == 1 and window is None
+                and cfg.attn_logit_softcap is None and ctx is not None
+                and ctx.model_size > 1 and S % ctx.model_size == 0
+                and is_dtensor(cache["k"])):
+            out, kf, vf = seq_sharded_decode_attention(cfg, q, kx, vx, cache)
+            cache = {**cache, "k": kf, "v": vf}
+        else:
+            seq_write(cache["k"], kx, pos, 2)
+            seq_write(cache["v"], vx, pos, 2)
+            if cfg.grouped_gqa and window is None \
+                    and cfg.attn_logit_softcap is None:
+                out = grouped_attention(q, cache["k"], cache["v"],
+                                        kv_len=pos + T, q_offset=pos)
+            else:
+                out = gqa_core(q, cache["k"], cache["v"], causal=True,
+                               q_offset=pos, window=window, kv_len=pos + T,
+                               softcap=cfg.attn_logit_softcap)
         cache = {**cache, "pos": pos + T}
     o = out.transpose(1, 2).reshape(B, T, H * dh)
-    return p.wo(o), cache
+    return _attn_out(p, o), cache
+
+
+def _attn_out(p: Attention, o: torch.Tensor) -> torch.Tensor:
+    """``wo`` of the heads' output (B, T, H dh), its batch on the data axes
+    and the rest replicated first (the reference's "attn.o")."""
+    return p.wo(shard(o, DATA, None, None, note="attn.o"))
 
 
 def _ring_write(cache: dict, kx: torch.Tensor, vx: torch.Tensor) -> None:
     """Write a chunk's keys/values (B, K, T, dh) into the ring in place:
     only the last S tokens persist, at slots (pos + t0 + i) % S
-    (repro/models/layers.py:396-397)."""
+    (repro/models/layers.py:396-397), at most two runs of slots."""
     S, T, pos = cache["k"].shape[2], kx.shape[2], cache["pos"]
     t0 = max(0, T - S)
-    slots = torch.remainder(pos + t0 + torch.arange(T - t0, device=kx.device),
-                            S)
-    cache["k"][:, :, slots] = kx[:, :, t0:]
-    cache["v"][:, :, slots] = vx[:, :, t0:]
+    first = (pos + t0) % S            # slots first .. S - 1, then 0 ..
+    n1 = min(S - first, T - t0)
+    for lo, hi, slot in ((t0, t0 + n1, first), (t0 + n1, T, 0)):
+        if lo < hi:
+            seq_write(cache["k"], kx[:, :, lo:hi], slot, 2)
+            seq_write(cache["v"], vx[:, :, lo:hi], slot, 2)
 
 
 def gqa_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -851,7 +1049,8 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor, *,
     if positions is None:
         positions = torch.arange(T, device=x.device)[None, :]
     ql = x if p.w_dq is None else p.q_norm(p.w_dq(x))
-    q = p.w_uq(ql).reshape(B, T, H, nd + rd)
+    q = unflatten(p.w_uq(ql), -1, (H, nd + rd))
+    q = shard(q, DATA, None, MODEL, None, note="mla.q")
     q_nope = q[..., :nd]
     q_rope = apply_rope(q[..., nd:], positions, cfg.rope_theta)
     c_kv = p.kv_norm(p.w_dkv(x))                             # (B, T, R)
@@ -865,8 +1064,8 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor, *,
             # (ROADMAP.md section 3)
             raise ValueError(f"MLA cache overflow: {pos} + {T} tokens into "
                              f"a cache of {S}")
-        cache["c_kv"][:, pos:pos + T] = c_kv
-        cache["k_rope"][:, pos:pos + T] = k_rope
+        seq_write(cache["c_kv"], c_kv, pos, 1)
+        seq_write(cache["k_rope"], k_rope, pos, 1)
         c_kv = cache["c_kv"][:, :pos + T]
         k_rope = cache["k_rope"][:, :pos + T]
         q_offset, new_cache = pos, {**cache, "pos": pos + T}
@@ -888,16 +1087,20 @@ def mla_apply(p: MLA, cfg: ModelConfig, x: torch.Tensor, *,
         pr = torch.softmax(s.masked_fill(~seen, float("-inf")), dim=-1)
         ctx = torch.einsum("bhts,bsr->bthr", pr.to(x.dtype), c_kv)
         out_h = torch.einsum("bthr,rhv->bthv", ctx, w_uk_v)
-        return p.wo(out_h.reshape(B, T, H * vd)), new_cache
+        o = shard(out_h.reshape(B, T, H * vd), DATA, None, None,
+                  note="mla.o")
+        return p.wo(o), new_cache
 
-    kv = p.w_uk(c_kv).reshape(B, S_, H, nd + vd)
+    kv = unflatten(p.w_uk(c_kv), -1, (H, nd + vd))
     k = torch.cat([kv[..., :nd],
                    k_rope[:, :, None, :].expand(B, S_, H, rd)], dim=-1)
     qh = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
     out = attention_core(qh, k.transpose(1, 2), kv[..., nd:].transpose(1, 2),
                          causal=True, q_offset=q_offset,
                          kv_len=None if cache is None else q_offset + T)
-    return p.wo(out.transpose(1, 2).reshape(B, T, H * vd)), new_cache
+    o = shard(out.transpose(1, 2).reshape(B, T, H * vd), DATA, None, None,
+              note="mla.o")
+    return p.wo(o), new_cache
 
 
 def mla_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
@@ -1010,51 +1213,118 @@ def moe_slots(top_i: torch.Tensor, n_experts: int, capacity: int
 
 def moe_local(x2d: torch.Tensor, router_w: torch.Tensor,
               w_gate: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,
-              *, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``_moe_local`` with every expert local: x2d (T, d) -> (the routed
-    experts' contributions (T, d), aux).  Dispatch gathers the (E, C, d)
-    expert buffer: row (e,
-    c) holds the token of expert e's c-th kept pair, or zeros, so only
-    kept pairs are written (the reference's trash row is an artefact of its
+              *, cfg: ModelConfig, e_start: int = 0,
+              n_local: Optional[int] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``_moe_local`` (repro/models/layers.py:639-681) over the ``n_local``
+    experts from ``e_start`` (default: all E), whose weights ``w_gate`` /
+    ``w_up`` (n_local, d, f) and ``w_down`` (n_local, f, d) are given: x2d
+    (T, d) -> (those experts' contributions (T, d), aux).  Routing and
+    capacity are the reference's over all E experts for these T tokens
+    (``moe_route``: every rank of an expert-parallel group routes alike),
+    and the aux loss is the whole estimate, as the reference's local one
+    is.  A local expert's kept pairs are those the one-device plan keeps,
+    in the same order: the reference sorts by local expert with the other
+    experts' pairs last, the same stable order restricted to its experts.
+    Dispatch gathers the (n_local, C, d) expert buffer: row (e, c) holds
+    the token of local expert e's c-th kept pair, or zeros, so only kept
+    pairs are written (the reference's trash row is an artefact of its
     scatter).  The expert products are ``bmm`` in the activation dtype.
-    Combine gathers each (token, k) pair's output back into (T, K, d) order,
-    scales it by its gate weight cast to the activation dtype and sums over
-    K: no float atomics, so a recomputation (remat) gives the same
+    Combine gathers each (token, k) pair's output back into (T, K, d)
+    order (zero for a pair of another rank's expert or one dropped),
+    scales it by its gate weight cast to the activation dtype and sums
+    over K: no float atomics, so a recomputation (remat) gives the same
     numbers."""
     T, d = x2d.shape
     K = cfg.experts_per_token
-    E = cfg.n_experts
+    n_local = cfg.n_experts if n_local is None else n_local
     rt = moe_route(x2d, router_w, cfg)
     C, dev = rt.capacity, x2d.device
     c = torch.arange(C, device=dev)
-    starts = rt.counts.cumsum(0) - rt.counts
+    counts = rt.counts[e_start:e_start + n_local]
+    starts = (rt.counts.cumsum(0) - rt.counts)[e_start:e_start + n_local]
     src = (starts[:, None] + c[None, :]).clamp(max=T * K - 1)
-    tok = torch.where(c[None, :] < rt.counts[:, None],
+    tok = torch.where(c[None, :] < counts[:, None],
                       rt.order[src] // K, T)                 # T: zero row
     xz = torch.cat([x2d, x2d.new_zeros((1, d))])
-    eb = xz[tok]                                            # (E, C, d)
+    eb = xz[tok]                                            # (n_local, C, d)
     h = torch.bmm(eb, w_gate.to(eb.dtype))
     u = torch.bmm(eb, w_up.to(eb.dtype))
     y = torch.bmm(F.silu(h) * u, w_down.to(eb.dtype))
-    yz = torch.cat([y.reshape(E * C, d), y.new_zeros((1, d))])
+    yz = torch.cat([y.reshape(n_local * C, d), y.new_zeros((1, d))])
     # each pair's row in original (token, k) order: the sort's inverse
-    # permutation (a scatter to distinct indices)
+    # permutation (a scatter to distinct indices), then its row among the
+    # local experts' (n_local C: the zero row)
     slot = torch.empty_like(rt.slot).scatter_(0, rt.order, rt.slot)
+    slot = slot - e_start * C
+    slot = torch.where((slot >= 0) & (slot < n_local * C), slot,
+                       n_local * C)
     contrib = yz[slot] * rt.top_w.reshape(-1, 1).to(x2d.dtype)
     return contrib.reshape(T, K, d).sum(1), rt.aux
 
 
 def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B, T, d) -> (out, aux): the routed experts over the B T tokens of
-    this call plus the shared experts, every expert on one device.  The
-    reference's ``shard_map`` branch (experts sharded over a mesh's model
-    axis) is ROADMAP.md queue 1, item 8.8: a mesh context would select it
-    here."""
+    """x (B, T, d) -> (out, aux_loss): the routed experts over the B T
+    tokens of this call plus the shared experts (dense, tensor-parallel
+    under a mesh).  Under a mesh context whose model axis divides E, the
+    experts are expert-parallel over it (repro/models/layers.py:684-724,
+    ``local_map`` for ``shard_map``): each rank runs ``moe_local`` over its
+    E / model_size experts on its data shard's tokens (all tokens when
+    the data size does not divide them), the outputs are summed over the
+    model axis, and the aux is summed over every axis and divided by the
+    data size, as the reference's is: each model rank holds the whole
+    estimate, so it is model_size times the one-device aux (ROADMAP.md
+    section 3).  Other meshes run every expert on replicated tokens, the
+    reference's GSPMD fallback."""
     B, T, d = x.shape
-    out, aux = moe_local(x.reshape(B * T, d), p.router, p.w_gate, p.w_up,
-                         p.w_down, cfg=cfg)
+    x2 = x.reshape(B * T, d)
+    ctx = current_mesh_ctx()
+    if ctx is None or not is_dtensor(x2):
+        out, aux = moe_local(x2, p.router, p.w_gate, p.w_up, p.w_down,
+                             cfg=cfg)
+    else:
+        out, aux = _moe_mesh(p, cfg, x2, ctx)
     out = out.reshape(B, T, d)
     if p.shared is not None:
-        out = out + swiglu(p.shared, x)
+        out = out + reduce_partial(swiglu(p.shared, x))
     return out, aux
+
+
+def _moe_mesh(p: MoE, cfg: ModelConfig, x2: torch.Tensor, ctx):
+    """``moe_apply``'s routed experts under a mesh, in ``local_map``."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = ctx.mesh
+    names = list(mesh.mesh_dim_names)
+    E = cfg.n_experts
+    msize = ctx.model_size
+    expert_parallel = msize > 1 and E % msize == 0
+    n_local = E // msize if expert_parallel else E
+    tokens_sharded = (expert_parallel and ctx.data_size > 1
+                      and x2.shape[0] % ctx.data_size == 0)
+    rep = [Replicate()] * len(names)
+    tok = [Shard(0) if tokens_sharded and n in ctx.data_axes
+           else Replicate() for n in names]
+    wts = [Shard(0) if expert_parallel and n == ctx.model_axis
+           else Replicate() for n in names]
+    groups = [mesh.get_group(a) for a in ctx.data_axes]
+
+    def block(xl, rw, wg, wu, wd):
+        e_start = (mesh.get_local_rank(ctx.model_axis) * n_local
+                   if expert_parallel else 0)
+        out, aux = moe_local(xl, rw, wg, wu, wd, cfg=cfg, e_start=e_start,
+                             n_local=n_local)
+        if expert_parallel:
+            out = all_reduce(out, "sum", mesh.get_group(ctx.model_axis))
+            # the reference's psum of the aux over every axis
+            aux = all_reduce(aux, "sum", mesh.get_group(ctx.model_axis))
+            for g in groups:
+                aux = all_reduce(aux, "sum", g)
+            aux = aux / ctx.data_size
+        return out, aux
+
+    return local_map(block, out_placements=(tok, rep),
+                     in_placements=(tok, rep, wts, wts, wts),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        x2, p.router, p.w_gate, p.w_up, p.w_down)

@@ -31,6 +31,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..sharding import DATA, MODEL, reduce_partial, shard, unflatten
 from . import layers as L
 from .config import LayerSpec, ModelConfig, find_period, layer_specs
 
@@ -39,11 +40,12 @@ __all__ = ["Segment", "plan_segments", "Block", "Encoder", "Transformer",
            "init_params", "forward", "encode", "init_cache", "num_params",
            "active_params", "ENC_SPEC"]
 
-_OUTSIDE = ("ROADMAP.md queue 1, item 8 (the rest of the LM stack): the "
-            "port's LM slice has dense gqa/swa attention, MLA, the RWKV-6 "
-            "time-mix and the Mamba mixer (hybrid stacks too) with SwiGLU, "
-            "GELU, the channel-mix or MoE, the vision-stub frontend and the "
-            "whisper encoder-decoder, on one device")
+_OUTSIDE = ("the port's LM stack has dense gqa/swa attention, MLA, the "
+            "RWKV-6 time-mix and the Mamba mixer (hybrid stacks too) with "
+            "SwiGLU, GELU, the channel-mix or MoE, the audio and "
+            "vision-stub frontends and the whisper encoder-decoder, on one "
+            "device or a mesh (launch/mesh.py); other frontends and "
+            "layers are outside it")
 #: the layers of whisper's encoder (repro/models/model.py:329)
 ENC_SPEC = LayerSpec(mixer="gqa", ffn="gelu", cross_attn=False)
 
@@ -81,13 +83,11 @@ def plan_segments(cfg: ModelConfig) -> Tuple[Segment, ...]:
 
 
 def _check_slice(cfg: ModelConfig) -> None:
-    """Raise for what the port's LM slice does not run.  ``mla_absorb`` is
-    a single-device variant of MLA, not a mesh one, and runs."""
-    for name in ("seq_shard_decode", "grouped_gqa",
-                 "attn_batch_shard_fallback"):
-        if getattr(cfg, name):
-            raise NotImplementedError(f"{cfg.name}: mesh variant {name}; "
-                                      f"{_OUTSIDE}")
+    """Raise for what the port's LM stack does not run.  Every variant
+    flag runs: ``mla_absorb`` and ``grouped_gqa`` change a decode on one
+    device; ``seq_shard_decode`` and ``attn_batch_shard_fallback`` act only
+    under a mesh context whose model axis is wider than 1, and without
+    one the model takes the plain path."""
     if cfg.frontend not in (None, "audio_stub", "vision_stub"):
         raise NotImplementedError(f"{cfg.name}: modality frontend "
                                   f"{cfg.frontend!r}; {_OUTSIDE}")
@@ -134,8 +134,8 @@ def _cross_kv(p: Block, cfg: ModelConfig, enc_out: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The cross-attention keys and values of ``enc_out`` (B, T_enc, d),
     repeated to the query heads: (B, H, T_enc, dh) each."""
-    B, K, dh = enc_out.shape[0], cfg.n_kv_heads, cfg.head_dim
-    kv = [f(enc_out).reshape(B, -1, K, dh).transpose(1, 2)
+    K, dh = cfg.n_kv_heads, cfg.head_dim
+    kv = [unflatten(f(enc_out), -1, (K, dh)).transpose(1, 2)
           for f in (p.xattn.wk, p.xattn.wv)]
     return tuple(L.repeat_kv(a, cfg.n_heads // K) for a in kv)
 
@@ -174,7 +174,7 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
             new["attn"] = mc
     else:
         raise ValueError(spec.mixer)
-    x = x + h
+    x = x + reduce_partial(h)
     if spec.cross_attn:
         if enc_out is not None:
             kv = _cross_kv(p, cfg, enc_out)
@@ -188,7 +188,7 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
             raise ValueError("cross-attention needs enc_frames, or a cache "
                              "whose prefill was given them")
         h, _ = L.gqa_apply(p.xattn, cfg, p.norm_x(x), xattn_kv=kv)
-        x = x + h
+        x = x + reduce_partial(h)
     h = p.norm2(x)
     if spec.ffn == "cmix":
         h, last = L.cmix_apply(p.ffn, h,
@@ -200,7 +200,7 @@ def block_apply(p: Block, cfg: ModelConfig, spec: LayerSpec, x: torch.Tensor,
         h, aux = L.moe_apply(p.ffn, cfg, h)
     else:
         h = p.ffn(h)
-    return x + h, new, aux
+    return x + reduce_partial(h), new, aux
 
 
 def block_cache_init(cfg: ModelConfig, spec: LayerSpec, batch: int,
@@ -329,7 +329,8 @@ class Transformer(nn.Module):
         dt = getattr(torch, cfg.dtype)
         # F.embedding's backward sums a row's gradients in a fixed order
         # (indexing's index_put_ accumulates in a racy one on the CPU)
-        x = F.embedding(tokens, self.embed).to(dt)
+        x = shard(F.embedding(tokens, self.embed).to(dt), DATA, None, None,
+                  note="embed")
         if embeds is not None:
             if self.frontend_proj is None:
                 raise ValueError(f"{cfg.name} has no frontend to project "
@@ -364,6 +365,7 @@ class Transformer(nn.Module):
         x = self.final_norm(x)
         logits = (x @ self.embed.to(x.dtype).T if self.lm_head is None
                   else self.lm_head(x))
+        logits = shard(logits, DATA, None, MODEL, note="logits")
         if cfg.padded_vocab != cfg.vocab_size:        # mask the padded tail
             pad = torch.arange(cfg.padded_vocab, device=x.device) >= \
                 cfg.vocab_size

@@ -41,6 +41,7 @@ from ..models import forward, init_params
 from ..models.config import ModelConfig
 from ..models.model import Transformer
 from ..optim import Optimizer, clip_scale, global_norm
+from ..sharding import DATA, gather, shard
 
 __all__ = ["TrainState", "init_train_state", "lm_loss_per_seq", "lm_loss",
            "make_train_step", "make_straggler_train_step", "make_serve_step"]
@@ -245,6 +246,7 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
         aux = torch.zeros((), device=dev)
         for slot in range(r):
             toks = slot_tokens[slot].reshape(n * b, -1)      # worker-major
+            toks = shard(toks, DATA, None, note="slot.tokens")
             labs = slot_labels[slot].reshape(n * b, -1)
             kw = {key: v[slot].reshape((n * b,) + v.shape[3:])
                   for key, v in (extras or {}).items()}
@@ -281,10 +283,11 @@ def make_serve_step(cfg: ModelConfig):
     """One greedy decode step: (model, cache, tokens (B, 1)) -> (next (B, 1)
     int32, cache, logits (B, V_pad) of the last position).  The JAX step
     returns only the first two; the logits let a caller check them.  The
-    next token is the first maximum (``argmax``)."""
+    next token is the first maximum (``argmax``); under a mesh the
+    vocabulary is gathered for it first."""
     def step(params, cache, tokens):
         logits, _, cache = forward(params, cfg, tokens, cache=cache)
-        last = logits[:, -1]
+        last = gather(logits[:, -1], -1)
         return last.argmax(dim=-1)[:, None].to(torch.int32), cache, last
 
     return step

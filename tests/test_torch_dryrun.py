@@ -22,11 +22,25 @@ shapes' names kept, so the artifacts are named and read as at full size):
 * the artifact read unchanged by the reference's
   ``repro.launch.roofline`` and ``repro.launch.perf_report`` (neither
   imports JAX) and by the port's, the ``absorb`` pair as a perf_report
-  row, every mesh variant and ``--multi-pod`` raising, the ``--all`` loop,
-  and the ``roofline`` benchmark job (its ``roofline/skipped`` row on an
-  empty directory)."""
+  row, the ``--all`` loop, and the ``roofline`` benchmark job (its
+  ``roofline/skipped`` row on an empty directory);
+* the mesh dry run over the fake process group, in a process of its own
+  (``torch_mesh_dryrun.py``): every mesh variant on the 16x16 mesh and
+  the CLI's ``--multi-pod`` (a decode step) producing artifacts both
+  packages' readers read, with collectives and ``collective_s`` = total
+  bytes / ``LINK_BW``;
+  per-device FLOPs times the devices equal to the one-card FLOPs for a
+  divisible dense smoke config (train, prefill and decode on a 1 x 2
+  mesh); a one-layer prefill's collective bytes by kind equal to the
+  analytic count of the port's shardings; a decode's cache exchanged as
+  one KV head a rank, in the baseline as in ``grouped``; the swa op's
+  DTensor rule refusing placements it cannot shard."""
 import dataclasses
 import json
+import os
+import pathlib
+import subprocess
+import sys
 
 import pytest
 import torch
@@ -271,24 +285,73 @@ def test_artifacts_are_read_by_both_packages_readers(small, tmp_path):
     assert perf_report.to_markdown(perf_report.rows(out)) == table
 
 
-@pytest.mark.parametrize("variant", dryrun.MESH_VARIANTS)
-def test_mesh_variants_raise(small, variant):
-    with pytest.raises(NotImplementedError, match="item 8.8"):
-        dryrun.run_one("gemma3-4b", "decode_32k", out_dir="",
-                       variant=f"absorb,{variant}")
+@pytest.fixture(scope="module")
+def mesh_runs(tmp_path_factory):
+    """The artifacts of ``torch_mesh_dryrun.py``'s three groups, run in a
+    process of their own on one thread (the fake process group is global
+    state)."""
+    here = pathlib.Path(__file__).resolve().parent
+    out = tmp_path_factory.mktemp("mesh")
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [str(here.parent / "src"), str(here), str(here.parent),
+         os.environ.get("PYTHONPATH", "")]))
+    p = subprocess.run([sys.executable, str(here / "torch_mesh_dryrun.py"),
+                        str(out)], env=env, cwd=here,
+                       stdout=subprocess.DEVNULL, stderr=subprocess.PIPE,
+                       text=True, timeout=600)
+    assert p.returncode == 0, p.stderr[-3000:]
+    return out
+
+
+def _doc(out, name):
+    return json.loads((out / name).read_text())
+
+
+@pytest.mark.parametrize("variant", ["zero1", "grouped", "batchshard",
+                                     "puredp", "ringdecode"])
+def test_mesh_variants_raise(small, mesh_runs, variant):
+    """Each mesh variant runs on the 16x16 mesh (the name is the one these
+    cases had when the mesh variants raised): an artifact with its
+    collectives, ``collective_s`` their bytes over ``LINK_BW``, and
+    per-device counts; an unknown variant still raises, and a mesh variant
+    refuses one card."""
+    shape = "train_4k" if variant == "zero1" else "decode_32k"
+    doc = _doc(mesh_runs, f"pod__mistral-nemo-12b__{shape}__{variant}.json")
+    assert doc["mesh"] == "16x16" and doc["n_devices"] == 256
+    assert doc["variant"] == variant
+    coll = doc["collectives"]
+    assert set(coll["bytes"]) == set(dryrun.COLLECTIVE_KINDS)
+    assert coll["total_bytes"] == sum(coll["bytes"].values())
+    # puredp replicates the weights, and its batch of 2 over 256 data
+    # ranks: nothing to exchange
+    assert (coll["total_bytes"] == 0) == (variant == "puredp")
+    assert doc["roofline"]["collective_s"] == \
+        coll["total_bytes"] / dryrun.LINK_BW
+    assert doc["roofline"]["model_flops_per_device"] == \
+        doc["roofline"]["model_flops_global"] / 256
+    assert doc["flops_per_device"] > 0 and doc["bytes_per_device"] > 0
+    if variant == "zero1":
+        assert doc["meta"]["round"]["n"] == 16
     with pytest.raises(ValueError, match="unknown variant"):
         dryrun.run_one("gemma3-4b", "decode_32k", out_dir="",
                        variant="fused")
+    if variant != "grouped":
+        with pytest.raises(ValueError, match="needs a mesh"):
+            dryrun.run_one("gemma3-4b", "decode_32k", out_dir="",
+                           variant=variant, mesh="1xH100")
 
 
-def test_cli_one_combo_multi_pod_and_the_all_loop(small, tmp_path, capsys):
+def test_cli_one_combo_multi_pod_and_the_all_loop(small, tmp_path, capsys,
+                                                  mesh_runs):
     res = dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "prefill_32k",
                        "--out-dir", str(tmp_path)])
     assert res["file"] == str(tmp_path /
                               "h100__phi4-mini-3.8b__prefill_32k.json")
-    with pytest.raises(NotImplementedError, match="item 8.8"):
-        dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "train_4k",
-                     "--multi-pod"])
+    pod = _doc(mesh_runs, "multipod__phi4-mini-3.8b__decode_32k.json")
+    assert pod["mesh"] == "2x16x16" and pod["n_devices"] == 512
+    assert pod["roofline"]["model_flops_per_device"] == \
+        pod["roofline"]["model_flops_global"] / 512
+    assert pod["collectives"]["total_bytes"] > 0
     for arch in tconfigs.ARCH_IDS:
         for shape in tconfigs.SHAPES:
             (tmp_path / f"h100__{arch}__{shape}.json").write_text("{}")
@@ -316,3 +379,99 @@ def test_roofline_job_of_the_harness(small, tmp_path):
         "roofline/1xH100/gemma3-4b/long_500k",
         "roofline/1xH100/gemma3-4b/prefill_32k",
         "roofline/1xH100/rwkv6-1.6b/train_4k"]
+
+
+@pytest.mark.parametrize("shape", ["train_4k", "prefill_32k", "decode_32k"])
+def test_mesh_flops_per_device_times_devices_are_one_cards(small, shape,
+                                                           mesh_runs):
+    """mistral-nemo-12b's smoke config divides the 1 x 2 mesh (4 heads, 2
+    KV heads, d_ff 512, vocabulary 512): the model axis splits every
+    matmul, so rank 0's FLOPs (its local ops) times 2 are one card's.  The
+    train round (n = 1 worker, the mesh's data size, on both) holds it too
+    with its backward: the residual stream's gradient is reduced before a
+    row-parallel product's backward, and a row-parallel weight's gradient
+    is taken from its own rows of the input."""
+    doc = _doc(mesh_runs, f"mesh1x2__mistral-nemo-12b__{shape}.json")
+    if shape == "train_4k":
+        cfg = dryrun.dryrun_config(dryrun.get_config("mistral-nemo-12b"),
+                                   shape)
+        fn, args, meta = dryrun.build_train(cfg, shape, n=1)
+        res = dryrun.measure(fn, args)
+        one = {"flops_per_device": res["flops"],
+               "bytes_per_device": res["bytes"]}
+        assert doc["meta"]["round"] == meta["round"]
+    else:
+        one = dryrun.run_one("mistral-nemo-12b", shape, out_dir="")
+    assert doc["n_devices"] == 2 and doc["mesh"] == "1x2"
+    assert doc["flops_per_device"] * 2 == one["flops_per_device"] > 0
+    assert doc["bytes_per_device"] < one["bytes_per_device"]
+
+
+@pytest.mark.parametrize("variant", ["baseline", "grouped"])
+def test_mesh_decode_exchanges_one_kv_head_a_rank(small, mesh_runs,
+                                                  variant):
+    """One KV head, 4 query heads on the 1 x 2 mesh: the sequence-sharded
+    cache goes to the two ranks' heads in one all-to-all a layer for k and
+    one for v, each bringing a rank the one KV head its query heads read
+    over the whole sequence, (B, 1, S, dh): the head repeated once, to one
+    a rank, and the rest of GQA's repetition each rank's own, in the
+    baseline decode as in the grouped one."""
+    tag = "kv1" + ("" if variant == "baseline" else variant)
+    doc = _doc(mesh_runs, f"mesh1x2__mistral-nemo-12b__decode_32k__{tag}"
+                          f".json")
+    cfg = cli_config("mistral-nemo-12b", True)
+    B, S = SMALL["decode_32k"].global_batch, SMALL["decode_32k"].seq_len
+    coll = doc["collectives"]
+    assert coll["counts"]["all-to-all"] == 2 * cfg.n_layers
+    assert coll["bytes"]["all-to-all"] == \
+        2 * cfg.n_layers * B * S * cfg.head_dim * 4
+
+
+def test_swa_rule_refuses_q_heads_sharded_alone(mesh_runs):
+    """A sliding-window prefill with 4 query heads and one KV head on the
+    1 x 2 mesh: q's heads are sharded, k's and v's cannot be, and the swa
+    op's DTensor rule raises with the op's name instead of gathering q and
+    running the whole band on both ranks."""
+    text = (mesh_runs / "swa_refused.txt").read_text()
+    assert text.startswith("repro_torch::swa_attention: DTensor cannot "
+                           "shard q (Replicate(), Shard(dim=2)), k "
+                           "(Replicate(), Replicate())")
+
+
+def test_one_layer_collectives_are_the_analytic_count(small, mesh_runs):
+    """One dense layer's prefill (B 2, T 48, float32) on the 1 x 2 mesh,
+    Megatron's pattern as the port shards it: an all-reduce of (B, T, d)
+    after the vocabulary-parallel embedding, after the row-parallel ``wo``
+    and after ``w_down``; an all-gather of the heads' output (B, T, H dh)
+    for the reference's "attn.o" constraint, and of the last position's
+    logits (B, V) over the sharded vocabulary for the argmax; nothing
+    else."""
+    doc = _doc(mesh_runs,
+               "mesh1x2__mistral-nemo-12b__prefill_32k__onelayer.json")
+    cfg = cli_config("mistral-nemo-12b", True)
+    B, T = SMALL["prefill_32k"].global_batch, SMALL["prefill_32k"].seq_len
+    d, Hd, f32 = cfg.d_model, cfg.n_heads * cfg.head_dim, 4
+    want = dict.fromkeys(dryrun.COLLECTIVE_KINDS, 0)
+    want["all-reduce"] = 3 * B * T * d * f32
+    want["all-gather"] = B * T * Hd * f32 + B * cfg.padded_vocab * f32
+    coll = doc["collectives"]
+    assert coll["bytes"] == want
+    assert coll["counts"] == {**dict.fromkeys(dryrun.COLLECTIVE_KINDS, 0),
+                              "all-reduce": 3, "all-gather": 2}
+
+
+def test_mesh_artifacts_are_read_by_both_packages_readers(small,
+                                                          mesh_runs):
+    out = str(mesh_runs)
+    want = jroof.rows(out, "16x16")      # the baselines; perf_report
+    assert len(want) == 3                # reads the tagged variants
+    assert roofline.to_markdown(roofline.rows(out, "16x16")).replace(
+        "tensor-core", "MXU").replace("InfiniBand", "ICI") == \
+        jroof.to_markdown(want)
+    assert all(r["roofline"]["collective_s"] > 0 for r in want)
+    pairs = jperf.rows(out, mesh="pod")
+    assert sorted(tag for _, _, tag in pairs) == [
+        "batchshard", "grouped", "puredp", "ringdecode", "zero1"]
+    assert perf_report.to_markdown(perf_report.rows(out, mesh="pod")) == \
+        jperf.to_markdown(pairs)
+    assert jroof.rows(out, "2x16x16")[0]["arch"] == "phi4-mini-3.8b"
