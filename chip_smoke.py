@@ -78,9 +78,17 @@ E/K, where no call drops a pair; deepseek's absorbed decode to its naive
 one), the smoke configs on the card to the CPU in float32 at the default
 capacity, and deepseek-v3 at 4 layers with 16 experts trained 10 steps
 through ``make_straggler_train_step`` (the loss falls, the MoE aux loss
-finite and non-zero; one greedy_assign launch a step).  Last, the hybrid
-phase (``hybrid_phase``): jamba-v0.1-52b at published widths, bf16, one
-Jamba block (8 layers: seven Mamba mixers and a GQA layer, MoE of 16
+finite and non-zero; one greedy_assign launch a step); the dense legs
+beside them: phi4-mini-3.8b at full size through the serve CLI and
+qwen2-72b cut to 8 layers at published widths (QKV bias) through
+``serve.run``, both at gemma3-4b's shape, decode held to the full forward
+and the smoke configs card against CPU (no swa_attention launch), and on
+phi4-mini's weights sampled decode (``make_serve_step(greedy=False)``):
+16 steps whose tokens the CPU draws again from the card's logits and
+keys (equal but for counted near-ties, no padded id), and 65 536 draws
+from one logits row held to its softmax by a chi-square test.  Last,
+the hybrid phase (``hybrid_phase``): jamba-v0.1-52b at published widths,
+bf16, one Jamba block (8 layers: seven Mamba mixers and a GQA layer, MoE of 16
 experts on the odd layers) served at gemma3-4b's shape through
 ``serve.run`` with a profiled prefill (the selective scan's step loop),
 the full 32 layers refused by both launchers' memory checks before any
@@ -109,8 +117,12 @@ MoE layer at published widths expert-parallel over two gloo ranks on the
 one card (each holding its 128 experts) against the one-device layer on
 pinned routing, and a ring decode over a 32 768-slot cache split by
 sequence over the two ranks against the one-device grouped attention
-(outputs within the bf16 bound, cache blocks bit-equal); beside them,
-the mesh dry runs on ``meta`` (16x16 and 2x16x16: per-device FLOPs,
+(outputs within the bf16 bound, cache blocks bit-equal); then three
+straggler AdamW train steps under the 1 x 2 mesh over the two ranks
+(weights and moments placed by ``shardings.distribute_train_state``):
+phi4-mini-3.8b's published widths cut to 2 layers in bf16, and its smoke
+config in float32, each against the same steps on one device; beside
+them, the mesh dry runs on ``meta`` (16x16 and 2x16x16: per-device FLOPs,
 bytes, peak and collective bytes by kind).
 
 Run from the repository root on a machine with a card:
@@ -170,8 +182,9 @@ from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.cluster import build_cluster  # noqa: E402
 from repro_torch.live import run_live, sample_delay_tables  # noqa: E402
 from repro_torch.optim import adamw, cosine_schedule  # noqa: E402
-from repro_torch.train import (init_train_state,  # noqa: E402
-                               make_serve_step, make_straggler_train_step)
+from repro_torch.train import (gumbel_scores,  # noqa: E402
+                               init_train_state, make_serve_step,
+                               make_straggler_train_step)
 from repro_torch.models import (forward, init_cache, init_params,  # noqa: E402
                                 layer_specs)
 from repro_torch.models import layers as model_layers  # noqa: E402
@@ -2647,13 +2660,15 @@ def _rel_gap(a, b):
 
 
 @torch.inference_mode()
-def family_consistency(arch):
-    """(1) ``arch`` at full width and depth in bfloat16 on the card: the
-    full forward against a 16-token prefill plus 8 decode steps at the same
-    positions (``_decode_vs_full``; counts set to 0 just before, read
-    after: no swa_attention launch).  (2) its smoke config in float32, the
-    card against the same weights on the CPU (``_smoke_card_vs_cpu``)."""
-    cfg = get_config(arch)
+def family_consistency(arch, cfg=None, then=None):
+    """(1) ``arch`` (or ``cfg``, a cut of it) at full width in bfloat16 on
+    the card: the full forward against a 16-token prefill plus 8 decode
+    steps at the same positions (``_decode_vs_full``; counts set to 0 just
+    before, read after: no swa_attention launch), then ``then(model,
+    cfg)`` on the same weights, its dict kept under "then".  (2) its smoke
+    config in float32, the card against the same weights on the CPU
+    (``_smoke_card_vs_cpu``)."""
+    cfg = cfg or get_config(arch)
     model = init_params(cfg, seed=1, device=DEV)
     B, P, steps = 2, 16, 8
     gen = torch.Generator(device=DEV).manual_seed(1)
@@ -2670,12 +2685,13 @@ def family_consistency(arch):
           and _swa_launches(launches) == 0,
           f"{arch} bf16 decode vs full rel {rel_dec:.3e} (bound "
           f"{FAMILY_BF16_REL}), swa launches {launches}")
+    after = None if then is None else then(model, cfg)
     del model
     _free_cuda()
     small = cfg.smoke()
     out = {"decode_vs_full_bf16_rel": rel_dec, "nudged_bf16_rel": moved,
            **_smoke_card_vs_cpu(small),
-           "swa_launches": _swa_launches(launches)}
+           "swa_launches": _swa_launches(launches), "then": after}
     print(f"consistency {arch} full size bf16: prefill {P} + {steps} decode "
           f"steps vs the full forward rel {rel_dec:.3e} (bound "
           f"{FAMILY_BF16_REL}; with a nudged cache {moved}); "
@@ -2831,15 +2847,40 @@ WIDE_CUT = {"deepseek-v3": ("deepseek-v3-671b", dict(n_layers=4)),
                                      dict(n_layers=4, mla_absorb=True)),
             "llama4-maverick": ("llama4-maverick-400b-a17b",
                                 dict(n_layers=2)),
-            "llava-next-34b": ("llava-next-34b", {})}
+            "llava-next-34b": ("llava-next-34b", {}),
+            "phi4-mini": ("phi4-mini-3.8b", {}),
+            "qwen2-72b": ("qwen2-72b", dict(n_layers=8))}
 #: (layers, encoder layers, parameters) of each leg
 WIDE_SIZE = {"deepseek-v3": (4, 0, 15_111_101_440),
              "deepseek-v3-absorbed": (4, 0, 15_111_101_440),
              "llama4-maverick": (2, 0, 18_562_447_360),
-             "llava-next-34b": (60, 0, 34_396_264_448)}
+             "llava-next-34b": (60, 0, 34_396_264_448),
+             "phi4-mini": (32, 0, 4_451_404_800),
+             "qwen2-72b": (8, 0, 9_512_902_656)}
 WIDE_SERVE = {"deepseek-v3": SERVE, "deepseek-v3-absorbed": SERVE,
               "llama4-maverick": SERVE,
-              "llava-next-34b": dict(batch=1, prompt_len=2048, gen=32)}
+              "llava-next-34b": dict(batch=1, prompt_len=2048, gen=32),
+              "phi4-mini": SERVE, "qwen2-72b": SERVE}
+#: the dense legs of the wide phase: phi4-mini-3.8b at full size (its
+#: vocabulary 200 064 padded to 200 192, the masked tail at width) and
+#: qwen2-72b cut to 8 of its 80 layers at published widths (d 8192, 64 /
+#: 8 heads of 128, d_ff 29 568, QKV bias; the untied embedding and head:
+#: 19.0 GB of bf16), whose 145 GB at full depth exceed one card
+DENSE_LEGS = ("phi4-mini", "qwen2-72b")
+#: sampled decode on phi4-mini's weights: 16 steps after a 2 x 64 prompt,
+#: keys (SAMPLE_SEED, step); the CPU's draw may differ only where the top
+#: two perturbed scores lie within SAMPLE_NEAR_TIE; then SAMPLE_DRAWS
+#: draws from one logits row in chunks of SAMPLE_CHUNK rows, keys
+#: (SAMPLE_CHI_SEED, chunk), held to its softmax by a chi-square test over
+#: SAMPLE_BINS bins of equal probability mass, p above SAMPLE_P_MIN
+SAMPLE_STEPS = 16
+SAMPLE_SEED = 5
+SAMPLE_NEAR_TIE = 1e-5
+SAMPLE_DRAWS = 65_536
+SAMPLE_CHUNK = 1024
+SAMPLE_CHI_SEED = 6
+SAMPLE_BINS = 256
+SAMPLE_P_MIN = 1e-3
 #: deepseek-v3 trained at full width, 4 layers, with 16 routed experts
 #: (top-8, the shared expert and capacity 1.25 kept): 4 539 735 040
 #: parameters, gemma3-4b's training size
@@ -3068,6 +3109,120 @@ def wide_consistency(family):
     return out
 
 
+def _chi_square(counts, p, bins):
+    """Pearson's chi-square of ``counts`` (V,) against the probabilities
+    ``p`` (V,), float64 on the card, over ``bins`` bins of about equal
+    mass (the categories in descending probability, each in the bin of
+    the mass before it; bins that stay empty dropped): (statistic,
+    degrees of freedom, p-value, the least expected count).  A draw
+    where ``p`` is 0 makes the statistic infinite."""
+    order = torch.argsort(p, descending=True)
+    ps = p[order]
+    b = torch.clamp(((torch.cumsum(ps, 0) - ps) * bins).long(), max=bins - 1)
+    n = counts.sum().double()
+    exp = torch.zeros(bins, dtype=torch.float64, device=p.device
+                      ).index_add_(0, b, ps) * n
+    obs = torch.zeros_like(exp).index_add_(0, b, counts[order].double())
+    used = (exp > 0) | (obs > 0)
+    exp, obs = exp[used], obs[used]
+    stat = float(((obs - exp) ** 2 / exp).sum())
+    dof = int(used.sum()) - 1
+    pval = float(torch.special.gammaincc(
+        torch.tensor(dof / 2, dtype=torch.float64),
+        torch.tensor(stat / 2, dtype=torch.float64)))
+    return stat, dof, pval, float(exp.min())
+
+
+def sampled_decode(model, cfg):
+    """``make_serve_step(cfg, greedy=False)`` on ``model``'s weights:
+    ``SAMPLE_STEPS`` steps after a 2 x 64-token prompt, keys (SAMPLE_SEED,
+    step), timed beside as many greedy steps after them: no drawn id at or past the vocabulary; the CPU's
+    ``gumbel_scores`` of the card's float32 logits under the same keys
+    draws the same tokens, but where its top two scores lie within
+    ``SAMPLE_NEAR_TIE`` (counted).  Then ``SAMPLE_DRAWS`` draws from the
+    first step's first logits row, none in the padded tail, held to its
+    softmax (``_chi_square``, p above ``SAMPLE_P_MIN``)."""
+    B, P = 2, 64
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    toks = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                         device=DEV)
+    cache = init_cache(cfg, B, P + 2 * SAMPLE_STEPS + 8, device=DEV)
+    logits, _, cache = forward(model, cfg, toks, cache=cache)
+    nxt = logits[:, -1:].argmax(dim=-1).to(torch.int32)
+    del logits
+    step = make_serve_step(cfg, greedy=False)
+    drawn, lasts = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(SAMPLE_STEPS):
+        nxt, cache, last = step(model, cache, nxt, rng=(SAMPLE_SEED, t))
+        drawn.append(nxt[:, 0])
+        lasts.append(last.float())
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / SAMPLE_STEPS
+    greedy = make_serve_step(cfg)
+    t0 = time.perf_counter()
+    for t in range(SAMPLE_STEPS):
+        nxt, cache, _ = greedy(model, cache, nxt)
+    torch.cuda.synchronize()
+    greedy_ms = (time.perf_counter() - t0) * 1e3 / SAMPLE_STEPS
+    drawn = torch.stack(drawn).long().cpu()
+    check(int(drawn.min()) >= 0 and int(drawn.max()) < cfg.vocab_size,
+          f"sampled decode drew ids {drawn.min()}..{drawn.max()} of "
+          f"{cfg.vocab_size}")
+    near = differ = 0
+    for t, last in enumerate(lasts):
+        top = gumbel_scores(last.cpu(), (SAMPLE_SEED, t)).topk(2, dim=-1)
+        tie = (top.values[:, 0] - top.values[:, 1]) < SAMPLE_NEAR_TIE
+        other = top.indices[:, 0] != drawn[t]
+        check(not bool((other & ~tie).any()),
+              f"sampled decode step {t}: card {drawn[t].tolist()} vs CPU "
+              f"{top.indices[:, 0].tolist()}, gaps "
+              f"{(top.values[:, 0] - top.values[:, 1]).tolist()}")
+        near += int(tie.sum())
+        differ += int(other.sum())
+    row = lasts[0][0]
+    counts = torch.zeros(row.shape[0], dtype=torch.int64, device=DEV)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for c in range(SAMPLE_DRAWS // SAMPLE_CHUNK):
+        idx = gumbel_scores(row.expand(SAMPLE_CHUNK, -1),
+                            (SAMPLE_CHI_SEED, c)).argmax(dim=-1)
+        counts += torch.bincount(idx, minlength=row.shape[0])
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    padded = int(counts[cfg.vocab_size:].sum())
+    stat, dof, pval, least = _chi_square(
+        counts, torch.softmax(row.double(), dim=-1), SAMPLE_BINS)
+    check(padded == 0 and least >= 5 and pval > SAMPLE_P_MIN,
+          f"sampled decode: {padded} padded draws, chi-square {stat:.3f} "
+          f"on {dof} dof, p {pval:.3e}, least expected count {least:.2f}")
+    out = {"steps": SAMPLE_STEPS, "step_ms": step_ms,
+           "greedy_step_ms": greedy_ms, "near_ties": near,
+           "card_cpu_differ": differ, "max_id": int(drawn.max()),
+           "draws": SAMPLE_DRAWS, "draw_s": draw_s, "chi_square": stat,
+           "dof": dof, "p_value": pval, "least_expected": least,
+           "padded_draws": padded}
+    print(f"sampled decode {cfg.name} batch {B}, {SAMPLE_STEPS} steps: "
+          f"{step_ms:.3f} ms a step (then {SAMPLE_STEPS} greedy steps "
+          f"{greedy_ms:.3f}), max id {out['max_id']} < "
+          f"{cfg.vocab_size}, card vs CPU tokens equal but {differ} "
+          f"({near} near-ties within {SAMPLE_NEAR_TIE}); {SAMPLE_DRAWS} "
+          f"draws from one row in {draw_s:.3f} s: chi-square {stat:.3f} on "
+          f"{dof} dof, p {pval:.4f}, least expected count {least:.1f}, 0 "
+          f"padded draws")
+    return out
+
+
+def dense_consistency(leg):
+    """A dense leg's ``family_consistency`` at its config (``wide_cfg``),
+    phi4-mini with the sampled decode (``sampled_decode``) on the same
+    weights."""
+    return family_consistency(
+        leg, wide_cfg(leg),
+        then=sampled_decode if leg == "phi4-mini" else None)
+
+
 def train_deepseek():
     """deepseek-v3 at full width (4 layers, 16 routed experts) through
     ``train_straggler``: the loss falls; the MoE aux loss is finite and
@@ -3096,13 +3251,14 @@ def _warm_wide():
 
 
 def wide_phase():
-    """deepseek-v3 (naive and absorbed MLA) and llama4-maverick at
-    published widths with their depth cut, and llava-next-34b at full
-    size, after the families phase has freed whisper and rwkv6: serving
+    """deepseek-v3 (naive and absorbed MLA), llama4-maverick and
+    qwen2-72b at published widths with their depth cut, llava-next-34b and
+    phi4-mini-3.8b at full size, after the families phase has freed
+    whisper and rwkv6: serving
     (no warm-up at full size: ``_warm_wide`` ran the same code at the smoke
     widths, and each draw of the weights costs seconds), consistency
-    (decode against the full forward, the card against the CPU) and
-    deepseek-v3's training."""
+    (decode against the full forward, the card against the CPU; phi4's
+    sampled decode) and deepseek-v3's training."""
     t_phase = time.perf_counter()
     _warm_wide()
     legs = [(leg, "serve", lambda leg=leg: family_serve(
@@ -3110,6 +3266,8 @@ def wide_phase():
         for leg in WIDE_SERVE]
     legs += [(fam, "consistency", lambda fam=fam: wide_consistency(fam))
              for fam in ("deepseek-v3", "llama4-maverick", "llava-next-34b")]
+    legs += [(leg, "consistency", lambda leg=leg: dense_consistency(leg))
+             for leg in DENSE_LEGS]
     legs += [("deepseek-v3", "train", train_deepseek)]
     out = {leg: {} for leg in WIDE_SERVE}
     for leg, kind, fn in legs:
@@ -4227,12 +4385,186 @@ def ring_check(got, card):
     return {"ranks": got}
 
 
+#: the mesh train leg: MESH_TRAIN_STEPS straggler AdamW steps (lr 1e-3)
+#: of MESH_TRAIN_ROUND on a Markov EC2 cluster (seed 7, 8 x 128 bigram
+#: tokens a slot) under the 1 x 2 mesh over the two ranks, against the
+#: same steps on one device; the float32 weights after the last step
+#: within MESH_TRAIN_REL x the step count of their largest value, at
+#: AdamW's eps 1e-8 but for a MESH_ADAM_NOISE_SHARE of them (elements
+#: whose gradient is rounding noise, moved up to lr a step either way),
+#: all within MESH_ADAM_ABS; at eps 1e-5 every one
+MESH_TRAIN_STEPS = 3
+MESH_TRAIN_ROUND = dict(n=4, k=3, kind="ss", r=2)
+MESH_TRAIN_TOKENS = dict(global_batch=8, seq_len=128)
+MESH_TRAIN_LR = 1e-3
+MESH_TRAIN_REL = 1e-5
+MESH_ADAM_NOISE_SHARE = 1e-5
+MESH_ADAM_ABS = 5e-4
+
+
+def mesh_train_cases():
+    """{name: (config, AdamW eps)}: phi4-mini-3.8b's published widths cut
+    to 2 layers (1.43 B parameters) in bf16, and its smoke config in
+    float32 at eps 1e-8 and 1e-5."""
+    small = get_config("phi4-mini-3.8b").smoke()
+    return {"bf16_cut": (dataclasses.replace(get_config("phi4-mini-3.8b"),
+                                             n_layers=2), 1e-8),
+            "f32_smoke": (small, 1e-8), "f32_smoke_eps": (small, 1e-5)}
+
+
+@contextlib.contextmanager
+def _mesh_grad(ctx):
+    """A train step's context on ``ctx``'s mesh: the mesh context, plain
+    tensors taken as replicated, autograd on."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.sharding import mesh_context
+    with mesh_context(ctx), implicit_replication():
+        yield
+
+
+def _mesh_train(cfg, eps, ctx=None):
+    """``MESH_TRAIN_STEPS`` straggler AdamW steps of ``cfg`` on the card,
+    on ``ctx``'s mesh (the state placed by
+    ``shardings.distribute_train_state``, the slot-major batches by
+    ``batch_shardings``) or on one device: (losses, grad norms, seconds a
+    step, peak bytes; the float32 weights after the last step on the CPU,
+    None in bf16).  Delays keyed by the seed alone, never by rank."""
+    from repro_torch.sharding import is_dtensor
+    rc = RoundConfig(**MESH_TRAIN_ROUND)
+    opt = adamw(MESH_TRAIN_LR, eps=eps)
+    _free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    state = init_train_state(cfg, opt, seed=0, device=DEV)
+    step = make_straggler_train_step(cfg, opt, rc, ec2_cluster(
+        rc.n, spread=3.0, persistence=0.9, seed=0))
+    part = TaskPartition(n=rc.n, vocab=cfg.vocab_size, source="bigram",
+                         seed=0, **MESH_TRAIN_TOKENS)
+    if ctx is not None:
+        shardings.distribute_train_state(state, ctx)
+
+    def whole(t):
+        return t.full_tensor() if is_dtensor(t) else t
+
+    cluster, losses, norms, secs = None, [], [], []
+    for i in range(MESH_TRAIN_STEPS):
+        toks, labs = lm_task_batches(part, rc.to_matrix(), i, device=DEV)
+        if ctx is not None:
+            spec = shardings.batch_shardings({"t": toks}, ctx,
+                                             slot_major=True)["t"]
+            toks, labs = (shardings.distribute(t, spec, ctx)
+                          for t in (toks, labs))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with (contextlib.nullcontext() if ctx is None else _mesh_grad(ctx)):
+            state, m, cluster = step(state, toks, labs, 7, cluster)
+        losses.append(float(whole(m["loss"])))
+        norms.append(float(whole(m["grad_norm"])))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+    params = None
+    if cfg.param_dtype == "float32":
+        params = {k: whole(p).detach().cpu()
+                  for k, p in state.params.named_parameters()}
+    res = {"loss": losses, "grad_norm": norms, "step_s": secs,
+           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    del state, step
+    _free_cuda()
+    return res, params
+
+
+def _train_rank(rank, world, port):
+    """One of the two ranks of the mesh train leg: every case of
+    ``mesh_train_cases`` on the 1 x 2 mesh, the float32 weights against
+    the one-device run's (``train_ref.pt``), reported."""
+    ctx = _rank_group(rank, world, port)
+    ref = torch.load(MESH_DIR / "train_ref.pt")
+    res = {"rank": rank}
+    for name, (cfg, eps) in mesh_train_cases().items():
+        ops.reset_launch_counts()
+        r, params = _mesh_train(cfg, eps, ctx)
+        r["swa_launches"] = _swa_launches(ops.LAUNCHES)
+        r["greedy_launches"] = ops.LAUNCHES["greedy_assign"]
+        if params is not None:
+            want = ref[name]
+            diffs = torch.cat([(params[k] - want[k]).abs().flatten()
+                               for k in want])
+            r["param_max"] = max(float(w.abs().max())
+                                 for w in want.values())
+            r["param_diffs"] = torch.sort(
+                diffs, descending=True).values[:64].tolist()
+            r["n_params"] = diffs.numel()
+        res[name] = r
+    _rank_report(rank, res, "train.json")
+
+
+def mesh_train_leg(card):
+    """Three straggler AdamW train steps under a real mesh: each case of
+    ``mesh_train_cases`` on one device on the card, then on the 1 x 2 mesh
+    over two gloo ranks on ``cuda:0`` (``_train_rank``): bf16 losses and
+    grad norms within ``FAMILY_BF16_REL`` of one device's a step (the
+    rank's row-parallel sums in float32 after bf16 products, the
+    vocab-parallel head gathered); float32 within ``MESH_TRAIN_REL`` x the
+    step number, the weights as ``MESH_TRAIN_REL`` says.  No swa launch,
+    no greedy_assign launch (a static schedule)."""
+    cases = mesh_train_cases()
+    one, refs = {}, {}
+    for name, (cfg, eps) in cases.items():
+        one[name], params = _mesh_train(cfg, eps)
+        if params is not None:
+            refs[name] = params
+    torch.save(refs, MESH_DIR / "train_ref.pt")
+    del refs
+    t0 = time.perf_counter()
+    _spawn_ranks(_train_rank)
+    ranks_s = time.perf_counter() - t0
+    got = json.loads((MESH_DIR / "train.json").read_text())
+    for r in got:
+        for name, (cfg, eps) in cases.items():
+            g, w = r[name], one[name]
+            bf16 = cfg.param_dtype == "bfloat16"
+            for key in ("loss", "grad_norm"):
+                for i, (a, b) in enumerate(zip(g[key], w[key])):
+                    tol = FAMILY_BF16_REL if bf16 else MESH_TRAIN_REL * (i + 1)
+                    check(abs(a - b) <= tol * abs(b),
+                          f"mesh train {name} rank {r['rank']} step {i} "
+                          f"{key} {a} vs one device {b} (rel bound {tol})")
+            check(g["swa_launches"] == 0 and g["greedy_launches"] == 0,
+                  f"mesh train {name}: launches {g}")
+            if not bf16:
+                bound = MESH_TRAIN_REL * MESH_TRAIN_STEPS * g["param_max"]
+                over = [d for d in g["param_diffs"] if d > bound]
+                check(not over if eps > 1e-8 else
+                      len(over) <= MESH_ADAM_NOISE_SHARE * g["n_params"]
+                      and g["param_diffs"][0] <= MESH_ADAM_ABS,
+                      f"mesh train {name} rank {r['rank']}: weights past "
+                      f"{bound:.3e}: {over}")
+                g["over_bound"] = len(over)
+    for name, (cfg, eps) in cases.items():
+        w = one[name]
+        print(f"mesh train {name} ({cfg.name}, {cfg.n_layers} layers, "
+              f"{cfg.param_dtype}, AdamW eps {eps:g}), {MESH_TRAIN_STEPS} "
+              f"steps: one device loss {w['loss']}, grad norm "
+              f"{w['grad_norm']}, s a step {w['step_s']}, peak "
+              f"{w['peak_mem_bytes']} bytes; "
+              + "; ".join(
+                  f"rank {r['rank']} loss {r[name]['loss']}, grad norm "
+                  f"{r[name]['grad_norm']}, s a step {r[name]['step_s']}, "
+                  f"peak {r[name]['peak_mem_bytes']} bytes"
+                  + ("" if "param_diffs" not in r[name] else
+                     f", weights max diff {r[name]['param_diffs'][0]:.3e} "
+                     f"({r[name]['over_bound']} past the bound)")
+                  for r in got) + f" (card {card})")
+    print(f"mesh train ranks' processes {ranks_s:.2f} s")
+    return {"one_device": one, "ranks": got, "ranks_wall_s": ranks_s}
+
+
 def mesh_phase(card):
     """The mesh slice on the card, after the shapes phase: the mesh dry
     runs started in processes of their own (``_mesh_dry_start``), then the
     grouped-GQA legs (``grouped_leg``), the expert-parallel MoE and the
-    ring decode over two gloo ranks on the one card (``ranks_leg``), then
-    the dry runs' artifacts (``_mesh_dry_finish``)."""
+    ring decode over two gloo ranks on the one card (``ranks_leg``), three
+    train steps under the 1 x 2 mesh (``mesh_train_leg``), then the dry
+    runs' artifacts (``_mesh_dry_finish``)."""
     t_phase = time.perf_counter()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)
@@ -4240,6 +4572,7 @@ def mesh_phase(card):
     try:
         ops.reset_launch_counts()
         out = {"grouped": grouped_leg(card), **ranks_leg(card)}
+        out["train"] = mesh_train_leg(card)
         out["swa_launches"] = _swa_launches(ops.LAUNCHES)
         check(out["swa_launches"] == 0,
               f"mesh phase: swa launches {ops.LAUNCHES}")
@@ -4371,7 +4704,10 @@ def main():
             "train_jamba": hybrid["train"]["greedy_launches"],
             "shard_fig8": shard["fig8"]["greedy_launches"],
             "gate_fig8": gate["greedy_launches"],
-            "train_reissue": train["reissue"]["greedy_launches"]},
+            "train_reissue": train["reissue"]["greedy_launches"],
+            "mesh_train": sum(r[c]["greedy_launches"]
+                              for r in mesh["train"]["ranks"]
+                              for c in mesh_train_cases())},
         "need_row_launches_by_path": {
             "faults_grid_reissue":
                 faults["grid"]["reissue"]["greedy_need_launches"],
@@ -4442,7 +4778,13 @@ def main():
             **{f"long_decode_vs_full_{a}":
                shapes[a]["decode_vs_full_wgmma_launches"]
                for a in LONG_ARCHS},
-            "mesh_grouped_ep_ring": mesh["swa_launches"]},
+            "mesh_grouped_ep_ring": mesh["swa_launches"],
+            "dense_phi4_qwen2": sum(
+                wide[leg][kind]["swa_launches"] for leg in DENSE_LEGS
+                for kind in ("serve", "consistency")),
+            "mesh_train": sum(r[c]["swa_launches"]
+                              for r in mesh["train"]["ranks"]
+                              for c in mesh_train_cases())},
         "max_abs_err": t_row["max_abs_err"],
         "ms": t_row["ms"], "plain_ms": t_row["plain_ms"],
         "bound_ms": t_row["bound_ms"], "bound_by": t_row["bound_by"],

@@ -387,15 +387,9 @@ def build_train(cfg, shape: str, *, r: int = 1, k_frac: float = 1.0,
     ins = _inputs(cfg, shape, device, seed, n=n, r=r)
     meta = {"round": dict(n=n, r=r, k=k, schedule=schedule)}
     if ctx is not None:
-        from .shardings import batch_shardings, zero1_shardings
+        from .shardings import batch_shardings, distribute_train_state
         fallbacks: list = []
-        specs = _shard_params(state.params, ctx, fallbacks)
-        shapes = {k_: tuple(p.shape)
-                  for k_, p in state.params.named_parameters()}
-        ospecs = zero1_shardings(shapes, specs, ctx) if zero1 else specs
-        for m, tree in state.opt_state.items():
-            if isinstance(tree, dict):
-                state.opt_state[m] = _shard_dict(tree, ospecs, ctx)
+        distribute_train_state(state, ctx, zero1=zero1, fallbacks=fallbacks)
         ins = _shard_dict(ins, batch_shardings(ins, ctx, slot_major=True),
                           ctx)
         meta["fallbacks"] = [str(f) for f in fallbacks]

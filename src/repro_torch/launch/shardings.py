@@ -32,7 +32,8 @@ from ..sharding import MeshCtx, placements
 
 __all__ = ["param_spec", "params_shardings", "zero1_shardings",
            "batch_shardings", "cache_shardings", "cache_leaf_spec",
-           "reference_path", "distribute", "distribute_params"]
+           "reference_path", "distribute", "distribute_params",
+           "distribute_train_state"]
 
 
 def _div(dim: int, size: int) -> bool:
@@ -318,3 +319,24 @@ def distribute_params(module: torch.nn.Module, specs: Dict[str, tuple],
             distribute(p.detach(), specs[name], ctx),
             requires_grad=p.requires_grad))
     return module
+
+
+def distribute_train_state(state, ctx: MeshCtx, *, zero1: bool = False,
+                           fallbacks: Optional[List] = None
+                           ) -> Dict[str, tuple]:
+    """A ``train.TrainState`` placed on ``ctx``'s mesh, in place: its
+    weights by ``params_shardings`` (``distribute_params``), its optimizer
+    moments beside them, or with ``zero1`` also over the data axes
+    (``zero1_shardings``).  Returns the weights' specs."""
+    specs = params_shardings(state.params, ctx, fallbacks)
+    distribute_params(state.params, specs, ctx)
+    ospecs = specs
+    if zero1:
+        ospecs = zero1_shardings({k: tuple(p.shape) for k, p in
+                                  state.params.named_parameters()},
+                                 specs, ctx)
+    for m, tree in state.opt_state.items():
+        if isinstance(tree, dict):
+            state.opt_state[m] = {k: distribute(v, ospecs[k], ctx)
+                                  for k, v in tree.items()}
+    return specs

@@ -195,9 +195,12 @@ def main(argv=None) -> TrainResult:
     args = _parser().parse_args(argv)
     if args.mesh != "local":
         raise SystemExit(
-            f"--mesh {args.mesh}: the port trains on one device; meshes "
-            f"over several cards are ROADMAP.md queue 1, item 8 (its mesh "
-            f"sub-item)")
+            f"--mesh {args.mesh}: the reference builds its 256 / 512-card "
+            f"mesh here, which one card cannot hold; the CLI trains on one "
+            f"device (a mesh step runs through train.make_straggler_train_"
+            f"step under sharding.mesh_context, the state placed by "
+            f"launch.shardings.distribute_train_state; real multi-card "
+            f"runs are ROADMAP.md item 8.8 (c))")
     cfg = cli_config(args.arch, args.smoke)
     if cfg.frontend_seq or cfg.encoder_layers:
         # the reference's refusal (repro/launch/train.py:198-200)
@@ -213,8 +216,7 @@ def main(argv=None) -> TrainResult:
             raise SystemExit(
                 f"{cfg.name}: {need} bytes of weights, gradients and AdamW "
                 f"moments exceed the {have} bytes of one card (training "
-                f"over several cards is ROADMAP.md queue 1, item 8, its "
-                f"mesh sub-item)")
+                f"over several cards is ROADMAP.md item 8.8 (c))")
     if args.log_delays:
         # fail fast on an unwritable destination
         out_dir = os.path.dirname(os.path.abspath(args.log_delays))

@@ -156,44 +156,86 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
     reduced, its other placements kept: the all-reduce that ends a
     Megatron sublayer, taken once where the output joins the residual
     stream (GSPMD places it there in the reference), not once by each op
-    that reads the sum.  The backward is the same all-reduce of the
-    output's gradient: the residual stream's gradient is itself a pending
-    sum (a vocab-parallel head's), which DTensor would otherwise hand on
-    as one to the row-parallel product, where it gathers the weight and
-    multiplies at full size on every rank.  A bf16 or f16 CUDA tensor on
-    a gloo mesh is reduced by ``all_reduce`` (in float32, forward only);
-    a plain tensor is returned as it is."""
+    that reads the sum.  The backward reduces the output gradient's
+    pending sums the same way: the residual stream's gradient is itself a
+    pending sum (a vocab-parallel head's), which DTensor would otherwise
+    hand on as one to the row-parallel product, where it gathers the
+    weight and multiplies at full size on every rank.  A bf16 or f16 CUDA
+    tensor on a gloo mesh takes ``_ReduceHalf`` (float32 sums, both
+    ways); a plain tensor is returned as it is."""
     if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
         return x
     from torch.distributed.tensor import DTensor, Replicate
     mesh = x.device_mesh
     target = [Replicate() if p.is_partial() else p for p in x.placements]
     on = [i for i, p in enumerate(x.placements) if p.is_partial()]
-    if not (x.is_cuda and x.dtype in (torch.bfloat16, torch.float16)
-            and _gloo(mesh.get_group(on[0]))):
-        local = x.redistribute(mesh, target).to_local(grad_placements=target)
-    else:
-        local = x.to_local(grad_placements=target)
-        for i in on:
-            local = all_reduce(local, "sum", mesh.get_group(i))
+    if _half_on_gloo(x, mesh.get_group(on[0])):
+        return _ReduceHalf.apply(x)
+    local = x.redistribute(mesh, target).to_local(grad_placements=target)
     return DTensor.from_local(local, mesh, target, run_check=False,
                               shape=x.shape, stride=x.stride())
 
 
-def _gloo(group) -> bool:
+def _half_on_gloo(t: torch.Tensor, group) -> bool:
+    """A bf16 or f16 CUDA tensor on a gloo group: the card's multi-rank
+    legs run gloo (NCCL takes no two ranks on one card), whose
+    half-precision sums of CUDA tensors the port does not rely on."""
     import torch.distributed as dist
-    return dist.get_backend(group) == "gloo"
+    return (t.is_cuda and t.dtype in (torch.bfloat16, torch.float16)
+            and dist.get_backend(group) == "gloo")
+
+
+def _sum_pending(x):
+    """The DTensor ``x`` with every pending sum reduced by ``all_reduce``
+    on its local block (float32 for half on gloo), the other placements
+    kept; no autograd of its own."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = x.device_mesh
+    local = x.to_local()
+    for i, p in enumerate(x.placements):
+        if p.is_partial():
+            local = all_reduce(local, "sum", mesh.get_group(i))
+    target = [Replicate() if p.is_partial() else p for p in x.placements]
+    return DTensor.from_local(local, mesh, target, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+class _ReduceHalf(torch.autograd.Function):
+    """``reduce_partial`` of a half-precision DTensor on a gloo mesh: the
+    forward sums the pending sums in float32 (``_sum_pending``); the
+    backward sums the gradient's the same way and brings it to the
+    output's placements, what DTensor's ``from_local`` and
+    ``redistribute`` do for the float32 branch.  ``funcol.all_reduce``
+    alone is no such function: torch 2.11 gives it no gradient, and 2.13
+    gives it one that ``from_local``'s backward would then reduce a second
+    time."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = _sum_pending(x)
+        ctx.placements = out.placements
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if not is_dtensor(g):
+            return g
+        if any(p.is_partial() for p in g.placements):
+            g = _sum_pending(g)
+        if tuple(g.placements) != tuple(ctx.placements):
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
 
 
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     """The functional all-reduce (``op`` "sum" / "max") of ``t`` over
     ``group``, waited for.  A bf16 or f16 CUDA tensor on a gloo group is
-    reduced in float32 and cast back: the card's multi-rank legs run gloo
-    (NCCL takes no two ranks on one card), whose half-precision sums of
-    CUDA tensors the port does not rely on."""
+    reduced in float32 and cast back (``_half_on_gloo``).  The port
+    defines no gradient for it: its callers (the ring decode's softmax,
+    the expert-parallel MoE's sums) run without autograd, and
+    ``reduce_partial`` wraps it in ``_ReduceHalf``."""
     import torch.distributed._functional_collectives as funcol
-    half = (t.is_cuda and t.dtype in (torch.bfloat16, torch.float16)
-            and _gloo(group))
+    half = _half_on_gloo(t, group)
     out = funcol.wait_tensor(funcol.all_reduce(
         t.float() if half else t, op, group))
     return out.to(t.dtype) if half else out

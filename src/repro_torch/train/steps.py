@@ -44,7 +44,8 @@ from ..optim import Optimizer, clip_scale, global_norm
 from ..sharding import DATA, gather, shard
 
 __all__ = ["TrainState", "init_train_state", "lm_loss_per_seq", "lm_loss",
-           "make_train_step", "make_straggler_train_step", "make_serve_step"]
+           "make_train_step", "make_straggler_train_step", "make_serve_step",
+           "gumbel_scores", "SAMPLE_STREAM"]
 
 #: the global-norm clip of every train step's gradient (the reference's
 #: default, the only value its trainer and examples use)
@@ -279,15 +280,44 @@ def make_straggler_train_step(cfg: ModelConfig, opt: Optimizer,
     return step
 
 
-def make_serve_step(cfg: ModelConfig):
-    """One greedy decode step: (model, cache, tokens (B, 1)) -> (next (B, 1)
-    int32, cache, logits (B, V_pad) of the last position).  The JAX step
-    returns only the first two; the logits let a caller check them.  The
-    next token is the first maximum (``argmax``); under a mesh the
-    vocabulary is gathered for it first."""
-    def step(params, cache, tokens):
+#: the Philox stream of a sampled decode step's uniforms ("SAMP")
+SAMPLE_STREAM = 0x53414D50
+
+
+def gumbel_scores(logits: torch.Tensor, key) -> torch.Tensor:
+    """The Gumbel-max scores of a sampled decode step: ``logits`` (B, V)
+    in float32 plus ``-log(-log(u))``, ``u`` from ``rng.uniform`` under
+    the seed ``rng.round_seed(seed, step)`` of ``key = (seed, step)``,
+    trial id = the batch row, element index = the vocabulary index and a
+    stream of its own (``SAMPLE_STREAM``).  The argmax of a row is a draw
+    from its softmax.  ``uniform`` lies on [0, 1) in steps of 2**-24: a
+    0 is taken as 2**-25, the centre of its bin, so every score is finite.
+    The noise then lies in [-log(25 log 2), -log(-log(1 - 2**-24))] =
+    [-2.853, 16.636]: a token more than 19.5 below its row's maximum
+    logit is never drawn (the padded vocabulary's -1e9 tail among them).
+    The uniforms are the same bits on every device; the logs may differ
+    by an ulp."""
+    seed, step = (int(v) for v in key)
+    B, V = logits.shape
+    tids = torch.arange(B, dtype=torch.int64, device=logits.device)
+    u = rng.uniform(rng.round_seed(seed, step), tids, SAMPLE_STREAM, (V,))
+    u = torch.where(u > 0, u, torch.full_like(u, 2.0 ** -25))
+    return logits.float() - torch.log(-torch.log(u))
+
+
+def make_serve_step(cfg: ModelConfig, *, greedy: bool = True):
+    """One decode step: ``step(model, cache, tokens (B, 1), rng=None) ->
+    (next (B, 1) int32, cache, logits (B, V_pad) of the last position)``.
+    The JAX step returns only the first two; the logits let a caller
+    check them.  With ``greedy`` or no ``rng`` the next token is the first
+    maximum (``argmax``); otherwise ``rng`` is the key ``(seed, step)``
+    and the next token the Gumbel-max draw of ``gumbel_scores`` (the
+    reference draws ``jax.random.categorical``).  Under a mesh the
+    vocabulary is gathered first."""
+    def step(params, cache, tokens, rng=None):
         logits, _, cache = forward(params, cfg, tokens, cache=cache)
         last = gather(logits[:, -1], -1)
-        return last.argmax(dim=-1)[:, None].to(torch.int32), cache, last
+        scores = last if greedy or rng is None else gumbel_scores(last, rng)
+        return scores.argmax(dim=-1)[:, None].to(torch.int32), cache, last
 
     return step

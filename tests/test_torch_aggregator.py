@@ -27,6 +27,7 @@ from repro_torch.core import spec as tspec
 from torch_parity import (JaxTableProcess, TorchTableProcess,
                           assert_bit_equal, delay_tables, load_example,
                           rel_err, tie_exact_tables)
+from torch_parity import one_thread  # noqa: F401
 
 CONFIGS = [dict(n=6, k=4, kind="cs", r=2),
            dict(n=6, k=6, kind="ss", r=3, messages=2),

@@ -13,6 +13,7 @@ from benchmarks import (fig3_delays as j3, fig5_ec2 as j5,
 from benchmarks_torch import common as tcommon
 from benchmarks_torch import (fig3_delays as t3, fig5_ec2 as t5,
                               fig7_vs_target as t7, table1_e2e as tt1)
+from torch_parity import one_thread  # noqa: F401
 
 TRIALS = 300
 PAIRS = {

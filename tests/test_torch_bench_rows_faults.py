@@ -20,6 +20,7 @@ from benchmarks_torch import (fig10_load_rebalance as t10,
                               fig11_trace_replay as t11, fig12_faults as t12)
 from repro.core import trace as jtrace
 from repro_torch.core import trace as ttrace
+from torch_parity import one_thread  # noqa: F401
 
 #: ms per round of each scheme on a clean run
 CLEAN = {"cs": 0.62, "ss": 0.61, "adapt": 0.57, "rebal": 0.55, "lb": 0.54}

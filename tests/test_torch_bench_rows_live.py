@@ -18,6 +18,7 @@ from benchmarks_torch import common as tcommon
 from benchmarks_torch import fig13_live as t13
 from repro.core import trace as jtrace
 from repro_torch.core import trace as ttrace
+from torch_parity import one_thread  # noqa: F401
 
 #: the fake cluster's per-round completion times
 PER_ROUND = np.linspace(5e-4, 9.75e-4, j13.ROUNDS)

@@ -6,6 +6,7 @@ from benchmarks import common as jcommon
 from benchmarks import fig4_vs_load as j4, fig9_multimessage as j9
 from benchmarks_torch import common as tcommon
 from benchmarks_torch import fig4_vs_load as t4, fig9_multimessage as t9
+from torch_parity import one_thread  # noqa: F401
 
 
 def _keys(rows):

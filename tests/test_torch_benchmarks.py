@@ -30,6 +30,7 @@ from repro_torch.core import (completion_samples, cyclic_to_matrix,
                               scenario1, staircase_to_matrix, to_spec)
 
 from torch_parity import REPO
+from torch_parity import one_thread  # noqa: F401
 
 SCHEMES = ["cs", "ss", "ra", "pc", "pcmm", "lb"]
 

@@ -16,6 +16,7 @@ from repro_torch.core import coded as tc
 from repro_torch.core import delays as td
 
 from torch_parity import np_of, rel_err, z_scores
+from torch_parity import one_thread  # noqa: F401
 
 SIZES = [(6, 2, 20, 8), (5, 3, 12, 5), (4, 4, 9, 3)]
 

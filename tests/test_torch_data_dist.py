@@ -26,6 +26,7 @@ import torch
 
 from repro.data import pipeline as jp
 from repro_torch.data import pipeline as tp
+from torch_parity import one_thread  # noqa: F401
 
 Z = 5.0
 V_UNI, SEQ_UNI, TASKS, BATCH_UNI = 50, 64, 64, 50

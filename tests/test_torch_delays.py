@@ -17,6 +17,7 @@ from repro_torch import convert
 from repro_torch.core import delays as td
 
 from torch_parity import np_of, quantile_z, z_scores
+from torch_parity import one_thread  # noqa: F401
 
 TRIALS, N, R = 20000, 6, 2
 

@@ -32,6 +32,7 @@ from repro_torch.launch import serve
 from repro_torch.models import init_cache, init_params
 
 from torch_parity import REPO, assert_bit_equal
+from torch_parity import one_thread  # noqa: F401
 
 ENTRY_POINTS = {
     "resolve_device": lambda: resolve_device(),

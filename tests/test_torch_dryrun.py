@@ -58,6 +58,7 @@ from repro_torch.launch import dryrun, perf_report, roofline
 from repro_torch.models import layer_specs
 from repro_torch.models import model as tmodel
 from repro_torch.train import steps as train_steps
+from torch_parity import one_thread  # noqa: F401
 
 #: small stand-ins of the four shapes: a train round of n = 16 workers
 #: (b = 1), a prefill and a decode past the smoke configs' window of 32

@@ -42,6 +42,7 @@ from repro_torch.core import montecarlo as tm
 from repro_torch.core import trace as tt
 
 from torch_parity import assert_bit_equal, np_of, tie_exact_tables, z_scores
+from torch_parity import one_thread  # noqa: F401
 
 N, R, CAP, ROUNDS, TRIALS = 8, 3, 4, 6, 64
 LOADS = [3, 1, 2, 3, 1, 3, 2, 2]

@@ -16,6 +16,7 @@ from benchmarks_torch import common, mc_engine
 from benchmarks_torch import regression_gate as gate
 
 from torch_parity import REPO
+from torch_parity import one_thread  # noqa: F401
 
 BASE_PATH = gate.DEFAULT_BASELINE
 with open(BASE_PATH) as _f:

@@ -20,6 +20,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 
 from torch_parity import rel_err
+from torch_parity import one_thread  # noqa: F401
 
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}
 DTYPES = [torch.float32, torch.bfloat16]

@@ -25,6 +25,7 @@ from repro_torch.core import scheduling as ts
 from repro_torch.kernels import ops, ref
 
 from torch_parity import assert_bit_equal, np_of
+from torch_parity import one_thread  # noqa: F401
 
 MATRICES = {
     "cs8x3": lambda: js.cyclic_to_matrix(8, 3),

@@ -31,6 +31,7 @@ from repro_torch.core import (cyclic_to_matrix, random_assignment_to_matrix,
                               staircase_to_matrix)
 from repro_torch.core.scheduling import _greedy_matrices
 from repro_torch.kernels import ref
+from torch_parity import one_thread  # noqa: F401
 
 BIG = torch.finfo(torch.float32).max
 KEY_FLT_MAX = 0xff7fffff

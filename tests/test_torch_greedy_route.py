@@ -9,6 +9,7 @@ import re
 import pytest
 
 from repro_torch.kernels import build, ops
+from torch_parity import one_thread  # noqa: F401
 
 SRC = (build.CSRC / "greedy_assign.cu").read_text()
 

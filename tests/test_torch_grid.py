@@ -36,6 +36,7 @@ from repro_torch.core import trace as tt
 from repro_torch.launch import grid as grid_cli
 
 from torch_parity import z_scores
+from torch_parity import one_thread  # noqa: F401
 
 MODEL = td.scenario1()
 CPU = "cpu"

@@ -32,20 +32,11 @@ from repro_torch import convert
 from repro_torch.models import layers as TL
 from repro_torch.models import model as tmodel
 from torch_lm_parity import DECODE_ATOL, LOGITS_ATOL, tcfg
+from torch_parity import one_thread  # noqa: F401
 
 ARCH = "mistral-nemo-12b"
 JFWD = jax.jit(j_forward, static_argnums=1)
 B, T, PREFILL, SMAX = 2, 9, 5, 16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The port's small ops on one CPU thread: on a shared machine they
-    take many times as long on eight."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.mark.parametrize("T_new,pos", [(1, 0), (1, 10), (3, 6)])

@@ -12,6 +12,7 @@ from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
 
 from torch_parity import np_of, rel_err
+from torch_parity import one_thread  # noqa: F401
 
 SHAPES = [(64, 32), (128, 128), (300, 200), (100, 300), (512, 64), (37, 53)]
 TOL = {"float32": 1e-5, "bfloat16": 3e-2}

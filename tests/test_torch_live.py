@@ -39,6 +39,7 @@ from repro_torch.core import trace as ttrace
 from repro_torch.live import master as tmaster
 
 from test_torch_greedy import _exact_argmins
+from torch_parity import one_thread  # noqa: F401
 
 ROUNDS = 5
 LIMIT_S = 60.0

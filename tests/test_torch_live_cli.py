@@ -31,6 +31,7 @@ from repro_torch.launch import cluster as tcluster
 from repro_torch.launch import live as tcli
 
 from torch_parity import REPO
+from torch_parity import one_thread  # noqa: F401
 
 LIMIT_S = 60.0
 

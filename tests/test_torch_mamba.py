@@ -49,6 +49,7 @@ from torch_lm_parity import (DECODE_ATOL, LOGITS_ATOL,
                              assert_full_size_like_the_reference, lm_pair,
                              port_model, straggler_step_parity, tcfg)
 from torch_parity import rel_err
+from torch_parity import one_thread  # noqa: F401
 
 ARCH = "jamba-v0.1-52b"
 #: jamba's smoke config with the reference CLIs' hybrid cut: layer 0

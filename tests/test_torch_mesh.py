@@ -29,6 +29,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.sharding import (BOTH, DATA, MODEL, MeshCtx, axis_size,
                                   mesh_context, placements, shard)
 from torch_lm_parity import tcfg
+from torch_parity import one_thread  # noqa: F401
 
 MESHES = {"16x16": ((16, 16), ("data", "model"), ("data",)),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model"),

@@ -39,6 +39,7 @@ from torch_lm_parity import (DECODE_ATOL, LOGITS_ATOL,
                              assert_full_size_like_the_reference, lm_pair,
                              straggler_step_parity, tcfg)
 from torch_parity import rel_err
+from torch_parity import one_thread  # noqa: F401
 
 ARCH = "deepseek-v3-671b"
 JCFG = jconfigs.get_config(ARCH).smoke()

@@ -29,6 +29,8 @@ from repro_torch.models import config as tcfgmod
 from repro_torch.models import layers as TL
 from repro_torch.models import model as tmodel
 
+from torch_parity import one_thread  # noqa: F401
+
 F32 = dict(param_dtype="float32", dtype="float32", remat=False)
 
 

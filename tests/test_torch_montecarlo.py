@@ -16,6 +16,7 @@ from repro_torch.core import delays as td
 from repro_torch.core import montecarlo as tm
 
 from torch_parity import assert_bit_equal, np_of, z_scores
+from torch_parity import one_thread  # noqa: F401
 
 N, R = 8, 4
 LOADS = [4, 3, 2, 1, 4, 3, 2, 1]

@@ -14,6 +14,7 @@ import torch
 from repro import optim as jopt
 from repro_torch import optim as topt
 from torch_parity import np_of, rel_err
+from torch_parity import one_thread  # noqa: F401
 
 SHAPES = {"embed": (7, 5), "blocks.0.w": (5, 3), "norm": (5,), "b": (1,)}
 

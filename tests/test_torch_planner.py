@@ -40,6 +40,7 @@ from repro_torch.core import scheduling as ts
 from repro_torch.core import theory as tth
 from repro_torch.core.spec import RoundConfig
 from repro_torch.launch import plan as plan_cli
+from torch_parity import one_thread  # noqa: F401
 
 MODEL = td.scenario1()
 N = 8

@@ -27,6 +27,7 @@ from repro_torch.core import scheduling as ts
 from repro_torch.core import trace as tt
 
 from torch_parity import assert_bit_equal, np_of, tie_exact_tables
+from torch_parity import one_thread  # noqa: F401
 
 N, CAP = 8, 4
 

@@ -11,6 +11,7 @@ from repro_torch.core import scheduling as ts
 from repro_torch.core.delays import (BimodalStragglerDelays,
                                      ShiftedExponentialDelays,
                                      TruncatedGaussianDelays, scenario1)
+from torch_parity import one_thread  # noqa: F401
 
 M32 = np.uint64(0xFFFFFFFF)
 

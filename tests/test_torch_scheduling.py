@@ -11,6 +11,7 @@ from repro_torch.core import scheduling as ts
 from repro_torch.core import spec as tspec
 
 from torch_parity import assert_bit_equal
+from torch_parity import one_thread  # noqa: F401
 
 DENSE = [(n, r) for n in (5, 8, 16) for r in (1, 3, n)]
 RAGGED = [(6, [3, 1, 2, 3, 1, 2]), (8, [4, 4, 1, 2, 3, 4, 2, 1]),

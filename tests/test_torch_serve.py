@@ -26,6 +26,7 @@ from repro_torch.models import forward, init_cache, init_params
 from repro_torch.train import make_serve_step
 
 from torch_parity import REPO
+from torch_parity import one_thread  # noqa: F401
 
 GAP = 2e-4     # the logits' parity tolerance (tests/test_torch_models.py)
 

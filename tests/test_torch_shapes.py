@@ -27,6 +27,7 @@ from repro_torch import convert
 from repro_torch.launch import dryrun
 from repro_torch.models import config as tcfgmod
 from repro_torch.models import model as tmodel
+from torch_parity import one_thread  # noqa: F401
 
 COMBOS = [(a, s) for a in jconfigs.ARCH_IDS for s in jconfigs.SHAPES]
 LOGITS_ATOL = 2e-4

@@ -19,6 +19,7 @@ from repro_torch.core.delays import scenario1
 from repro_torch.core.scheduling import cyclic_to_matrix, staircase_to_matrix
 
 from torch_parity import assert_bit_equal
+from torch_parity import one_thread  # noqa: F401
 
 N = 8
 C_CYC = cyclic_to_matrix(N, 3)

@@ -20,6 +20,7 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.models.layers import repeat_kv as jax_repeat_kv
 from repro_torch.kernels import ops, ref
+from torch_parity import one_thread  # noqa: F401
 
 JAX_SHAPES = [(128, 2, 64, 32), (200, 1, 32, 64), (256, 2, 128, 100),
               (64, 4, 16, 8), (96, 1, 64, 96), (130, 2, 32, 17)]

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from torch_parity import one_thread  # noqa: F401
 
 # the card tests' float32 shapes (B, T, H, K, dh, W), and gemma3-4b's prefill
 PLAN_SHAPES = [

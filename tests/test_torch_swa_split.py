@@ -18,6 +18,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import ref
+from torch_parity import one_thread  # noqa: F401
 
 JAX_SHAPES = [(128, 2, 64, 32), (200, 1, 32, 64), (256, 2, 128, 100),
               (64, 4, 16, 8), (96, 1, 64, 96), (130, 2, 32, 17)]

@@ -25,6 +25,7 @@ from repro_torch.core import delays as td
 from repro_torch.core import theory as tt
 
 from torch_parity import assert_bit_equal, np_of, z_scores
+from torch_parity import one_thread  # noqa: F401
 
 CPU = "cpu"
 

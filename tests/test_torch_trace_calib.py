@@ -16,6 +16,7 @@ import pytest
 
 from repro.core import trace as jt
 from repro_torch.core import trace as tt
+from torch_parity import one_thread  # noqa: F401
 
 N, R, ROUNDS, TRIALS = 6, 3, 16, 24
 FIT_TRIALS = 2048

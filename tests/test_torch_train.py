@@ -64,6 +64,7 @@ from repro_torch.train import (TrainState, init_train_state, lm_loss,
                                lm_loss_per_seq, make_straggler_train_step,
                                make_train_step)
 from torch_parity import rel_err
+from torch_parity import one_thread  # noqa: F401
 
 N, R, K, B, S = 4, 2, 3, 2, 12
 ROUNDS = 3

@@ -25,6 +25,7 @@ from repro_torch.core import RoundConfig, load_trace
 from repro_torch.configs import get_config
 from repro_torch.launch import train as ttrain
 from torch_parity import REPO
+from torch_parity import one_thread  # noqa: F401
 
 SMOKE = ["--arch", "gemma3-4b", "--smoke", "--device", "cpu", "--seq", "12",
          "--batch", "8"]
@@ -124,7 +125,7 @@ def test_resume_equals_a_straight_run(capsys, tmp_path):
 
 
 def test_mesh_other_than_local_is_refused(capsys):
-    with pytest.raises(SystemExit, match="ROADMAP.md queue 1, item 8"):
+    with pytest.raises(SystemExit, match=r"ROADMAP.md item 8.8 \(c\)"):
         _run(["--mesh", "pod"], capsys)
 
 

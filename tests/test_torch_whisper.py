@@ -45,6 +45,7 @@ from repro_torch.models import model as tmodel
 from repro_torch.train import TrainState, make_straggler_train_step
 from test_torch_models import _assert_init_like_the_reference
 from torch_parity import rel_err
+from torch_parity import one_thread  # noqa: F401
 
 JCFG = jconfigs.get_config("whisper-base").smoke()
 TCFG = tcfgmod.ModelConfig(**dataclasses.asdict(JCFG))

@@ -1,8 +1,10 @@
 """Shared helpers for the port's parity tests (``tests/test_torch_*.py``).
 
 Inputs are made with numpy from fixed seeds and handed to both packages;
-results come back as numpy arrays.  Nothing here changes global state: no
-JAX config updates, no global seeding, no thread settings.
+results come back as numpy arrays.  Nothing here changes global state on
+import: no JAX config updates, no global seeding, no thread settings.
+The ``one_thread`` fixture, imported into a test module, runs that
+module's torch ops on one CPU thread and restores the count after it.
 """
 from __future__ import annotations
 
@@ -12,12 +14,24 @@ from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro.core.cluster import DelayProcess as JaxDelayProcess
 from repro_torch.core.cluster import DelayProcess as TorchDelayProcess
 
 REPO = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """The port's small ops on one CPU thread: under the suite's parallel
+    workers, eight threads each oversubscribe a shared machine and take
+    many times as long."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def np_of(x) -> np.ndarray:
