@@ -71,8 +71,8 @@ Last, the wide phase: the MoE, MLA and vision-stub families at published
 widths, bf16 (``wide_phase``): deepseek-v3 cut to 4 layers (3 dense, 1 MoE
 of 256 experts) on the naive and the absorbed MLA path and
 llama4-maverick cut to 2 (1 dense, 1 MoE of 128 experts) served at
-gemma3-4b's shape through ``serve.run``, llava-next-34b served at full
-size (60 layers) through the serve CLI; decode held to the full forward
+gemma3-4b's shape through ``serve.run``, llava-next-34b cut to 20 of its
+60 layers at batch 1; decode held to the full forward
 (llava with 1 024 patch embeddings; the MoE families at capacity_factor
 E/K, where no call drops a pair; deepseek's absorbed decode to its naive
 one), the smoke configs on the card to the CPU in float32 at the default
@@ -115,15 +115,18 @@ held to its full forward and to the other, the grouped smoke config card
 against CPU and its step's FLOPs equal to the dry run's; one deepseek-v3
 MoE layer at published widths expert-parallel over two gloo ranks on the
 one card (each holding its 128 experts) against the one-device layer on
-pinned routing, and a ring decode over a 32 768-slot cache split by
+pinned routing, forward and backward (the input's, the router's and the
+experts' gradients), and a ring decode over a 32 768-slot cache split by
 sequence over the two ranks against the one-device grouped attention
 (outputs within the bf16 bound, cache blocks bit-equal); then three
 straggler AdamW train steps under the 1 x 2 mesh over the two ranks
 (weights and moments placed by ``shardings.distribute_train_state``):
-phi4-mini-3.8b's published widths cut to 2 layers in bf16, and its smoke
-config in float32, each against the same steps on one device; beside
-them, the mesh dry runs on ``meta`` (16x16 and 2x16x16: per-device FLOPs,
-bytes, peak and collective bytes by kind).
+phi4-mini-3.8b's published widths cut to 2 layers in bf16, its smoke
+config in float32, deepseek-v3's smoke config in float32 (its step-1
+gradients held) and jamba's CLIs' cut at published widths in bf16, each
+against the same steps on one device; beside them, the mesh dry runs on
+``meta`` (16x16 and 2x16x16, deepseek-v3's train round among them:
+per-device FLOPs, bytes, peak and collective bytes by kind).
 
 Run from the repository root on a machine with a card:
 
@@ -2839,22 +2842,23 @@ def families_phase():
 #: layers and 1 MoE layer (MLA throughout; 256 routed experts top-8, 1
 #: shared), llama4-maverick to 1 dense and 1 MoE layer (128 experts top-1,
 #: 1 shared), both at gemma3-4b's serve shape through ``serve.run``, text
-#: only (llama4's config has frontend_seq 0).  llava-next-34b runs at full
-#: size (60 layers) through the serve CLI at batch 1: at batch 2 its 68.8
-#: GB of weights leave too little of the card
+#: only (llama4's config has frontend_seq 0).  llava-next-34b runs at
+#: batch 1 cut to 20 of its 60 layers (12.1 B parameters): in full, its
+#: 68.8 GB of weights took 90 s of the smoke's time limit (serve and
+#: consistency), and at batch 2 they leave too little of the card
 WIDE_CUT = {"deepseek-v3": ("deepseek-v3-671b", dict(n_layers=4)),
             "deepseek-v3-absorbed": ("deepseek-v3-671b",
                                      dict(n_layers=4, mla_absorb=True)),
             "llama4-maverick": ("llama4-maverick-400b-a17b",
                                 dict(n_layers=2)),
-            "llava-next-34b": ("llava-next-34b", {}),
+            "llava-next-34b": ("llava-next-34b", dict(n_layers=20)),
             "phi4-mini": ("phi4-mini-3.8b", {}),
             "qwen2-72b": ("qwen2-72b", dict(n_layers=8))}
 #: (layers, encoder layers, parameters) of each leg
 WIDE_SIZE = {"deepseek-v3": (4, 0, 15_111_101_440),
              "deepseek-v3-absorbed": (4, 0, 15_111_101_440),
              "llama4-maverick": (2, 0, 18_562_447_360),
-             "llava-next-34b": (60, 0, 34_396_264_448),
+             "llava-next-34b": (20, 0, 12_081_993_728),
              "phi4-mini": (32, 0, 4_451_404_800),
              "qwen2-72b": (8, 0, 9_512_902_656)}
 WIDE_SERVE = {"deepseek-v3": SERVE, "deepseek-v3-absorbed": SERVE,
@@ -2891,7 +2895,8 @@ DEEPSEEK_TRAIN_PARAMS = 4_539_735_040
 #: weights, not FAMILY_BF16_REL, and whose float32-activation decode is
 #: held to that forward within FAMILY_F32_REL: llava's 60 layers put its
 #: own bf16 error at about FAMILY_BF16_REL (PERF.md section 6; whisper
-#: and rwkv6, for which it was set, have 6 and 24)
+#: and rwkv6, for which it was set, have 6 and 24); the leg serves 20 of
+#: them, to keep the smoke inside its time limit
 WIDE_TRUTH_HELD = ("llava-next-34b",)
 
 
@@ -2959,7 +2964,9 @@ class RoutePin(RouteTape):
         self.flipped, self.routed = 0, 0
 
     def _route(self, x2d, router_w, cfg):
-        own = self._own(x2d, router_w, cfg)
+        return self._pin(self._own(x2d, router_w, cfg), cfg)
+
+    def _pin(self, own, cfg):
         check(bool(self.pins), "routing pins: more calls than pins")
         top_w, top_i = self.pins.pop(0)
         check(top_i.shape == own.top_i.shape,
@@ -2978,6 +2985,20 @@ class RoutePin(RouteTape):
         super().__exit__(*exc)
         if exc[0] is None and self.pins:
             check(False, f"routing pins: {len(self.pins)} left over")
+
+
+class RouteGradPin(RoutePin):
+    """``RoutePin`` for a backward: a token whose own top-K experts are the
+    pin's keeps its own gate weights (put in the pin's order), live under
+    autograd, so the router has its gradient; a flipped token takes the
+    pin's weights."""
+
+    def _pin(self, own, cfg):
+        rt = super()._pin(own, cfg)
+        match = rt.top_i[:, :, None] == own.top_i[:, None, :]   # (T, K, K)
+        live = own.top_w.gather(1, match.int().argmax(-1))
+        same = match.any(-1).all(-1, keepdim=True)
+        return rt._replace(top_w=torch.where(same, live, rt.top_w))
 
 
 def _f32_truth(model, cfg, toks, steps, ext, full, dec, route=None):
@@ -3000,7 +3021,7 @@ def _f32_truth(model, cfg, toks, steps, ext, full, dec, route=None):
 @torch.inference_mode()
 def wide_consistency(family):
     """(1) ``family`` at published widths in bf16 on the card (deepseek-v3
-    and llama4-maverick at their serve cuts, llava-next-34b at full size),
+    and llama4-maverick and llava-next-34b at their serve cuts),
     at capacity_factor E/K (``no_drop_cfg``): the full forward against a
     16-token prefill plus 8 decode steps at the same positions, within
     ``FAMILY_BF16_REL``; llava prefills its 1 024 patch embeddings (its
@@ -3252,8 +3273,8 @@ def _warm_wide():
 
 def wide_phase():
     """deepseek-v3 (naive and absorbed MLA), llama4-maverick and
-    qwen2-72b at published widths with their depth cut, llava-next-34b and
-    phi4-mini-3.8b at full size, after the families phase has freed
+    qwen2-72b and llava-next-34b at published widths with their depth
+    cut, phi4-mini-3.8b at full size, after the families phase has freed
     whisper and rwkv6: serving
     (no warm-up at full size: ``_warm_wide`` ran the same code at the smoke
     widths, and each draw of the weights costs seconds), consistency
@@ -3846,6 +3867,11 @@ MESH_TIMED = 3
 #: ranks on the one card
 MESH_EP_TOKENS = (2, 2048)
 MESH_EP_SEED = 4
+#: the leg's backward: the float32 output cotangent's seed, and how many
+#: experts of each rank have their whole gradients held (those with the
+#: largest one-device gradient norms; every expert's three norms are held)
+MESH_EP_COT_SEED = 6
+MESH_EP_WHOLE = 2
 #: one attention layer at mistral-nemo's widths (32 heads, 8 KV heads, dh
 #: 128) decoding 32 steps against a 32 768-slot cache split over two ranks
 MESH_RING = dict(batch=2, cache=32768, steps=32)
@@ -3857,7 +3883,8 @@ MESH_DRY = [("mistral-nemo-12b", "decode_32k", "", "16x16"),
             ("mistral-nemo-12b", "decode_32k", "grouped", "16x16"),
             ("mistral-nemo-12b", "decode_32k", "ringdecode", "16x16"),
             ("deepseek-v3-671b", "decode_32k", "", "16x16"),
-            ("phi4-mini-3.8b", "train_4k", "zero1", "2x16x16")]
+            ("phi4-mini-3.8b", "train_4k", "zero1", "2x16x16"),
+            ("deepseek-v3-671b", "train_4k", "", "16x16")]
 
 
 def _free_port():
@@ -4196,8 +4223,115 @@ def _ep_on_rank(ctx, rank, world):
            "aux": float(aux), "aux_want": world * float(ref["aux"]),
            "flipped": pin.flipped, "routed": pin.routed, "seconds": secs,
            "peak_mem_bytes": torch.cuda.max_memory_allocated()}
-    del moe, out, x, want
+    del out, x, want
+    res["grad"] = _ep_backward_rank(moe, cfg, ctx, rank, world, ref)
+    del moe
     _free_cuda()
+    return res
+
+
+def _ep_objective(out, aux, cfg, aux_scale):
+    """The backward's objective: sum(out x the seeded float32 cotangent)
+    + router_aux_coef x aux_scale x aux (the mesh's aux is model_size x
+    one device's, so one device scales its own by the rank count)."""
+    B, T = MESH_EP_TOKENS
+    gen = torch.Generator(device=DEV).manual_seed(MESH_EP_COT_SEED)
+    cot = torch.randn((B, T, cfg.d_model), generator=gen, device=DEV)
+    return (out.float() * cot).sum() + cfg.router_aux_coef * aux_scale * aux
+
+
+def _expert_norms(*stacks):
+    """(E, 3): each expert's gradient norm in each stack, in float32, 16
+    experts at a time."""
+    return torch.stack([torch.cat([
+        t[i:i + 16].float().flatten(1).norm(dim=1)
+        for i in range(0, t.shape[0], 16)]) for t in stacks], 1)
+
+
+def _ep_backward_one(moe, cfg, x, pins):
+    """The leg's backward on one device: the gradients of the input, the
+    router and the expert stacks (``RouteGradPin`` on the forward's
+    routing).  Returns (what the ranks are held to: the router's and the
+    input's gradients, every expert's three norms, the whole gradients
+    of ``MESH_EP_WHOLE`` experts a rank; seconds, peak bytes)."""
+    leaves = [moe.router, moe.w_gate, moe.w_up, moe.w_down]
+    for t in leaves:
+        t.requires_grad_(True)
+    xg = x.detach().requires_grad_()
+    _free_cuda()
+    t0 = time.perf_counter()
+    with RouteGradPin(pins):
+        out, aux = model_layers.moe_apply(moe, cfg, xg)
+        g = torch.autograd.grad(_ep_objective(out, aux, cfg, MESH_RANKS),
+                                [xg] + leaves)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del out, aux
+    gx, gr, gg, gu, gd = g
+    norms = _expert_norms(gg, gu, gd)
+    n_local = cfg.n_experts // MESH_RANKS
+    whole = {}
+    for r in range(MESH_RANKS):
+        idx = (norms[r * n_local:(r + 1) * n_local].sum(1).topk(
+            MESH_EP_WHOLE).indices + r * n_local).sort().values
+        whole[r] = {"experts": idx.tolist(),
+                    "stacks": [t[idx].cpu() for t in (gg, gu, gd)]}
+    ref = {"x": gx.cpu(), "router": gr.cpu(), "norms": norms.cpu(),
+           "whole": whole}
+    del g, gx, gr, gg, gu, gd
+    return ref, secs, peak
+
+
+def _ep_backward_rank(moe, cfg, ctx, rank, world, ref):
+    """The leg's backward on one rank: its experts', the router's and the
+    input's gradients under the mesh (the router's and the input's
+    pending sums over the model axis reduced when read), against the
+    one-device backward (``ep_grad_ref.pt``): the router and the input
+    within ``FAMILY_BF16_REL`` of their largest, each local expert's
+    three norms within it of the one-device norm (0 where that is 0), the
+    held experts' whole gradients within it of their largest."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.sharding import mesh_context
+    want = torch.load(MESH_DIR / "ep_grad_ref.pt")
+    n_local = cfg.n_experts // world
+    leaves = [moe.router, moe.w_gate, moe.w_up, moe.w_down]
+    for t in leaves:
+        t.requires_grad_(True)
+    xg = DTensor.from_local(ref["x"].to(DEV), ctx.mesh, [Replicate()] * 2,
+                            run_check=False).requires_grad_()
+    pins = [(w.to(DEV), i.to(DEV)) for w, i in ref["pins"]]
+    _free_cuda()
+    t0 = time.perf_counter()
+    with RouteGradPin(pins) as pin, mesh_context(ctx), \
+            implicit_replication():
+        out, aux = model_layers.moe_apply(moe, cfg, xg)
+        g = torch.autograd.grad(_ep_objective(out, aux, cfg, 1),
+                                [xg] + leaves)
+        gx, gr = g[0].full_tensor(), g[1].full_tensor()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    del out, aux
+    gg, gu, gd = (t.to_local() for t in g[2:])
+    norms = _expert_norms(gg, gu, gd)
+    w_norms = want["norms"][rank * n_local:(rank + 1) * n_local].to(DEV)
+    held = want["whole"][rank]
+    local = torch.tensor(held["experts"], device=DEV) - rank * n_local
+    res = {"router_rel": _rel_gap(gr, want["router"].to(DEV)),
+           "x_rel": _rel_gap(gx.float(), want["x"].to(DEV).float()),
+           "norm_rel": float(((norms - w_norms).abs()
+                              / w_norms.clamp_min(1e-30)).max()),
+           "norm_zero_ok": bool((norms[w_norms == 0] == 0).all()),
+           "experts_with_tokens": int((w_norms.sum(1) > 0).sum()),
+           "whole_experts": held["experts"],
+           "whole_rel": [_rel_gap(t[local].float(), w.to(DEV).float())
+                         for t, w in zip((gg, gu, gd), held["stacks"])],
+           "flipped": pin.flipped, "seconds": secs, "peak_mem_bytes": peak,
+           "grad_bytes": sum(t.numel() * t.element_size()
+                             for t in (gg, gu, gd))}
+    del g, gx, gr, gg, gu, gd
     return res
 
 
@@ -4211,8 +4345,12 @@ def ranks_leg(card):
     (each rank sums its experts' share over K in bf16, the ranks' sums are
     added in float32), the aux equal to 2 x the one-device aux within rel
     1e-6 (the reference's sum over every axis of each rank's whole
-    estimate, over the data size 1).  Then the ring decode
-    (``_ring_on_rank``, ``ring_check``)."""
+    estimate, over the data size 1).  Its backward
+    (``_ep_backward_one`` on one device, then ``_ep_backward_rank``):
+    the one device holds the 22.5 GB of bf16 stacks and their gradients,
+    about 45 GB, and exits the leg before the ranks start; each rank
+    holds its half of both.  Then the ring decode (``_ring_on_rank``,
+    ``ring_check``)."""
     cfg = _ep_cfg()
     _free_cuda()
     moe = model_layers.init_weights_(model_layers.MoE(cfg, device=DEV),
@@ -4234,7 +4372,12 @@ def ranks_leg(card):
     torch.save({"x": x.cpu(), "out": out.cpu(), "aux": aux.cpu(),
                 "pins": [(c.top_w.cpu(), c.top_i.cpu())
                          for c in tape.calls]}, MESH_DIR / "ep_ref.pt")
-    del moe, out, x
+    del out
+    grad_ref, grad_s, grad_peak = _ep_backward_one(   # no inference tensor
+        moe, cfg, x, [(c.top_w.clone(), c.top_i.clone())
+                      for c in tape.calls])
+    torch.save(grad_ref, MESH_DIR / "ep_grad_ref.pt")
+    del moe, x, tape, grad_ref
     _free_cuda()
     t0 = time.perf_counter()
     _spawn_ranks(_mesh_rank)
@@ -4247,9 +4390,15 @@ def ranks_leg(card):
               and r["flipped"] == 0 and r["local_experts"] == 128
               and r["local_expert_bytes"] * 2 == expert_bytes,
               f"expert-parallel MoE rank {r['rank']}: {r}")
+        g = r["grad"]
+        check(max(g["router_rel"], g["x_rel"], g["norm_rel"],
+                  *g["whole_rel"]) <= FAMILY_BF16_REL
+              and g["norm_zero_ok"] and g["flipped"] == 0,
+              f"expert-parallel MoE backward rank {r['rank']}: {g}")
     out = {"one_device_s": one_s, "one_device_peak_bytes": one_peak,
            "expert_bytes": expert_bytes, "ranks_wall_s": ranks_s,
-           "ranks": got}
+           "ranks": got, "grad_one_device_s": grad_s,
+           "grad_one_device_peak_bytes": grad_peak}
     print(f"mesh expert-parallel deepseek-v3 MoE layer (256 experts, d "
           f"7168, f 2048, top 8, one shared) on {B} x {T} tokens: one device "
           f"{one_s * 1e3:.3f} ms (peak {one_peak} bytes, experts "
@@ -4262,6 +4411,23 @@ def ranks_leg(card):
                       f"{r['peak_mem_bytes']} bytes" for r in got)
           + f"; the ranks' processes {ranks_s:.2f} s, both legs (card "
           f"{card})")
+    print(f"mesh expert-parallel deepseek-v3 MoE layer backward (input, "
+          f"router and expert stacks; the forward's routing, gate weights "
+          f"live; bf16 weights and gradients, float32 cotangent seed "
+          f"{MESH_EP_COT_SEED}): one device {grad_s:.3f} s, peak "
+          f"{grad_peak} bytes (weights + gradients {2 * expert_bytes} "
+          f"bytes); "
+          + "; ".join(f"rank {r['rank']} {r['grad']['seconds']:.3f} s, peak "
+                      f"{r['grad']['peak_mem_bytes']} bytes (its experts' "
+                      f"gradients {r['grad']['grad_bytes']} bytes), router "
+                      f"rel {r['grad']['router_rel']:.3e}, input rel "
+                      f"{r['grad']['x_rel']:.3e}, expert norms rel "
+                      f"{r['grad']['norm_rel']:.3e} over "
+                      f"{r['grad']['experts_with_tokens']} experts with "
+                      f"tokens, experts {r['grad']['whole_experts']} whole "
+                      + "/".join(f"{v:.3e}" for v in r["grad"]["whole_rel"])
+                      for r in got)
+          + f" (bound {FAMILY_BF16_REL}; card {card})")
     return {"ep": out, "ring": ring_check([r["ring"] for r in both], card)}
 
 
@@ -4402,14 +4568,40 @@ MESH_ADAM_NOISE_SHARE = 1e-5
 MESH_ADAM_ABS = 5e-4
 
 
+#: the cases whose step-1 gradients are held as the CPU tests hold them:
+#: each weight's within MESH_TRAIN_REL of its largest one-device value,
+#: or within how far float32 rounding of the weights alone moves it (a
+#: one-device run from each weight x (1 + 2**-24 z), z standard normal,
+#: seed MESH_ROUNDING_SEED), which may itself move it at most
+#: MESH_ROUNDING_CAP
+MESH_TRAIN_GRADS = ("deepseek_f32_smoke",)
+MESH_ROUNDING_SEED = 1
+MESH_ROUNDING_CAP = 1e-3
+#: bf16 cases whose grad norms after the first step are reported, not
+#: held: after an AdamW step in bf16 they move by several per cent with
+#: rounding alone (one device's runs from weights perturbed at bf16
+#: rounding, each x (1 + 2**-8 z): 0.04-6.7 % from three perturbations
+#: of jamba's smoke config on the CPU, 1.7-3.1 % from one of its cut on
+#: an H100).  Their losses at every step and the grad norm of the first,
+#: on the same weights, are held to FAMILY_BF16_REL.
+MESH_TRAIN_SPREAD = ("jamba_bf16_cut",)
+
+
 def mesh_train_cases():
     """{name: (config, AdamW eps)}: phi4-mini-3.8b's published widths cut
     to 2 layers (1.43 B parameters) in bf16, and its smoke config in
-    float32 at eps 1e-8 and 1e-5."""
+    float32 at eps 1e-8 and 1e-5; deepseek-v3's smoke config in float32
+    at eps 1e-5 (its expert-parallel MoE under autograd); jamba's CLIs'
+    cut at published widths in bf16 (``HYBRID_TRAIN_CUT``: a Mamba +
+    SwiGLU and an attention + MoE layer, 16 experts of d_ff 14 336, 8 a
+    rank)."""
     small = get_config("phi4-mini-3.8b").smoke()
     return {"bf16_cut": (dataclasses.replace(get_config("phi4-mini-3.8b"),
                                              n_layers=2), 1e-8),
-            "f32_smoke": (small, 1e-8), "f32_smoke_eps": (small, 1e-5)}
+            "f32_smoke": (small, 1e-8), "f32_smoke_eps": (small, 1e-5),
+            "deepseek_f32_smoke": (get_config("deepseek-v3-671b").smoke(),
+                                   1e-5),
+            "jamba_bf16_cut": (hybrid_cfg(**HYBRID_TRAIN_CUT), 1e-8)}
 
 
 @contextlib.contextmanager
@@ -4422,70 +4614,163 @@ def _mesh_grad(ctx):
         yield
 
 
-def _mesh_train(cfg, eps, ctx=None):
+@contextlib.contextmanager
+def _mesh_aux(model_size):
+    """One device's MoE aux as the 1 x ``model_size`` mesh gives it (the
+    reference's sum of each model rank's whole estimate): ``moe_local``'s
+    aux times model_size, so the one-device objective is the mesh's."""
+    real = model_layers.moe_local
+
+    def scaled(*args, **kw):
+        out, aux = real(*args, **kw)
+        return out, model_size * aux
+
+    model_layers.moe_local = scaled
+    try:
+        yield
+    finally:
+        model_layers.moe_local = real
+
+
+@contextlib.contextmanager
+def _first_grads(store):
+    """Every weight's gradient, whole, on the CPU, as the run's first
+    optimizer step reads it (``train.steps._apply_grads``)."""
+    from repro_torch.sharding import is_dtensor
+    from repro_torch.train import steps as train_steps
+    real = train_steps._apply_grads
+
+    def apply(state, opt):
+        if not store:
+            for k, p in state.named_params().items():
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                store[k] = (g.full_tensor() if is_dtensor(g) else g
+                            ).detach().cpu()
+        return real(state, opt)
+
+    train_steps._apply_grads = apply
+    try:
+        yield
+    finally:
+        train_steps._apply_grads = real
+
+
+def _rel_gaps(got, want):
+    """{name: max |got - want| over max |want|}."""
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp_min(1e-30)) for k in want}
+
+
+def _mesh_train(cfg, eps, ctx=None, *, grads=False, perturb=None):
     """``MESH_TRAIN_STEPS`` straggler AdamW steps of ``cfg`` on the card,
     on ``ctx``'s mesh (the state placed by
     ``shardings.distribute_train_state``, the slot-major batches by
-    ``batch_shardings``) or on one device: (losses, grad norms, seconds a
-    step, peak bytes; the float32 weights after the last step on the CPU,
-    None in bf16).  Delays keyed by the seed alone, never by rank."""
+    ``batch_shardings``) or on one device, there with the mesh's MoE aux
+    (``_mesh_aux``): (losses, grad norms, seconds a step, peak bytes, the
+    bytes of this process's state; the float32 weights after the last
+    step on the CPU, None in bf16; with ``grads`` the step-1 gradients on
+    the CPU, else None; the peak of the steps apart from that of building
+    the state).  ``perturb``: a seed, each initial weight times
+    1 + z x half its dtype's epsilon (2**-24 in float32, 2**-8 in bf16).
+    Delays keyed by the seed alone, never by rank."""
     from repro_torch.sharding import is_dtensor
     rc = RoundConfig(**MESH_TRAIN_ROUND)
     opt = adamw(MESH_TRAIN_LR, eps=eps)
     _free_cuda()
     torch.cuda.reset_peak_memory_stats()
-    state = init_train_state(cfg, opt, seed=0, device=DEV)
+    if ctx is None:
+        state = init_train_state(cfg, opt, seed=0, device=DEV)
+    else:
+        state = _placed_state(cfg, opt, ctx)
+    if perturb is not None:
+        gen = torch.Generator(device=DEV).manual_seed(perturb)
+        with torch.no_grad():
+            for p in state.params.parameters():
+                z = torch.randn(p.shape, generator=gen, device=DEV)
+                p.copy_(p.float() * (1 + torch.finfo(p.dtype).eps / 2 * z))
+                del z
+    build_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     step = make_straggler_train_step(cfg, opt, rc, ec2_cluster(
         rc.n, spread=3.0, persistence=0.9, seed=0))
     part = TaskPartition(n=rc.n, vocab=cfg.vocab_size, source="bigram",
                          seed=0, **MESH_TRAIN_TOKENS)
-    if ctx is not None:
-        shardings.distribute_train_state(state, ctx)
 
     def whole(t):
         return t.full_tensor() if is_dtensor(t) else t
 
+    def local(t):
+        return t.to_local() if is_dtensor(t) else t
+
+    state_bytes = sum(
+        local(p).numel() * 2 * p.element_size()
+        for p in state.params.parameters()) + sum(
+        local(m).numel() * m.element_size()
+        for k in ("m", "v") for m in state.opt_state[k].values())
+    store: dict = {}
     cluster, losses, norms, secs = None, [], [], []
-    for i in range(MESH_TRAIN_STEPS):
-        toks, labs = lm_task_batches(part, rc.to_matrix(), i, device=DEV)
-        if ctx is not None:
-            spec = shardings.batch_shardings({"t": toks}, ctx,
-                                             slot_major=True)["t"]
-            toks, labs = (shardings.distribute(t, spec, ctx)
-                          for t in (toks, labs))
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with (contextlib.nullcontext() if ctx is None else _mesh_grad(ctx)):
+    with (_mesh_grad(ctx) if ctx is not None else _mesh_aux(MESH_RANKS)), \
+            (_first_grads(store) if grads else contextlib.nullcontext()):
+        for i in range(MESH_TRAIN_STEPS):
+            toks, labs = lm_task_batches(part, rc.to_matrix(), i,
+                                         device=DEV)
+            if ctx is not None:
+                spec = shardings.batch_shardings({"t": toks}, ctx,
+                                                 slot_major=True)["t"]
+                toks, labs = (shardings.distribute(t, spec, ctx)
+                              for t in (toks, labs))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             state, m, cluster = step(state, toks, labs, 7, cluster)
-        losses.append(float(whole(m["loss"])))
-        norms.append(float(whole(m["grad_norm"])))
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
+            losses.append(float(whole(m["loss"])))
+            norms.append(float(whole(m["grad_norm"])))
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
     params = None
     if cfg.param_dtype == "float32":
         params = {k: whole(p).detach().cpu()
                   for k, p in state.params.named_parameters()}
     res = {"loss": losses, "grad_norm": norms, "step_s": secs,
-           "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+           "peak_mem_bytes": torch.cuda.max_memory_allocated(),
+           "build_peak_bytes": build_peak, "state_bytes": state_bytes}
     del state, step
     _free_cuda()
-    return res, params
+    return res, params, (store if grads else None)
+
+
+def _placed_state(cfg, opt, ctx):
+    """The train state on ``ctx``'s mesh, built whole and placed by
+    ``shardings.distribute_train_state`` (each rank cuts its own blocks,
+    no collective) one rank at a time: the whole state of jamba's cut is
+    44.1 GB, so two ranks building theirs at once would not fit the
+    card."""
+    import torch.distributed as dist
+    state = None
+    for turn in range(dist.get_world_size()):
+        if turn == dist.get_rank():
+            state = init_train_state(cfg, opt, seed=0, device=DEV)
+            shardings.distribute_train_state(state, ctx)
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return state
 
 
 def _train_rank(rank, world, port):
     """One of the two ranks of the mesh train leg: every case of
-    ``mesh_train_cases`` on the 1 x 2 mesh, the float32 weights against
-    the one-device run's (``train_ref.pt``), reported."""
+    ``mesh_train_cases`` on the 1 x 2 mesh, the float32 weights and the
+    held step-1 gradients against the one-device run's
+    (``train_ref.pt``), reported."""
     ctx = _rank_group(rank, world, port)
     ref = torch.load(MESH_DIR / "train_ref.pt")
     res = {"rank": rank}
     for name, (cfg, eps) in mesh_train_cases().items():
         ops.reset_launch_counts()
-        r, params = _mesh_train(cfg, eps, ctx)
+        r, params, grads = _mesh_train(cfg, eps, ctx,
+                                       grads=name in MESH_TRAIN_GRADS)
         r["swa_launches"] = _swa_launches(ops.LAUNCHES)
         r["greedy_launches"] = ops.LAUNCHES["greedy_assign"]
         if params is not None:
-            want = ref[name]
+            want = ref[name]["params"]
             diffs = torch.cat([(params[k] - want[k]).abs().flatten()
                                for k in want])
             r["param_max"] = max(float(w.abs().max())
@@ -4493,31 +4778,78 @@ def _train_rank(rank, world, port):
             r["param_diffs"] = torch.sort(
                 diffs, descending=True).values[:64].tolist()
             r["n_params"] = diffs.numel()
+        if grads is not None:
+            r["grad_rel"] = _rel_gaps(grads, ref[name]["grads"])
+            r["grad_rounding"] = ref[name]["rounding"]
         res[name] = r
     _rank_report(rank, res, "train.json")
 
 
+def _over(r):
+    """How many float32 weights of a rank's run lie past
+    ``MESH_TRAIN_REL`` x the step count x the largest weight."""
+    bound = MESH_TRAIN_REL * MESH_TRAIN_STEPS * r["param_max"]
+    return sum(d > bound for d in r["param_diffs"])
+
+
 def mesh_train_leg(card):
     """Three straggler AdamW train steps under a real mesh: each case of
-    ``mesh_train_cases`` on one device on the card, then on the 1 x 2 mesh
-    over two gloo ranks on ``cuda:0`` (``_train_rank``): bf16 losses and
-    grad norms within ``FAMILY_BF16_REL`` of one device's a step (the
-    rank's row-parallel sums in float32 after bf16 products, the
-    vocab-parallel head gathered); float32 within ``MESH_TRAIN_REL`` x the
-    step number, the weights as ``MESH_TRAIN_REL`` says.  No swa launch,
-    no greedy_assign launch (a static schedule)."""
+    ``mesh_train_cases`` on one device on the card (with the mesh's MoE
+    aux), then on the 1 x 2 mesh over two gloo ranks on ``cuda:0``
+    (``_train_rank``): bf16 losses and grad norms within
+    ``FAMILY_BF16_REL`` of one device's a step (the rank's row-parallel
+    sums in float32 after bf16 products, the vocab-parallel head
+    gathered; ``MESH_TRAIN_SPREAD`` says which grad norms are reported
+    only); float32 within ``MESH_TRAIN_REL`` x the step number, the
+    weights as ``MESH_TRAIN_REL`` says, the ``MESH_TRAIN_GRADS`` cases'
+    step-1 gradients as it says.  One device runs every case before the
+    ranks start and frees each (jamba's cut: 3.68 B parameters, 44.1 GB
+    of weights, gradients and AdamW moments; each rank holds about
+    half).  No swa launch, no greedy_assign launch (a static
+    schedule)."""
     cases = mesh_train_cases()
     one, refs = {}, {}
     for name, (cfg, eps) in cases.items():
-        one[name], params = _mesh_train(cfg, eps)
-        if params is not None:
-            refs[name] = params
+        held = name in MESH_TRAIN_GRADS
+        one[name], params, grads = _mesh_train(cfg, eps, grads=held)
+        one[name]["state_bytes_reckoned"] = train_cli.state_bytes(cfg)
+        refs[name] = {"params": params, "grads": grads, "rounding": None}
+        if held:
+            _, _, moved = _mesh_train(cfg, eps, grads=True,
+                                      perturb=MESH_ROUNDING_SEED)
+            refs[name]["rounding"] = _rel_gaps(moved, grads)
     torch.save(refs, MESH_DIR / "train_ref.pt")
     del refs
     t0 = time.perf_counter()
     _spawn_ranks(_train_rank)
     ranks_s = time.perf_counter() - t0
     got = json.loads((MESH_DIR / "train.json").read_text())
+    for name, (cfg, eps) in cases.items():
+        w = one[name]
+        print(f"mesh train {name} ({cfg.name}, {cfg.n_layers} layers, "
+              f"{cfg.param_dtype}, AdamW eps {eps:g}), {MESH_TRAIN_STEPS} "
+              f"steps: one device loss {w['loss']}, grad norm "
+              f"{w['grad_norm']}, s a step {w['step_s']}, peak "
+              f"{w['peak_mem_bytes']} bytes (building the state "
+              f"{w['build_peak_bytes']}), state "
+              f"{w['state_bytes']} bytes (state_bytes reckoned "
+              f"{w['state_bytes_reckoned']}); "
+              + "; ".join(
+                  f"rank {r['rank']} loss {r[name]['loss']}, grad norm "
+                  f"{r[name]['grad_norm']}, s a step {r[name]['step_s']}, "
+                  f"peak {r[name]['peak_mem_bytes']} bytes (building "
+                  f"{r[name]['build_peak_bytes']}), state "
+                  f"{r[name]['state_bytes']} bytes"
+                  + ("" if "param_diffs" not in r[name] else
+                     f", weights max diff {r[name]['param_diffs'][0]:.3e} "
+                     f"({_over(r[name])} past "
+                     f"{MESH_TRAIN_REL * MESH_TRAIN_STEPS:g} x the largest)")
+                  + ("" if "grad_rel" not in r[name] else
+                     f", step-1 gradients rel at most "
+                     f"{max(r[name]['grad_rel'].values()):.3e} (rounding "
+                     f"moves one device's up to "
+                     f"{max(r[name]['grad_rounding'].values()):.3e})")
+                  for r in got) + f" (card {card})")
     for r in got:
         for name, (cfg, eps) in cases.items():
             g, w = r[name], one[name]
@@ -4525,6 +4857,9 @@ def mesh_train_leg(card):
             for key in ("loss", "grad_norm"):
                 for i, (a, b) in enumerate(zip(g[key], w[key])):
                     tol = FAMILY_BF16_REL if bf16 else MESH_TRAIN_REL * (i + 1)
+                    if (name in MESH_TRAIN_SPREAD and key == "grad_norm"
+                            and i > 0):
+                        continue                # reported, not held
                     check(abs(a - b) <= tol * abs(b),
                           f"mesh train {name} rank {r['rank']} step {i} "
                           f"{key} {a} vs one device {b} (rel bound {tol})")
@@ -4538,22 +4873,14 @@ def mesh_train_leg(card):
                       and g["param_diffs"][0] <= MESH_ADAM_ABS,
                       f"mesh train {name} rank {r['rank']}: weights past "
                       f"{bound:.3e}: {over}")
-                g["over_bound"] = len(over)
-    for name, (cfg, eps) in cases.items():
-        w = one[name]
-        print(f"mesh train {name} ({cfg.name}, {cfg.n_layers} layers, "
-              f"{cfg.param_dtype}, AdamW eps {eps:g}), {MESH_TRAIN_STEPS} "
-              f"steps: one device loss {w['loss']}, grad norm "
-              f"{w['grad_norm']}, s a step {w['step_s']}, peak "
-              f"{w['peak_mem_bytes']} bytes; "
-              + "; ".join(
-                  f"rank {r['rank']} loss {r[name]['loss']}, grad norm "
-                  f"{r[name]['grad_norm']}, s a step {r[name]['step_s']}, "
-                  f"peak {r[name]['peak_mem_bytes']} bytes"
-                  + ("" if "param_diffs" not in r[name] else
-                     f", weights max diff {r[name]['param_diffs'][0]:.3e} "
-                     f"({r[name]['over_bound']} past the bound)")
-                  for r in got) + f" (card {card})")
+            if "grad_rel" in g:
+                for k, gap in g["grad_rel"].items():
+                    rnd = g["grad_rounding"][k]
+                    check(rnd <= MESH_ROUNDING_CAP
+                          and gap <= max(MESH_TRAIN_REL, rnd),
+                          f"mesh train {name} rank {r['rank']}: gradient "
+                          f"{k} rel {gap:.3e} (rounding moves it "
+                          f"{rnd:.3e})")
     print(f"mesh train ranks' processes {ranks_s:.2f} s")
     return {"one_device": one, "ranks": got, "ranks_wall_s": ranks_s}
 
@@ -4561,10 +4888,11 @@ def mesh_train_leg(card):
 def mesh_phase(card):
     """The mesh slice on the card, after the shapes phase: the mesh dry
     runs started in processes of their own (``_mesh_dry_start``), then the
-    grouped-GQA legs (``grouped_leg``), the expert-parallel MoE and the
-    ring decode over two gloo ranks on the one card (``ranks_leg``), three
-    train steps under the 1 x 2 mesh (``mesh_train_leg``), then the dry
-    runs' artifacts (``_mesh_dry_finish``)."""
+    grouped-GQA legs (``grouped_leg``), the expert-parallel MoE (forward
+    and backward) and the ring decode over two gloo ranks on the one card
+    (``ranks_leg``), three train steps of each case under the 1 x 2 mesh
+    (``mesh_train_leg``: phi4, deepseek-v3's smoke config, jamba's cut),
+    then the dry runs' artifacts (``_mesh_dry_finish``)."""
     t_phase = time.perf_counter()
     shutil.rmtree(MESH_DIR, ignore_errors=True)
     MESH_DIR.mkdir(parents=True)

@@ -39,7 +39,7 @@ from ..core import rng
 from ..kernels import ops
 from ..sharding import (BOTH, DATA, MODEL, all_reduce, current_mesh_ctx,
                         is_dtensor, matmul_ready, reduce_partial, seq_write,
-                        shard, unflatten)
+                        shard, sum_partials, unflatten)
 from .config import ModelConfig
 
 __all__ = ["dense", "rms_norm", "layer_norm", "rope_freqs", "apply_rope",
@@ -1275,8 +1275,9 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
     model axis, and the aux is summed over every axis and divided by the
     data size, as the reference's is: each model rank holds the whole
     estimate, so it is model_size times the one-device aux (ROADMAP.md
-    section 3).  Other meshes run every expert on replicated tokens, the
-    reference's GSPMD fallback."""
+    section 3), and its gradient is model_size times the one-device aux's
+    (``_moe_mesh`` says where each gradient is reduced).  Other meshes run
+    every expert on replicated tokens, the reference's GSPMD fallback."""
     B, T, d = x.shape
     x2 = x.reshape(B * T, d)
     ctx = current_mesh_ctx()
@@ -1292,8 +1293,24 @@ def moe_apply(p: MoE, cfg: ModelConfig, x: torch.Tensor
 
 
 def _moe_mesh(p: MoE, cfg: ModelConfig, x2: torch.Tensor, ctx):
-    """``moe_apply``'s routed experts under a mesh, in ``local_map``."""
-    from torch.distributed.tensor import Replicate, Shard
+    """``moe_apply``'s routed experts under a mesh, in ``local_map``.
+
+    Where each gradient is reduced.  The forward's sums over the model
+    axis (the outputs, the aux) and, where the tokens are sharded, over
+    the data axes (the aux) are ``sum_partials``: each rank's gradient of
+    a sum is the replicated output gradient as it is, no collective.  The
+    block's gradients are then per-rank partials, which ``local_map``
+    hands back as such (``in_grad_placements``): DTensor reduces the
+    tokens' where the layers below read it, as it reduces a
+    column-parallel product's, and the train step reduces the weights'
+    once before the optimizer reads them.  The tokens' gradient is
+    ``Partial`` over the model axis (each rank's
+    experts' share and its copy of the routing's), the router's over the
+    model axis and, with the tokens sharded, over the data axes (each
+    data shard's tokens), the expert stacks' over the data axes with the
+    tokens sharded.  Without expert parallelism every gradient lies as
+    its input does."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = ctx.mesh
     names = list(mesh.mesh_dim_names)
@@ -1303,28 +1320,42 @@ def _moe_mesh(p: MoE, cfg: ModelConfig, x2: torch.Tensor, ctx):
     n_local = E // msize if expert_parallel else E
     tokens_sharded = (expert_parallel and ctx.data_size > 1
                       and x2.shape[0] % ctx.data_size == 0)
+
+    def lay(on_model, on_data):
+        return [on_model if n == ctx.model_axis else
+                on_data if n in ctx.data_axes else Replicate() for n in names]
+
     rep = [Replicate()] * len(names)
-    tok = [Shard(0) if tokens_sharded and n in ctx.data_axes
-           else Replicate() for n in names]
-    wts = [Shard(0) if expert_parallel and n == ctx.model_axis
-           else Replicate() for n in names]
-    groups = [mesh.get_group(a) for a in ctx.data_axes]
+    data_tok = Shard(0) if tokens_sharded else Replicate()
+    tok = lay(Replicate(), data_tok)
+    wts = lay(Shard(0), Replicate()) if expert_parallel else rep
+    in_pl = (tok, rep, wts, wts, wts)
+    if expert_parallel:
+        data_sum = Partial() if tokens_sharded else Replicate()
+        wts_g = lay(Shard(0), data_sum)
+        in_grad = (lay(Partial(), data_tok), lay(Partial(), data_sum),
+                   wts_g, wts_g, wts_g)
+    else:
+        in_grad = in_pl
+    model_group = [mesh.get_group(ctx.model_axis)] if expert_parallel else []
+    # the reference's psum of the aux over every axis; with the tokens
+    # replicated over the data axes their sum over the data size is the
+    # aux itself
+    aux_groups = model_group + ([mesh.get_group(a) for a in ctx.data_axes]
+                                if tokens_sharded else [])
 
     def block(xl, rw, wg, wu, wd):
         e_start = (mesh.get_local_rank(ctx.model_axis) * n_local
                    if expert_parallel else 0)
         out, aux = moe_local(xl, rw, wg, wu, wd, cfg=cfg, e_start=e_start,
                              n_local=n_local)
-        if expert_parallel:
-            out = all_reduce(out, "sum", mesh.get_group(ctx.model_axis))
-            # the reference's psum of the aux over every axis
-            aux = all_reduce(aux, "sum", mesh.get_group(ctx.model_axis))
-            for g in groups:
-                aux = all_reduce(aux, "sum", g)
+        out = sum_partials(out, model_group)
+        aux = sum_partials(aux, aux_groups)
+        if tokens_sharded:
             aux = aux / ctx.data_size
         return out, aux
 
-    return local_map(block, out_placements=(tok, rep),
-                     in_placements=(tok, rep, wts, wts, wts),
-                     device_mesh=mesh, redistribute_inputs=True)(
+    return local_map(block, out_placements=(tok, rep), in_placements=in_pl,
+                     in_grad_placements=in_grad, device_mesh=mesh,
+                     redistribute_inputs=True)(
         x2, p.router, p.w_gate, p.w_up, p.w_down)

@@ -31,7 +31,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
-from ..sharding import DATA, MODEL, reduce_partial, shard, unflatten
+from ..sharding import (DATA, MODEL, current_mesh_ctx, mesh_context,
+                        reduce_partial, shard, unflatten)
 from . import layers as L
 from .config import LayerSpec, ModelConfig, find_period, layer_specs
 
@@ -255,9 +256,18 @@ class Encoder(nn.Module):
 
 def _run(block: Block, x: torch.Tensor, remat: bool, **kw):
     """``block(x, **kw)``, its activations recomputed in backward when
-    ``remat`` (no cache then)."""
+    ``remat`` (no cache then).  The recomputation runs under the
+    forward's mesh context: autograd runs a CUDA backward on a thread of
+    its own, where the thread-local context is unset, and the block would
+    take its one-device paths on the mesh's tensors."""
     if remat:
-        return checkpoint(block, x, use_reentrant=False, **kw)
+        ctx = current_mesh_ctx()
+
+        def under_ctx(*args, **kwargs):
+            with mesh_context(ctx):
+                return block(*args, **kwargs)
+
+        return checkpoint(under_ctx, x, use_reentrant=False, **kw)
     return block(x, **kw)
 
 

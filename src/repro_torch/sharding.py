@@ -42,7 +42,8 @@ from .device import resolve_device
 
 __all__ = ["MeshCtx", "current_mesh_ctx", "mesh_context", "shard",
            "axis_size", "placements", "is_dtensor", "seq_write", "gather",
-           "unflatten", "matmul_ready", "all_reduce", "reduce_partial",
+           "unflatten", "matmul_ready", "all_reduce", "sum_partials",
+           "reduce_partial",
            "DATA", "MODEL", "BOTH", "TRIAL_AXIS", "trial_devices",
            "chunk_blocks", "issue_order", "device_label", "cli_devices"]
 
@@ -230,15 +231,42 @@ class _ReduceHalf(torch.autograd.Function):
 def all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
     """The functional all-reduce (``op`` "sum" / "max") of ``t`` over
     ``group``, waited for.  A bf16 or f16 CUDA tensor on a gloo group is
-    reduced in float32 and cast back (``_half_on_gloo``).  The port
-    defines no gradient for it: its callers (the ring decode's softmax,
-    the expert-parallel MoE's sums) run without autograd, and
-    ``reduce_partial`` wraps it in ``_ReduceHalf``."""
+    reduced in float32 and cast back (``_half_on_gloo``).  It is no
+    autograd function (``funcol``'s own gradient differs between torch
+    2.11, none, and 2.13, a second all-reduce): the ring decode calls it
+    under ``no_grad``, and the calls under autograd go through a function
+    that defines the gradient, ``_ReduceHalf`` (``reduce_partial``) and
+    ``sum_partials`` (the expert-parallel MoE's sums)."""
     import torch.distributed._functional_collectives as funcol
     half = _half_on_gloo(t, group)
     out = funcol.wait_tensor(funcol.all_reduce(
         t.float() if half else t, op, group))
     return out.to(t.dtype) if half else out
+
+
+class _SumPartials(torch.autograd.Function):
+    """``sum_partials``: the forward sums over each group in turn
+    (``all_reduce``), the backward hands the gradient on as it is."""
+
+    @staticmethod
+    def forward(ctx, t, groups):
+        for g in groups:
+            t = all_reduce(t, "sum", g)
+        return t
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def sum_partials(t: torch.Tensor, groups: Sequence) -> torch.Tensor:
+    """The sum over ``groups`` of a plain tensor that each rank holds one
+    summand of, replicated on every rank after: Megatron's "g", whose
+    gradient is the replicated output gradient itself, on every rank
+    (the transpose of a sum of partials).  Half precision on gloo sums in
+    float32 (``all_reduce``); the gradient takes no collective, on torch
+    2.11 and 2.13 alike."""
+    return _SumPartials.apply(t, tuple(groups)) if groups else t
 
 
 def gather(x: torch.Tensor, dim: int) -> torch.Tensor:

@@ -41,7 +41,7 @@ from ..models import forward, init_params
 from ..models.config import ModelConfig
 from ..models.model import Transformer
 from ..optim import Optimizer, clip_scale, global_norm
-from ..sharding import DATA, gather, shard
+from ..sharding import DATA, gather, reduce_partial, shard
 
 __all__ = ["TrainState", "init_train_state", "lm_loss_per_seq", "lm_loss",
            "make_train_step", "make_straggler_train_step", "make_serve_step",
@@ -121,9 +121,14 @@ def lm_loss(params: Transformer, cfg: ModelConfig, tokens: torch.Tensor,
 def _apply_grads(state: TrainState, opt: Optimizer) -> torch.Tensor:
     """Clip the accumulated ``.grad`` of every weight to ``CLIP_NORM`` by
     the global norm, take the optimizer step in place, drop the gradients
-    and return the pre-clip norm."""
+    and return the pre-clip norm.  Under a mesh a gradient's pending sums
+    (the data shards' and the expert-parallel ranks' partials) are
+    reduced once here (``reduce_partial``); left pending, DTensor would
+    reduce them again at every op that reads them: the norm's square and
+    each AdamW moment."""
     params = state.named_params()
-    grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p))
+    grads = {k: (reduce_partial(p.grad) if p.grad is not None
+                 else torch.zeros_like(p))
              for k, p in params.items()}
     gnorm = global_norm(grads)
     state.opt_state = opt.step_(params, grads, state.opt_state,
