@@ -71,8 +71,8 @@ Last, the wide phase: the MoE, MLA and vision-stub families at published
 widths, bf16 (``wide_phase``): deepseek-v3 cut to 4 layers (3 dense, 1 MoE
 of 256 experts) on the naive and the absorbed MLA path and
 llama4-maverick cut to 2 (1 dense, 1 MoE of 128 experts) served at
-gemma3-4b's shape through ``serve.run``, llava-next-34b cut to 20 of its
-60 layers at batch 1; decode held to the full forward
+gemma3-4b's shape through ``serve.run``, llava-next-34b served at full
+size (60 layers) through the serve CLI; decode held to the full forward
 (llava with 1 024 patch embeddings; the MoE families at capacity_factor
 E/K, where no call drops a pair; deepseek's absorbed decode to its naive
 one), the smoke configs on the card to the CPU in float32 at the default
@@ -199,6 +199,12 @@ from benchmarks_torch import grid_stream  # noqa: E402
 from benchmarks_torch import planner as planner_bench  # noqa: E402
 from benchmarks_torch import regression_gate  # noqa: E402
 from benchmarks_torch import run as bench_run  # noqa: E402
+
+# the mesh train checks' one-device semantics and gradient readers, shared
+# with the CPU tests (torch only)
+sys.path.append(str(Path(__file__).resolve().parent / "tests"))
+from torch_mesh_train_ranks import (first_grads, gaps,  # noqa: E402
+                                    mesh_semantics)
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM rate, float32 outside
 # the tensor cores, bf16 and TF32 on the tensor cores (dense).
@@ -2842,23 +2848,22 @@ def families_phase():
 #: layers and 1 MoE layer (MLA throughout; 256 routed experts top-8, 1
 #: shared), llama4-maverick to 1 dense and 1 MoE layer (128 experts top-1,
 #: 1 shared), both at gemma3-4b's serve shape through ``serve.run``, text
-#: only (llama4's config has frontend_seq 0).  llava-next-34b runs at
-#: batch 1 cut to 20 of its 60 layers (12.1 B parameters): in full, its
-#: 68.8 GB of weights took 90 s of the smoke's time limit (serve and
-#: consistency), and at batch 2 they leave too little of the card
+#: only (llama4's config has frontend_seq 0).  llava-next-34b runs at full
+#: size (60 layers) through the serve CLI at batch 1: at batch 2 its 68.8
+#: GB of weights leave too little of the card
 WIDE_CUT = {"deepseek-v3": ("deepseek-v3-671b", dict(n_layers=4)),
             "deepseek-v3-absorbed": ("deepseek-v3-671b",
                                      dict(n_layers=4, mla_absorb=True)),
             "llama4-maverick": ("llama4-maverick-400b-a17b",
                                 dict(n_layers=2)),
-            "llava-next-34b": ("llava-next-34b", dict(n_layers=20)),
+            "llava-next-34b": ("llava-next-34b", {}),
             "phi4-mini": ("phi4-mini-3.8b", {}),
             "qwen2-72b": ("qwen2-72b", dict(n_layers=8))}
 #: (layers, encoder layers, parameters) of each leg
 WIDE_SIZE = {"deepseek-v3": (4, 0, 15_111_101_440),
              "deepseek-v3-absorbed": (4, 0, 15_111_101_440),
              "llama4-maverick": (2, 0, 18_562_447_360),
-             "llava-next-34b": (20, 0, 12_081_993_728),
+             "llava-next-34b": (60, 0, 34_396_264_448),
              "phi4-mini": (32, 0, 4_451_404_800),
              "qwen2-72b": (8, 0, 9_512_902_656)}
 WIDE_SERVE = {"deepseek-v3": SERVE, "deepseek-v3-absorbed": SERVE,
@@ -2895,8 +2900,7 @@ DEEPSEEK_TRAIN_PARAMS = 4_539_735_040
 #: weights, not FAMILY_BF16_REL, and whose float32-activation decode is
 #: held to that forward within FAMILY_F32_REL: llava's 60 layers put its
 #: own bf16 error at about FAMILY_BF16_REL (PERF.md section 6; whisper
-#: and rwkv6, for which it was set, have 6 and 24); the leg serves 20 of
-#: them, to keep the smoke inside its time limit
+#: and rwkv6, for which it was set, have 6 and 24)
 WIDE_TRUTH_HELD = ("llava-next-34b",)
 
 
@@ -3021,7 +3025,7 @@ def _f32_truth(model, cfg, toks, steps, ext, full, dec, route=None):
 @torch.inference_mode()
 def wide_consistency(family):
     """(1) ``family`` at published widths in bf16 on the card (deepseek-v3
-    and llama4-maverick and llava-next-34b at their serve cuts),
+    and llama4-maverick at their serve cuts, llava-next-34b at full size),
     at capacity_factor E/K (``no_drop_cfg``): the full forward against a
     16-token prefill plus 8 decode steps at the same positions, within
     ``FAMILY_BF16_REL``; llava prefills its 1 024 patch embeddings (its
@@ -3273,8 +3277,8 @@ def _warm_wide():
 
 def wide_phase():
     """deepseek-v3 (naive and absorbed MLA), llama4-maverick and
-    qwen2-72b and llava-next-34b at published widths with their depth
-    cut, phi4-mini-3.8b at full size, after the families phase has freed
+    qwen2-72b at published widths with their depth cut, llava-next-34b and
+    phi4-mini-3.8b at full size, after the families phase has freed
     whisper and rwkv6: serving
     (no warm-up at full size: ``_warm_wide`` ran the same code at the smoke
     widths, and each draw of the weights costs seconds), consistency
@@ -4568,40 +4572,35 @@ MESH_ADAM_NOISE_SHARE = 1e-5
 MESH_ADAM_ABS = 5e-4
 
 
-#: the cases whose step-1 gradients are held as the CPU tests hold them:
-#: each weight's within MESH_TRAIN_REL of its largest one-device value,
-#: or within how far float32 rounding of the weights alone moves it (a
-#: one-device run from each weight x (1 + 2**-24 z), z standard normal,
-#: seed MESH_ROUNDING_SEED), which may itself move it at most
-#: MESH_ROUNDING_CAP
-MESH_TRAIN_GRADS = ("deepseek_f32_smoke",)
-MESH_ROUNDING_SEED = 1
-MESH_ROUNDING_CAP = 1e-3
-#: bf16 cases whose grad norms after the first step are reported, not
-#: held: after an AdamW step in bf16 they move by several per cent with
-#: rounding alone (one device's runs from weights perturbed at bf16
-#: rounding, each x (1 + 2**-8 z): 0.04-6.7 % from three perturbations
-#: of jamba's smoke config on the CPU, 1.7-3.1 % from one of its cut on
-#: an H100).  Their losses at every step and the grad norm of the first,
-#: on the same weights, are held to FAMILY_BF16_REL.
-MESH_TRAIN_SPREAD = ("jamba_bf16_cut",)
+#: bf16 grad norms after the first AdamW step: at eps 1e-8 AdamW takes a
+#: whole step of lr for each gradient element, so an element that
+#: rounding alone moves across zero moves its weight by 2 lr.  A case
+#: that names seeds (MESH_SPREAD_SEEDS) also runs one device from weights
+#: perturbed at bf16 rounding, each x (1 + 2**-8 z), z standard normal,
+#: once a seed; the mesh's grad norm at each later step is held within
+#: MESH_SPREAD_MARGIN x the largest move those runs make there, where
+#: that exceeds FAMILY_BF16_REL
+MESH_SPREAD_SEEDS = (1, 2, 3)
+MESH_SPREAD_MARGIN = 1.5
 
 
 def mesh_train_cases():
-    """{name: (config, AdamW eps)}: phi4-mini-3.8b's published widths cut
-    to 2 layers (1.43 B parameters) in bf16, and its smoke config in
-    float32 at eps 1e-8 and 1e-5; deepseek-v3's smoke config in float32
-    at eps 1e-5 (its expert-parallel MoE under autograd); jamba's CLIs'
-    cut at published widths in bf16 (``HYBRID_TRAIN_CUT``: a Mamba +
-    SwiGLU and an attention + MoE layer, 16 experts of d_ff 14 336, 8 a
-    rank)."""
+    """{name: (config, AdamW eps, seeds of the bf16 rounding witness)}:
+    phi4-mini-3.8b's published widths cut to 2 layers (1.43 B parameters)
+    in bf16, and its smoke config in float32 at eps 1e-8 and 1e-5;
+    deepseek-v3's smoke config in float32 at eps 1e-5 (its expert-parallel
+    MoE under autograd); jamba's CLIs' cut at published widths in bf16
+    (``HYBRID_TRAIN_CUT``: a Mamba + SwiGLU and an attention + MoE layer,
+    16 experts of d_ff 14 336, 8 a rank), with its rounding witness."""
     small = get_config("phi4-mini-3.8b").smoke()
     return {"bf16_cut": (dataclasses.replace(get_config("phi4-mini-3.8b"),
-                                             n_layers=2), 1e-8),
-            "f32_smoke": (small, 1e-8), "f32_smoke_eps": (small, 1e-5),
+                                             n_layers=2), 1e-8, ()),
+            "f32_smoke": (small, 1e-8, ()),
+            "f32_smoke_eps": (small, 1e-5, ()),
             "deepseek_f32_smoke": (get_config("deepseek-v3-671b").smoke(),
-                                   1e-5),
-            "jamba_bf16_cut": (hybrid_cfg(**HYBRID_TRAIN_CUT), 1e-8)}
+                                   1e-5, ()),
+            "jamba_bf16_cut": (hybrid_cfg(**HYBRID_TRAIN_CUT), 1e-8,
+                               MESH_SPREAD_SEEDS)}
 
 
 @contextlib.contextmanager
@@ -4614,65 +4613,18 @@ def _mesh_grad(ctx):
         yield
 
 
-@contextlib.contextmanager
-def _mesh_aux(model_size):
-    """One device's MoE aux as the 1 x ``model_size`` mesh gives it (the
-    reference's sum of each model rank's whole estimate): ``moe_local``'s
-    aux times model_size, so the one-device objective is the mesh's."""
-    real = model_layers.moe_local
-
-    def scaled(*args, **kw):
-        out, aux = real(*args, **kw)
-        return out, model_size * aux
-
-    model_layers.moe_local = scaled
-    try:
-        yield
-    finally:
-        model_layers.moe_local = real
-
-
-@contextlib.contextmanager
-def _first_grads(store):
-    """Every weight's gradient, whole, on the CPU, as the run's first
-    optimizer step reads it (``train.steps._apply_grads``)."""
-    from repro_torch.sharding import is_dtensor
-    from repro_torch.train import steps as train_steps
-    real = train_steps._apply_grads
-
-    def apply(state, opt):
-        if not store:
-            for k, p in state.named_params().items():
-                g = torch.zeros_like(p) if p.grad is None else p.grad
-                store[k] = (g.full_tensor() if is_dtensor(g) else g
-                            ).detach().cpu()
-        return real(state, opt)
-
-    train_steps._apply_grads = apply
-    try:
-        yield
-    finally:
-        train_steps._apply_grads = real
-
-
-def _rel_gaps(got, want):
-    """{name: max |got - want| over max |want|}."""
-    return {k: float((got[k] - want[k]).abs().max()
-                     / want[k].abs().max().clamp_min(1e-30)) for k in want}
-
-
-def _mesh_train(cfg, eps, ctx=None, *, grads=False, perturb=None):
+def _mesh_train(cfg, eps, ctx=None, perturb=None):
     """``MESH_TRAIN_STEPS`` straggler AdamW steps of ``cfg`` on the card,
     on ``ctx``'s mesh (the state placed by
     ``shardings.distribute_train_state``, the slot-major batches by
-    ``batch_shardings``) or on one device, there with the mesh's MoE aux
-    (``_mesh_aux``): (losses, grad norms, seconds a step, peak bytes, the
-    bytes of this process's state; the float32 weights after the last
-    step on the CPU, None in bf16; with ``grads`` the step-1 gradients on
-    the CPU, else None; the peak of the steps apart from that of building
-    the state).  ``perturb``: a seed, each initial weight times
-    1 + z x half its dtype's epsilon (2**-24 in float32, 2**-8 in bf16).
-    Delays keyed by the seed alone, never by rank."""
+    ``batch_shardings``) or on one device, there with the 1 x 2 mesh's
+    MoE aux (``mesh_semantics``): (losses, grad norms, seconds a step,
+    peak bytes, the peak of building the state apart from the steps', the
+    bytes of this process's state; in float32 the step-1 gradients and
+    the weights after the last step, whole, on the CPU, None in bf16).
+    ``perturb``: a seed, each initial weight times 1 + z x half its
+    dtype's epsilon (2**-24 in float32, 2**-8 in bf16).  Delays keyed by
+    the seed alone, never by rank."""
     from repro_torch.sharding import is_dtensor
     rc = RoundConfig(**MESH_TRAIN_ROUND)
     opt = adamw(MESH_TRAIN_LR, eps=eps)
@@ -4707,10 +4659,12 @@ def _mesh_train(cfg, eps, ctx=None, *, grads=False, perturb=None):
         for p in state.params.parameters()) + sum(
         local(m).numel() * m.element_size()
         for k in ("m", "v") for m in state.opt_state[k].values())
-    store: dict = {}
+    f32 = cfg.param_dtype == "float32"
+    grads: dict = {}
     cluster, losses, norms, secs = None, [], [], []
-    with (_mesh_grad(ctx) if ctx is not None else _mesh_aux(MESH_RANKS)), \
-            (_first_grads(store) if grads else contextlib.nullcontext()):
+    with (_mesh_grad(ctx) if ctx is not None
+          else mesh_semantics(1, MESH_RANKS)), \
+            (first_grads(grads) if f32 else contextlib.nullcontext()):
         for i in range(MESH_TRAIN_STEPS):
             toks, labs = lm_task_batches(part, rc.to_matrix(), i,
                                          device=DEV)
@@ -4726,16 +4680,17 @@ def _mesh_train(cfg, eps, ctx=None, *, grads=False, perturb=None):
             norms.append(float(whole(m["grad_norm"])))
             torch.cuda.synchronize()
             secs.append(time.perf_counter() - t0)
-    params = None
-    if cfg.param_dtype == "float32":
-        params = {k: whole(p).detach().cpu()
-                  for k, p in state.params.named_parameters()}
+    held = None
+    if f32:
+        held = {"grads": grads, "params": {
+            k: whole(p).detach().cpu()
+            for k, p in state.params.named_parameters()}}
     res = {"loss": losses, "grad_norm": norms, "step_s": secs,
            "peak_mem_bytes": torch.cuda.max_memory_allocated(),
            "build_peak_bytes": build_peak, "state_bytes": state_bytes}
     del state, step
     _free_cuda()
-    return res, params, (store if grads else None)
+    return res, held
 
 
 def _placed_state(cfg, opt, ctx):
@@ -4757,30 +4712,27 @@ def _placed_state(cfg, opt, ctx):
 
 def _train_rank(rank, world, port):
     """One of the two ranks of the mesh train leg: every case of
-    ``mesh_train_cases`` on the 1 x 2 mesh, the float32 weights and the
-    held step-1 gradients against the one-device run's
-    (``train_ref.pt``), reported."""
+    ``mesh_train_cases`` on the 1 x 2 mesh, the float32 weights and
+    step-1 gradients against the one-device run's (``train_ref.pt``),
+    reported."""
     ctx = _rank_group(rank, world, port)
     ref = torch.load(MESH_DIR / "train_ref.pt")
     res = {"rank": rank}
-    for name, (cfg, eps) in mesh_train_cases().items():
+    for name, (cfg, eps, _) in mesh_train_cases().items():
         ops.reset_launch_counts()
-        r, params, grads = _mesh_train(cfg, eps, ctx,
-                                       grads=name in MESH_TRAIN_GRADS)
+        r, held = _mesh_train(cfg, eps, ctx)
         r["swa_launches"] = _swa_launches(ops.LAUNCHES)
         r["greedy_launches"] = ops.LAUNCHES["greedy_assign"]
-        if params is not None:
-            want = ref[name]["params"]
-            diffs = torch.cat([(params[k] - want[k]).abs().flatten()
-                               for k in want])
+        if held is not None:
+            want = ref[name]
+            diffs = torch.cat([(held["params"][k] - w).abs().flatten()
+                               for k, w in want["params"].items()])
             r["param_max"] = max(float(w.abs().max())
-                                 for w in want.values())
+                                 for w in want["params"].values())
             r["param_diffs"] = torch.sort(
                 diffs, descending=True).values[:64].tolist()
             r["n_params"] = diffs.numel()
-        if grads is not None:
-            r["grad_rel"] = _rel_gaps(grads, ref[name]["grads"])
-            r["grad_rounding"] = ref[name]["rounding"]
+            r["grad_rel"] = gaps(held["grads"], want["grads"])
         res[name] = r
     _rank_report(rank, res, "train.json")
 
@@ -4792,39 +4744,49 @@ def _over(r):
     return sum(d > bound for d in r["param_diffs"])
 
 
+def _norm_bound(w, seeds, i, bf16):
+    """The rel bound of the mesh's grad norm at step ``i`` against one
+    device's run ``w`` (``MESH_SPREAD_SEEDS``)."""
+    tol = FAMILY_BF16_REL if bf16 else MESH_TRAIN_REL * (i + 1)
+    if seeds and i > 0:
+        tol = max(tol, MESH_SPREAD_MARGIN * w["spread"][i])
+    return tol
+
+
 def mesh_train_leg(card):
     """Three straggler AdamW train steps under a real mesh: each case of
     ``mesh_train_cases`` on one device on the card (with the mesh's MoE
-    aux), then on the 1 x 2 mesh over two gloo ranks on ``cuda:0``
-    (``_train_rank``): bf16 losses and grad norms within
-    ``FAMILY_BF16_REL`` of one device's a step (the rank's row-parallel
-    sums in float32 after bf16 products, the vocab-parallel head
-    gathered; ``MESH_TRAIN_SPREAD`` says which grad norms are reported
-    only); float32 within ``MESH_TRAIN_REL`` x the step number, the
-    weights as ``MESH_TRAIN_REL`` says, the ``MESH_TRAIN_GRADS`` cases'
-    step-1 gradients as it says.  One device runs every case before the
-    ranks start and frees each (jamba's cut: 3.68 B parameters, 44.1 GB
-    of weights, gradients and AdamW moments; each rank holds about
-    half).  No swa launch, no greedy_assign launch (a static
-    schedule)."""
+    aux; a case's rounding witness beside it), then on the 1 x 2 mesh
+    over two gloo ranks on ``cuda:0`` (``_train_rank``): bf16 losses and
+    grad norms within ``FAMILY_BF16_REL`` of one device's a step (the
+    rank's row-parallel sums in float32 after bf16 products, the
+    vocab-parallel head gathered; the later grad norms of a case with a
+    witness as ``MESH_SPREAD_SEEDS`` says); float32 losses and grad norms
+    within ``MESH_TRAIN_REL`` x the step number, the weights as
+    ``MESH_TRAIN_REL`` says, each step-1 gradient within it of its
+    largest one-device value, as the CPU tests hold them.  One device
+    runs every case before the ranks start and frees each (jamba's cut:
+    3.68 B parameters, 44.1 GB of weights, gradients and AdamW moments;
+    each rank holds about half).  No swa launch, no greedy_assign launch
+    (a static schedule)."""
     cases = mesh_train_cases()
     one, refs = {}, {}
-    for name, (cfg, eps) in cases.items():
-        held = name in MESH_TRAIN_GRADS
-        one[name], params, grads = _mesh_train(cfg, eps, grads=held)
-        one[name]["state_bytes_reckoned"] = train_cli.state_bytes(cfg)
-        refs[name] = {"params": params, "grads": grads, "rounding": None}
-        if held:
-            _, _, moved = _mesh_train(cfg, eps, grads=True,
-                                      perturb=MESH_ROUNDING_SEED)
-            refs[name]["rounding"] = _rel_gaps(moved, grads)
+    for name, (cfg, eps, seeds) in cases.items():
+        one[name], refs[name] = _mesh_train(cfg, eps)
+        w = one[name]
+        w["state_bytes_reckoned"] = train_cli.state_bytes(cfg)
+        w["rounded_grad_norms"] = [_mesh_train(cfg, eps, perturb=s)[0][
+            "grad_norm"] for s in seeds]
+        w["spread"] = [max((abs(m[i] - b) / abs(b)
+                            for m in w["rounded_grad_norms"]), default=0.0)
+                       for i, b in enumerate(w["grad_norm"])]
     torch.save(refs, MESH_DIR / "train_ref.pt")
     del refs
     t0 = time.perf_counter()
     _spawn_ranks(_train_rank)
     ranks_s = time.perf_counter() - t0
     got = json.loads((MESH_DIR / "train.json").read_text())
-    for name, (cfg, eps) in cases.items():
+    for name, (cfg, eps, seeds) in cases.items():
         w = one[name]
         print(f"mesh train {name} ({cfg.name}, {cfg.n_layers} layers, "
               f"{cfg.param_dtype}, AdamW eps {eps:g}), {MESH_TRAIN_STEPS} "
@@ -4833,8 +4795,12 @@ def mesh_train_leg(card):
               f"{w['peak_mem_bytes']} bytes (building the state "
               f"{w['build_peak_bytes']}), state "
               f"{w['state_bytes']} bytes (state_bytes reckoned "
-              f"{w['state_bytes_reckoned']}); "
-              + "; ".join(
+              f"{w['state_bytes_reckoned']})"
+              + ("" if not seeds else
+                 f", from weights rounded at bf16 (seeds {list(seeds)}) "
+                 f"grad norms {w['rounded_grad_norms']}, largest move a "
+                 f"step {w['spread']}")
+              + "; " + "; ".join(
                   f"rank {r['rank']} loss {r[name]['loss']}, grad norm "
                   f"{r[name]['grad_norm']}, s a step {r[name]['step_s']}, "
                   f"peak {r[name]['peak_mem_bytes']} bytes (building "
@@ -4843,23 +4809,19 @@ def mesh_train_leg(card):
                   + ("" if "param_diffs" not in r[name] else
                      f", weights max diff {r[name]['param_diffs'][0]:.3e} "
                      f"({_over(r[name])} past "
-                     f"{MESH_TRAIN_REL * MESH_TRAIN_STEPS:g} x the largest)")
-                  + ("" if "grad_rel" not in r[name] else
-                     f", step-1 gradients rel at most "
-                     f"{max(r[name]['grad_rel'].values()):.3e} (rounding "
-                     f"moves one device's up to "
-                     f"{max(r[name]['grad_rounding'].values()):.3e})")
+                     f"{MESH_TRAIN_REL * MESH_TRAIN_STEPS:g} x the "
+                     f"largest), step-1 gradients rel at most "
+                     f"{max(r[name]['grad_rel'].values()):.3e}")
                   for r in got) + f" (card {card})")
     for r in got:
-        for name, (cfg, eps) in cases.items():
+        for name, (cfg, eps, seeds) in cases.items():
             g, w = r[name], one[name]
             bf16 = cfg.param_dtype == "bfloat16"
             for key in ("loss", "grad_norm"):
                 for i, (a, b) in enumerate(zip(g[key], w[key])):
-                    tol = FAMILY_BF16_REL if bf16 else MESH_TRAIN_REL * (i + 1)
-                    if (name in MESH_TRAIN_SPREAD and key == "grad_norm"
-                            and i > 0):
-                        continue                # reported, not held
+                    tol = (_norm_bound(w, seeds, i, bf16)
+                           if key == "grad_norm" else FAMILY_BF16_REL
+                           if bf16 else MESH_TRAIN_REL * (i + 1))
                     check(abs(a - b) <= tol * abs(b),
                           f"mesh train {name} rank {r['rank']} step {i} "
                           f"{key} {a} vs one device {b} (rel bound {tol})")
@@ -4873,14 +4835,10 @@ def mesh_train_leg(card):
                       and g["param_diffs"][0] <= MESH_ADAM_ABS,
                       f"mesh train {name} rank {r['rank']}: weights past "
                       f"{bound:.3e}: {over}")
-            if "grad_rel" in g:
-                for k, gap in g["grad_rel"].items():
-                    rnd = g["grad_rounding"][k]
-                    check(rnd <= MESH_ROUNDING_CAP
-                          and gap <= max(MESH_TRAIN_REL, rnd),
-                          f"mesh train {name} rank {r['rank']}: gradient "
-                          f"{k} rel {gap:.3e} (rounding moves it "
-                          f"{rnd:.3e})")
+                k, gap = max(g["grad_rel"].items(), key=lambda kv: kv[1])
+                check(gap <= MESH_TRAIN_REL,
+                      f"mesh train {name} rank {r['rank']}: step-1 "
+                      f"gradient {k} rel {gap:.3e}")
     print(f"mesh train ranks' processes {ranks_s:.2f} s")
     return {"one_device": one, "ranks": got, "ranks_wall_s": ranks_s}
 

@@ -152,7 +152,8 @@ def is_dtensor(x) -> bool:
     return mod is not None and isinstance(x, mod.DTensor)
 
 
-def reduce_partial(x: torch.Tensor) -> torch.Tensor:
+def reduce_partial(x: torch.Tensor,
+                   placements: Optional[Sequence] = None) -> torch.Tensor:
     """``x`` with its pending sums (a row-parallel product's output)
     reduced, its other placements kept: the all-reduce that ends a
     Megatron sublayer, taken once where the output joins the residual
@@ -161,17 +162,24 @@ def reduce_partial(x: torch.Tensor) -> torch.Tensor:
     pending sums the same way: the residual stream's gradient is itself a
     pending sum (a vocab-parallel head's), which DTensor would otherwise
     hand on as one to the row-parallel product, where it gathers the
-    weight and multiplies at full size on every rank.  A bf16 or f16 CUDA
-    tensor on a gloo mesh takes ``_ReduceHalf`` (float32 sums, both
-    ways); a plain tensor is returned as it is."""
+    weight and multiplies at full size on every rank.  ``placements`` (one
+    a mesh dim) puts the sums elsewhere than ``Replicate`` on the mesh
+    dims where they are pending: a ``Shard`` there is a reduce-scatter (a
+    gradient brought to its ZeRO-1 moments).  A bf16 or f16 CUDA tensor
+    on a gloo mesh takes ``_ReduceHalf`` (float32 sums, both ways), then
+    its own block of ``placements``; a plain tensor is returned as it
+    is."""
     if not is_dtensor(x) or not any(p.is_partial() for p in x.placements):
         return x
     from torch.distributed.tensor import DTensor, Replicate
     mesh = x.device_mesh
-    target = [Replicate() if p.is_partial() else p for p in x.placements]
+    target = [(Replicate() if placements is None else placements[i])
+              if p.is_partial() else p for i, p in enumerate(x.placements)]
     on = [i for i, p in enumerate(x.placements) if p.is_partial()]
     if _half_on_gloo(x, mesh.get_group(on[0])):
-        return _ReduceHalf.apply(x)
+        out = _ReduceHalf.apply(x)
+        return (out if tuple(out.placements) == tuple(target)
+                else out.redistribute(mesh, target))
     local = x.redistribute(mesh, target).to_local(grad_placements=target)
     return DTensor.from_local(local, mesh, target, run_check=False,
                               shape=x.shape, stride=x.stride())

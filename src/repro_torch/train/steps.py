@@ -41,7 +41,7 @@ from ..models import forward, init_params
 from ..models.config import ModelConfig
 from ..models.model import Transformer
 from ..optim import Optimizer, clip_scale, global_norm
-from ..sharding import DATA, gather, reduce_partial, shard
+from ..sharding import DATA, gather, is_dtensor, reduce_partial, shard
 
 __all__ = ["TrainState", "init_train_state", "lm_loss_per_seq", "lm_loss",
            "make_train_step", "make_straggler_train_step", "make_serve_step",
@@ -123,11 +123,19 @@ def _apply_grads(state: TrainState, opt: Optimizer) -> torch.Tensor:
     the global norm, take the optimizer step in place, drop the gradients
     and return the pre-clip norm.  Under a mesh a gradient's pending sums
     (the data shards' and the expert-parallel ranks' partials) are
-    reduced once here (``reduce_partial``); left pending, DTensor would
-    reduce them again at every op that reads them: the norm's square and
-    each AdamW moment."""
+    reduced once here (``reduce_partial``), onto its optimizer moments'
+    placements: replicated beside a replicated moment, a reduce-scatter
+    onto ZeRO-1's data-sharded ones.  Left pending, DTensor would reduce
+    them again at every op that reads them: the norm's square and each
+    AdamW moment."""
     params = state.named_params()
-    grads = {k: (reduce_partial(p.grad) if p.grad is not None
+    moments = state.opt_state[opt.moments[0]] if opt.moments else {}
+
+    def placed(k):
+        m = moments.get(k)
+        return m.placements if is_dtensor(m) else None
+
+    grads = {k: (reduce_partial(p.grad, placed(k)) if p.grad is not None
                  else torch.zeros_like(p))
              for k, p in params.items()}
     gnorm = global_norm(grads)

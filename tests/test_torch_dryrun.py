@@ -342,6 +342,22 @@ def test_mesh_variants_raise(small, mesh_runs, variant):
                            variant=variant, mesh="1xH100")
 
 
+def test_zero1_reduce_scatters_the_gradients_onto_its_moments(small,
+                                                             mesh_runs):
+    """ZeRO-1's train round takes each data-partial gradient straight to
+    its data-sharded moments (``steps._apply_grads``): a reduce-scatter,
+    and less all-reduce than the same round with replicated moments,
+    whose gradients are all-reduced (the same all-gather of the weights
+    aside, ZeRO-1 moves fewer bytes)."""
+    base = _doc(mesh_runs, "pod__mistral-nemo-12b__train_4k.json")
+    zero1 = _doc(mesh_runs, "pod__mistral-nemo-12b__train_4k__zero1.json")
+    b, z = base["collectives"]["bytes"], zero1["collectives"]["bytes"]
+    assert b["reduce-scatter"] == 0 < z["reduce-scatter"]
+    assert z["all-reduce"] + z["reduce-scatter"] < b["all-reduce"]
+    assert (zero1["roofline"]["collective_s"]
+            < base["roofline"]["collective_s"])
+
+
 def test_cli_one_combo_multi_pod_and_the_all_loop(small, tmp_path, capsys,
                                                   mesh_runs):
     res = dryrun.main(["--arch", "phi4-mini-3.8b", "--shape", "prefill_32k",

@@ -78,7 +78,8 @@ def mesh_semantics(data_size: int, model_size: int):
     cut into data_size contiguous shards (the rows each data rank holds),
     each shard routed with its own capacity, the outputs joined, the aux
     model_size x the mean of the shards' (``lax.psum`` of each model
-    rank's whole estimate over every axis, over the data size)."""
+    rank's whole estimate over every axis, over the data size).  Also
+    ``chip_smoke.py``'s, on its 1 x 2 mesh."""
     real = L.moe_local
 
     def per_shard(x2d, *args, **kw):
@@ -93,8 +94,9 @@ def mesh_semantics(data_size: int, model_size: int):
         L.moe_local = real
 
 
-def _gaps(got: dict, want: dict) -> dict:
-    """Per tensor: max |got - want| over max |want|."""
+def gaps(got: dict, want: dict) -> dict:
+    """Per tensor: max |got - want| over max |want|.  Also
+    ``chip_smoke.py``'s."""
     return {k: float((got[k] - want[k]).abs().max()
                      / want[k].abs().max().clamp_min(1e-30))
             for k in want}
@@ -122,7 +124,7 @@ def moe_grad_case(ctx) -> dict:
         g = torch.autograd.grad((out * wd).sum() + AUX_W * aux_m,
                                 [xd] + list(moe.parameters()))
         got = {k: _whole(v) for k, v in zip(["x"] + names, g)}
-    return {"grad_rel": _gaps(got, want),
+    return {"grad_rel": gaps(got, want),
             "aux": float(_whole(aux_m)), "aux_want": float(aux)}
 
 
@@ -156,7 +158,7 @@ def remat_case(ctx) -> dict:
                 return {"error": repr(e)[:300]}
         grads[remat] = {k: _whole(p.grad) for k, p in
                         model.named_parameters()}
-    return {"grad_rel": _gaps(grads[True], grads[False])}
+    return {"grad_rel": gaps(grads[True], grads[False])}
 
 
 def _family_cfg(arch):
@@ -180,16 +182,18 @@ def _extras(cfg, C):
 
 
 @contextlib.contextmanager
-def _first_grads(store: dict):
-    """Every weight's gradient, whole, as the first optimizer step of the
-    run reads it (``steps._apply_grads``)."""
+def first_grads(store: dict):
+    """Every weight's gradient, whole, copied to the CPU, as the first
+    optimizer step of the run reads it (``steps._apply_grads``).  Also
+    ``chip_smoke.py``'s."""
     real = train_steps._apply_grads
 
     def apply(state, opt):
         if not store:
             for k, p in state.named_params().items():
                 store[k] = (torch.zeros(p.shape) if p.grad is None
-                            else _whole(p.grad).detach().clone())
+                            else _whole(p.grad).detach().to("cpu",
+                                                            copy=True))
         return real(state, opt)
 
     train_steps._apply_grads = apply
@@ -235,7 +239,7 @@ def train_run(arch, ctx=None, semantics=(1, 1), perturb=None) -> dict:
            _mesh_grad_ctx(ctx, implicit_replication))
     grads: dict = {}
     cluster, losses, norms = None, [], []
-    with run, _first_grads(grads):
+    with run, first_grads(grads):
         for i in range(TRAIN_STEPS):
             toks, labs = lm_task_batches(part, C, i, device="cpu")
             if ctx is not None:
@@ -278,9 +282,9 @@ def _compare(got, refs) -> dict:
                        .flatten() for k in want["params"]])
     return {"loss": got["loss"], "loss_want": want["loss"],
             "grad_norm": got["grad_norm"], "grad_norm_want":
-            want["grad_norm"], "grad_rel": _gaps(got["grads"],
+            want["grad_norm"], "grad_rel": gaps(got["grads"],
                                                  want["grads"]),
-            "grad_rounding": _gaps(perturbed["grads"], want["grads"]),
+            "grad_rounding": gaps(perturbed["grads"], want["grads"]),
             "param_max": max(float(p.abs().max())
                              for p in want["params"].values()),
             "param_diff_max": float(diffs.max()),
